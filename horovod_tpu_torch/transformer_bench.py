@@ -1,0 +1,187 @@
+"""Transformer training benchmark on the port: tokens/s and MFU for a
+GPT-2-small-class decoder, data parallel.
+
+The port of ``tools/transformer_bench.py``: the same flags and defaults
+and one JSON line with the same keys. One process per GPU; under a
+launcher every rank takes its 8-sequence share of the global batch.
+
+    python -m horovod_tpu_torch.transformer_bench          # GPT-2-small-ish
+    python -m horovod_tpu_torch.transformer_bench --device cpu --d-model 64 \\
+        --n-heads 4 --n-layers 2 --vocab 256 --seq-len 64 --num-iters 2
+
+MFU convention (copied): model FLOPs per token = 6*N (N = matmul
+parameter count: embedding table and learned positions excluded, untied
+output head included) plus the attention term 12*L*T*d_attn (QK^T and PV,
+fwd+bwd, causality not discounted), over the card's dense bf16 peak.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from typing import Callable, NamedTuple, Optional
+
+import numpy as np
+import torch
+
+# Dense bf16 peak of one H100 SXM (NVIDIA's data sheet), the MFU divisor.
+H100_BF16_DENSE_FLOPS = 989e12
+
+
+def peak_flops(device: torch.device) -> Optional[float]:
+    """Dense bf16 peak of ``device``, or None where the port holds none."""
+    if device.type == "cuda" and "H100" in torch.cuda.get_device_name(device):
+        return H100_BF16_DENSE_FLOPS
+    return None
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser()
+    p.add_argument("--d-model", type=int, default=768)
+    p.add_argument("--n-heads", type=int, default=12)
+    p.add_argument("--n-layers", type=int, default=12)
+    p.add_argument("--vocab", type=int, default=50304,
+                   help="GPT-2 vocab rounded up to a multiple of 128")
+    p.add_argument("--seq-len", type=int, default=1024,
+                   help="GLOBAL sequence length")
+    p.add_argument("--batch-size", type=int, default=None,
+                   help="global batch (default: 8 per dp shard)")
+    p.add_argument("--sp", type=int, default=1)
+    p.add_argument("--tp", type=int, default=1)
+    p.add_argument("--strategy", default="ring",
+                   choices=["ring", "ulysses", "auto"])
+    p.add_argument("--n-kv-heads", type=int, default=None,
+                   help="grouped-query attention: KV heads < --n-heads")
+    p.add_argument("--rope", action="store_true",
+                   help="rotary positions instead of the learned table")
+    p.add_argument("--window", type=int, default=None,
+                   help="sliding-window attention width")
+    p.add_argument("--zero", action="store_true",
+                   help="ZeRO-1 over dp (a later slice of the port)")
+    p.add_argument("--remat", action="store_true",
+                   help="rematerialize decoder layers (a later slice)")
+    p.add_argument("--num-warmup", type=int, default=3)
+    p.add_argument("--num-iters", type=int, default=20)
+    p.add_argument("--device", default=None,
+                   help="default cuda:<local rank>; 'cpu' to run on the CPU")
+    return p.parse_args(argv)
+
+
+class BenchRun(NamedTuple):
+    result: dict        # the JSON line
+    losses: list        # every step's loss, warm-up included
+    peak_mem_bytes: Optional[int]
+    model: torch.nn.Module
+    tokens: torch.Tensor
+    allreduce_count: int  # bucket all-reduces the optimizer launched
+    step: Callable[[], torch.Tensor]  # one more step on the same batch
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run(args) -> BenchRun:
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.transformer import (
+        Transformer, TransformerConfig, check_parallelism)
+    from horovod_tpu_torch.training import make_train_step
+
+    check_parallelism(sp=args.sp, tp=args.tp)
+    if args.zero:
+        raise NotImplementedError("ZeRO comes with a later slice of the port")
+    hvd.init(device=args.device)
+    device = hvd.device()
+    size, rank = hvd.size(), hvd.rank()
+    batch = args.batch_size if args.batch_size is not None else 8 * size
+    if batch % size:
+        raise ValueError(f"global batch {batch} does not split over {size}")
+    local = batch // size
+    kind = (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+    print(f"bench: dp={size} on {device} ({kind}); B={batch} "
+          f"T={args.seq_len}", file=sys.stderr)
+
+    cfg = TransformerConfig(
+        vocab=args.vocab, d_model=args.d_model, n_heads=args.n_heads,
+        d_head=args.d_model // args.n_heads, d_ff=4 * args.d_model,
+        n_layers=args.n_layers, max_seq=args.seq_len, dtype=torch.bfloat16,
+        sp_strategy=args.strategy, remat=args.remat,
+        n_kv_heads=args.n_kv_heads, rope=args.rope,
+        attention_window=args.window)
+    model = Transformer(cfg, device=device, seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    n_matmul_params = n_params - sum(
+        p.numel() for name, p in model.named_parameters()
+        if name in ("embed", "pos"))
+    optimizer = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=1e-4),
+        named_parameters=model.named_parameters())
+    step = make_train_step(model, optimizer)
+
+    rng = np.random.RandomState(0)
+    tokens_all = rng.randint(0, cfg.vocab, (batch, args.seq_len))
+    labels_all = np.roll(tokens_all, -1, axis=1)
+    shard = slice(rank * local, (rank + 1) * local)
+    tokens = torch.as_tensor(tokens_all[shard], device=device)
+    labels = torch.as_tensor(labels_all[shard], device=device)
+
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    losses = [step(tokens, labels) for _ in range(max(1, args.num_warmup))]
+    _sync(device)
+    t0 = time.perf_counter()
+    losses += [step(tokens, labels) for _ in range(args.num_iters)]
+    _sync(device)
+    dt = time.perf_counter() - t0
+    losses = [float(x) for x in losses]
+    peak_mem = (torch.cuda.max_memory_allocated(device)
+                if device.type == "cuda" else None)
+
+    tok_per_s = batch * args.seq_len * args.num_iters / dt
+    d_attn = args.n_heads * (args.d_model // args.n_heads)
+    attn_span = (min(args.seq_len, args.window) if args.window
+                 else args.seq_len)
+    flops_per_token = (6 * n_matmul_params +
+                       12 * args.n_layers * attn_span * d_attn)
+    result = {
+        "metric": "transformer_tokens_per_sec_per_chip",
+        "value": round(tok_per_s / size, 1),
+        "unit": "tokens/sec/chip",
+        "platform": "gpu" if device.type == "cuda" else device.type,
+        "device_kind": kind,
+        "n_params": n_params,
+        "n_matmul_params": n_matmul_params,
+        "d_model": args.d_model,
+        "n_layers": args.n_layers,
+        "seq_len": args.seq_len,
+        "global_batch": batch,
+        "mesh": {"dp": size, "pp": 1, "sp": args.sp, "tp": args.tp},
+        "sp_strategy": args.strategy,
+        "window": args.window,
+        "zero": bool(args.zero),
+        "loss": round(losses[-1], 4),
+        "step_ms": round(1e3 * dt / args.num_iters, 2),
+    }
+    peak = peak_flops(device)
+    if peak:
+        result["mfu"] = round(tok_per_s * flops_per_token / (size * peak), 4)
+    return BenchRun(result, losses, peak_mem, model, tokens,
+                    optimizer.allreduce_count, lambda: step(tokens, labels))
+
+
+def main(argv=None):
+    import horovod_tpu_torch as hvd
+
+    try:
+        print(json.dumps(run(parse_args(argv)).result))
+    finally:
+        hvd.shutdown()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
