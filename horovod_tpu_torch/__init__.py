@@ -14,18 +14,24 @@ Typical use, one process per GPU::
                                    named_parameters=model.named_parameters())
     hvd.broadcast_parameters(model.state_dict(), root_rank=0)
 
-This slice carries the data-parallel transformer trainer
-(``horovod_tpu_torch.transformer_bench``); ROADMAP.md lists what is still
-to port.
+``hvd.init(sp=N)`` lays the world out as dp x sp; sequence-parallel
+attention (ring or Ulysses, ``horovod_tpu_torch.parallel``) runs on the sp
+groups. The port carries the data- and sequence-parallel transformer
+trainer (``horovod_tpu_torch.transformer_bench``); ROADMAP.md lists what
+is still to port.
 """
 
 from .common import exceptions  # noqa: F401
 from .common.compression import Compression  # noqa: F401
 from .common.exceptions import NotInitializedError  # noqa: F401
 from .common.state import (  # noqa: F401
+    axis_group,
+    axis_sizes,
     cross_rank,
     cross_size,
     device,
+    dp_rank,
+    dp_size,
     init,
     is_initialized,
     local_rank,
@@ -33,6 +39,8 @@ from .common.state import (  # noqa: F401
     rank,
     shutdown,
     size,
+    sp_rank,
+    sp_size,
 )
 from .ops.collectives import (  # noqa: F401
     Adasum,

@@ -36,6 +36,8 @@ class _GlobalState:
         self.local_rank = 0
         self.cross_size = 0
         self.cross_rank = 0
+        self.axis_sizes = None   # {"dp", "pp", "sp", "tp"} sizes
+        self.groups = None       # {"dp", "sp"}: this rank's AxisGroups
 
     def reset(self):
         self.__init__()
@@ -69,18 +71,29 @@ def resolve_device(device=None, local_rank: Optional[int] = None
     return torch.device("cuda", local_rank)
 
 
-def init(device=None):
+def init(device=None, sp: int = 1):
     """Join the world and make its process group.
 
     ``device``: where this process computes; defaults to
     ``cuda:<local_rank>``. Pass ``device="cpu"`` to run on the CPU (gloo).
-    Idempotent. Adopts a ``torch.distributed`` group the caller already
-    made.
+    ``sp``: the sequence-parallel axis size; the world splits into
+    dp = size / sp groups of sp consecutive ranks. Idempotent (a second
+    call must ask for the same sp). Adopts a ``torch.distributed`` group
+    the caller already made.
     """
+    from ..parallel.mesh import build_groups, factor_devices
+
     with _state.lock:
         if _state.initialized:
+            if sp != _state.axis_sizes["sp"]:
+                raise ValueError(
+                    f"already initialized with sp={_state.axis_sizes['sp']}"
+                    f"; shutdown() before asking for sp={sp}")
             return
         size, rank = _config.size(), _config.rank()
+        # A bad sp raises before the world is joined.
+        factor_devices(dist.get_world_size() if dist.is_initialized()
+                       else size, tp=1, pp=1, sp=sp)
         local_rank = _config.local_rank()
         local_size = _config.local_size(size)
         dev = resolve_device(device, local_rank)
@@ -108,6 +121,8 @@ def init(device=None):
         _state.cross_size = _config.cross_size(
             max(1, _state.size // max(1, local_size)))
         _state.cross_rank = _config.cross_rank(_state.rank // max(1, local_size))
+        _state.axis_sizes, _state.groups = build_groups(
+            _state.size, _state.rank, sp=sp)
         _state.initialized = True
 
 
@@ -160,3 +175,33 @@ def cross_rank() -> int:
 def device() -> torch.device:
     """The device ``init`` chose for this process."""
     return _require_init("device").device
+
+
+def sp_size() -> int:
+    """Ranks along the sequence-parallel axis."""
+    return _require_init("sp_size").groups["sp"].size
+
+
+def sp_rank() -> int:
+    """This rank's index along the sequence-parallel axis."""
+    return _require_init("sp_rank").groups["sp"].rank
+
+
+def dp_size() -> int:
+    """Ranks along the data-parallel axis (size / sp)."""
+    return _require_init("dp_size").groups["dp"].size
+
+
+def dp_rank() -> int:
+    """This rank's index along the data-parallel axis."""
+    return _require_init("dp_rank").groups["dp"].rank
+
+
+def axis_group(axis: str):
+    """This rank's ``AxisGroup`` of ``axis`` ("dp" or "sp")."""
+    return _require_init(f"axis_group({axis!r})").groups[axis]
+
+
+def axis_sizes() -> dict:
+    """The mesh's axis sizes, {"dp", "pp", "sp", "tp"}."""
+    return dict(_require_init("axis_sizes").axis_sizes)

@@ -1,17 +1,25 @@
-// Flash attention for Hopper (sm_90a): forward (plain and train modes),
-// backward dQ and backward dK/dV, written by hand in CUDA C++.
+// Flash attention for Hopper (sm_90a): forward (plain, train and state
+// modes), backward dQ and backward dK/dV, written by hand in CUDA C++.
 //
-// Replaces the three Pallas kernels of horovod_tpu/ops/pallas_attention.py:
+// Replaces the five Pallas kernels of horovod_tpu/ops/pallas_attention.py:
 //   flash_fwd      <- _attn_kernel (45) via _pallas_attention_fwd (602,
-//                     plain mode, lse == nullptr) and
-//                     _pallas_attention_fwd_train (653, train mode: O + lse)
+//                     plain mode: O), _pallas_attention_fwd_train (653,
+//                     train mode: O + lse) and _pallas_block_state (343,
+//                     pallas_call 391, state mode: the unnormalized fp32
+//                     accumulator + m + l that ring attention merges)
 //   flash_bwd_dq   <- _attn_bwd_dq_kernel (182) via _pallas_bwd (737)
 //   flash_bwd_dkv  <- _attn_bwd_dkv_kernel (246) via _pallas_bwd (770)
+// Every kernel takes optional packed-sequence segment ids (the `_seg`
+// variants at 157, 174, 237, 307, 595), and the two backward kernels write
+// their outputs in the input dtype or in fp32 (`_pallas_bwd`'s out_dtype,
+// which ring attention's backward uses to sum blocks in fp32).
 //
 // Layout: q/k/v/dO are [B, T, H, D] tensors read by strides (the head dim
 // is contiguous; b/t/h strides are arbitrary multiples of 16 bytes), so no
-// [B*H, T, D] copy is made. lse and delta are fp32 [B, H, Tq] contiguous.
-// Outputs are written through their own strides.
+// [B*H, T, D] copy is made. lse, delta, m and l are fp32 [B, H, Tq]
+// contiguous; segment ids are int32 [B, Tq] and [B, Tk] contiguous, one
+// row per batch entry (no per-head copy). Outputs are written through
+// their own strides.
 //
 // Design. One CTA owns one 64-row tile (32 rows for fp32 at D=128, to fit
 // shared memory) of the parallel dimension and loops over the tiles of the
@@ -23,16 +31,24 @@
 // fp32 inputs use an FMA loop so fp32 stays fp32 (no TF32 rounding). The
 // online-softmax state (m, l) and the fp32 accumulators live in shared
 // memory. Causal and sliding-window tiles that hold no visible key are
-// culled before they are loaded. A ragged last tile is zero-filled and
-// masked inside the kernel, so every T is served.
+// culled before they are loaded; segment ids mask pairs inside a tile and
+// never cull one. Segment ids are a template flag (SEG): the launcher picks
+// the instantiation by whether ids were given, so a call without them runs
+// code with no id loads or compares (a runtime test in the inner loops
+// cost 10-25 % at the slice's shape, PERF.md). A ragged last tile is zero-filled and masked inside the
+// kernel, so every T is served. In state mode a block whose every tile is
+// culled (a future block of the ring) still writes m = -1e30, l = 0 and
+// acc = 0 for every row, the state the ring merge expects.
 //
 // Bound at the slice's shape (B=8, T=1024, H=12, D=64, causal, bf16, one
 // layer): the forward needs ~12.9 GFLOP (QK^T and PV over the visible
 // pairs) and moves ~50 MB, so on an H100 (989 TFLOP/s bf16, 3.35 TB/s) it
 // is bound by bytes (~15 us) rather than operations (~13 us); dQ needs
-// 3/2 and dK/dV 2x the forward's operations over ~63 MB and ~76 MB. This
-// first version is simple rather than fast: WMMA through shared memory,
-// no TMA/wgmma pipeline and no warp specialisation (PERF.md has its time).
+// 3/2 and dK/dV 2x the forward's operations over ~63 MB and ~76 MB. The
+// ring's past block (Tq = Tk = 2048, all pairs visible) is bound by
+// operations: ~103 GFLOP (~104 us) against ~125 MB (~38 us). This version
+// is simple rather than fast: WMMA through shared memory, no TMA/wgmma
+// pipeline and no warp specialisation (PERF.md has its time).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -57,6 +73,20 @@ __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16(x); }
 
+// One output row of D values from a fp32 shared row, in the input dtype T
+// or (out_f32) in fp32.
+template <typename T, int D>
+__device__ __forceinline__ void store_row(void* base, long long off, const float* src,
+                                          bool out_f32, int lane) {
+  if (out_f32) {
+    float* row = static_cast<float*>(base) + off;
+    for (int d = lane; d < D; d += 32) row[d] = src[d];
+  } else {
+    T* row = static_cast<T*>(base) + off;
+    for (int d = lane; d < D; d += 32) row[d] = from_f<T>(src[d]);
+  }
+}
+
 __host__ __device__ constexpr int align128(int x) { return (x + 127) & ~127; }
 
 // Tile geometry. BM rows per tile (of Q and of K alike); one warp per
@@ -76,12 +106,13 @@ struct Cfg {
   static constexpr int ACC = align128(BM * LDF * 4);
   static constexpr int SCORE = align128(BM * LDS * 4);
   static constexpr int PROB = align128(BM * LDP * ES);
-  static constexpr int ROW = align128(BM * 4);
-  static constexpr int FWD_SMEM = 3 * TILE + SCORE + PROB + ACC + 2 * ROW;
+  static constexpr int ROW = align128(BM * 4);  // BM floats or int32 ids
+  // Four row vectors each: two of fp32 row statistics, two of segment ids.
+  static constexpr int FWD_SMEM = 3 * TILE + SCORE + PROB + ACC + 4 * ROW;
   // The backward kernels write P and dS (in T) over their warp's strip of
   // the fp32 S and dP tiles once read: dK/dV then fits two CTAs per SM.
-  static constexpr int DQ_SMEM = 4 * TILE + 2 * SCORE + ACC + 2 * ROW;
-  static constexpr int DKV_SMEM = 4 * TILE + 2 * SCORE + 2 * ACC + 2 * ROW;
+  static constexpr int DQ_SMEM = 4 * TILE + 2 * SCORE + ACC + 4 * ROW;
+  static constexpr int DKV_SMEM = 4 * TILE + 2 * SCORE + 2 * ACC + 4 * ROW;
 };
 
 // C[16][N] = A[16][K] . B[N][K]^T for this warp's strip.
@@ -164,6 +195,16 @@ __device__ __forceinline__ void load_tile(T* dst, int ld, const T* base, long lo
   }
 }
 
+// Segment ids of rows [row0, row0 + BM) of batch entry b (a [B, rows]
+// int32 array) into shared memory.
+template <int BM, int NT>
+__device__ __forceinline__ void load_ids(int* dst, const int* ids, int b, int row0, int rows) {
+  for (int i = threadIdx.x; i < BM; i += NT) {
+    const int t = row0 + i;
+    dst[i] = t < rows ? ids[(long long)b * rows + t] : 0;
+  }
+}
+
 __device__ __forceinline__ bool visible_pair(int qpos, int kpos, int causal, int window) {
   if (!causal) return true;
   return qpos >= kpos && (window <= 0 || qpos - kpos < window);
@@ -180,12 +221,18 @@ __device__ __forceinline__ bool visible_tile(int q_base, int k_base, int bm, int
   return true;
 }
 
-template <typename T, int D>
+// Forward. Plain mode (lse == m_out == nullptr): o = normalized O in T.
+// Train mode (lse set): also lse, +1e30 on rows with no visible key.
+// State mode (m_out and l_out set): o is fp32 and receives the
+// unnormalized accumulator; m and l are written, no lse.
+template <typename T, int D, bool SEG>
 __global__ void __launch_bounds__(Cfg<T, D>::NT)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
-                     Strides sq, Strides sk, Strides sv, Strides so, int H, int Tq, int Tk,
-                     int causal, int q_off, int k_off, int window, float scale) {
+                     const T* __restrict__ v, void* __restrict__ o, float* __restrict__ lse,
+                     float* __restrict__ m_out, float* __restrict__ l_out,
+                     const int* __restrict__ q_ids, const int* __restrict__ k_ids, Strides sq,
+                     Strides sk, Strides sv, Strides so, int H, int Tq, int Tk, int causal,
+                     int q_off, int k_off, int window, float scale) {
   using C = Cfg<T, D>;
   constexpr int BM = C::BM;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -197,6 +244,8 @@ __global__ void __launch_bounds__(Cfg<T, D>::NT)
   float* sAcc = reinterpret_cast<float*>(smem + 3 * C::TILE + C::SCORE + C::PROB);
   float* sM = reinterpret_cast<float*>(smem + 3 * C::TILE + C::SCORE + C::PROB + C::ACC);
   float* sL = sM + C::ROW / 4;
+  int* sQid = reinterpret_cast<int*>(sL + C::ROW / 4);
+  int* sKid = sQid + C::ROW / 4;
 
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int row0 = blockIdx.x * BM;
@@ -204,6 +253,7 @@ __global__ void __launch_bounds__(Cfg<T, D>::NT)
   const int r0 = warp * 16;
 
   load_tile<T, D, BM, C::NT>(sQ, C::LDT, q + b * sq.b + h * sq.h, sq.t, row0, Tq);
+  if (SEG) load_ids<BM, C::NT>(sQid, q_ids, b, row0, Tq);
   for (int i = threadIdx.x; i < BM * C::LDF; i += C::NT) sAcc[i] = 0.0f;
   for (int i = threadIdx.x; i < BM; i += C::NT) {
     sM[i] = NEG_INF;
@@ -218,6 +268,7 @@ __global__ void __launch_bounds__(Cfg<T, D>::NT)
     if (!visible_tile(q_base, k_base, BM, causal, window)) continue;
     load_tile<T, D, BM, C::NT>(sK, C::LDT, k + b * sk.b + h * sk.h, sk.t, kt * BM, Tk);
     load_tile<T, D, BM, C::NT>(sV, C::LDT, v + b * sv.b + h * sv.h, sv.t, kt * BM, Tk);
+    if (SEG) load_ids<BM, C::NT>(sKid, k_ids, b, kt * BM, Tk);
     __syncthreads();
 
     warp_gemm_nt<T, BM, D>(sQ + r0 * C::LDT, C::LDT, sK, C::LDT, sS + r0 * C::LDS, C::LDS);
@@ -226,13 +277,15 @@ __global__ void __launch_bounds__(Cfg<T, D>::NT)
       // row, each taking every other column, combined by one shuffle.
       const int r = r0 + (lane >> 1), half = lane & 1;
       const int qpos = q_base + r;
+      const int qid = SEG ? sQid[r] : 0;
       constexpr int PER = BM / 2;
       float s[PER];
       float mx = NEG_INF;
 #pragma unroll
       for (int j = 0; j < PER; ++j) {
         const int c = 2 * j + half;
-        const bool ok = (kt * BM + c < Tk) && visible_pair(qpos, k_base + c, causal, window);
+        const bool ok = (kt * BM + c < Tk) && visible_pair(qpos, k_base + c, causal, window) &&
+                        (!SEG || sKid[c] == qid);
         s[j] = ok ? sS[r * C::LDS + c] * scale : NEG_INF;
         mx = fmaxf(mx, s[j]);
       }
@@ -245,7 +298,7 @@ __global__ void __launch_bounds__(Cfg<T, D>::NT)
       for (int j = 0; j < PER; ++j) {
         const float p = s[j] <= NEG_INF / 2 ? 0.0f : expf(s[j] - m_new);
         sum += p;
-        sP[r * C::LDP + 2 * j + half] = from_f<T>(p);
+        sP[r * C::LDP + 2 * j + half] = from_f<T>(p);  // P in V's dtype, as Pallas
       }
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
       for (int d = half; d < D; d += 2) sAcc[r * C::LDF + d] *= corr;
@@ -265,21 +318,32 @@ __global__ void __launch_bounds__(Cfg<T, D>::NT)
     const int t = row0 + r;
     if (t >= Tq) break;
     const float l = sL[r];
-    T* orow = o + b * so.b + (long long)t * so.t + h * so.h;
+    const long long off = b * so.b + (long long)t * so.t + h * so.h;
+    if (m_out != nullptr) {
+      float* arow = static_cast<float*>(o) + off;
+      for (int d = lane; d < D; d += 32) arow[d] = sAcc[r * C::LDF + d];
+      if (lane == 0) {
+        m_out[(long long)bh * Tq + t] = sM[r];
+        l_out[(long long)bh * Tq + t] = l;
+      }
+      continue;
+    }
+    T* orow = static_cast<T*>(o) + off;
     for (int d = lane; d < D; d += 32) orow[d] = from_f<T>(sAcc[r * C::LDF + d] / fmaxf(l, 1e-30f));
     if (lse != nullptr && lane == 0)
       lse[(long long)bh * Tq + t] = l > 0.0f ? sM[r] + logf(fmaxf(l, 1e-30f)) : -NEG_INF;
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool SEG>
 __global__ void __launch_bounds__(Cfg<T, D>::NT)
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dout,
                         const float* __restrict__ lse, const float* __restrict__ delta,
-                        T* __restrict__ dq, Strides sq, Strides sk, Strides sv, Strides sdo,
-                        Strides sdq, int H, int Tq, int Tk, int causal, int q_off, int k_off,
-                        int window, float scale) {
+                        void* __restrict__ dq, const int* __restrict__ q_ids,
+                        const int* __restrict__ k_ids, Strides sq, Strides sk, Strides sv,
+                        Strides sdo, Strides sdq, int out_f32, int H, int Tq, int Tk,
+                        int causal, int q_off, int k_off, int window, float scale) {
   using C = Cfg<T, D>;
   constexpr int BM = C::BM;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -292,6 +356,8 @@ __global__ void __launch_bounds__(Cfg<T, D>::NT)
   float* sAcc = reinterpret_cast<float*>(smem + 4 * C::TILE + 2 * C::SCORE);
   float* sLse = reinterpret_cast<float*>(smem + 4 * C::TILE + 2 * C::SCORE + C::ACC);
   float* sDelta = sLse + C::ROW / 4;
+  int* sQid = reinterpret_cast<int*>(sDelta + C::ROW / 4);
+  int* sKid = sQid + C::ROW / 4;
 
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int row0 = blockIdx.x * BM;
@@ -301,6 +367,7 @@ __global__ void __launch_bounds__(Cfg<T, D>::NT)
 
   load_tile<T, D, BM, C::NT>(sQ, C::LDT, q + b * sq.b + h * sq.h, sq.t, row0, Tq);
   load_tile<T, D, BM, C::NT>(sDO, C::LDT, dout + b * sdo.b + h * sdo.h, sdo.t, row0, Tq);
+  if (SEG) load_ids<BM, C::NT>(sQid, q_ids, b, row0, Tq);
   for (int i = threadIdx.x; i < BM * C::LDF; i += C::NT) sAcc[i] = 0.0f;
   for (int i = threadIdx.x; i < BM; i += C::NT) {
     const int t = row0 + i;
@@ -317,6 +384,7 @@ __global__ void __launch_bounds__(Cfg<T, D>::NT)
     if (!visible_tile(q_base, k_base, BM, causal, window)) continue;
     load_tile<T, D, BM, C::NT>(sK, C::LDT, k + b * sk.b + h * sk.h, sk.t, kt * BM, Tk);
     load_tile<T, D, BM, C::NT>(sV, C::LDT, v + b * sv.b + h * sv.h, sv.t, kt * BM, Tk);
+    if (SEG) load_ids<BM, C::NT>(sKid, k_ids, b, kt * BM, Tk);
     __syncthreads();
 
     warp_gemm_nt<T, BM, D>(sQ + r0 * C::LDT, C::LDT, sK, C::LDT, sS + r0 * C::LDS, C::LDS);
@@ -327,10 +395,12 @@ __global__ void __launch_bounds__(Cfg<T, D>::NT)
       const int r = r0 + i;
       const int qpos = q_base + r;
       const float lse_r = sLse[r], delta_r = sDelta[r];
+      const int qid = SEG ? sQid[r] : 0;
 #pragma unroll
       for (int j = 0; j < BM / 32; ++j) {
         const int c = lane + 32 * j;
-        const bool ok = (kt * BM + c < Tk) && visible_pair(qpos, k_base + c, causal, window);
+        const bool ok = (kt * BM + c < Tk) && visible_pair(qpos, k_base + c, causal, window) &&
+                        (!SEG || sKid[c] == qid);
         const float p = ok ? expf(sS[r * C::LDS + c] * scale - lse_r) : 0.0f;
         ds[i][j] = p * (sDP[r * C::LDS + c] - delta_r) * scale;
       }
@@ -349,19 +419,21 @@ __global__ void __launch_bounds__(Cfg<T, D>::NT)
     const int r = r0 + i;
     const int t = row0 + r;
     if (t >= Tq) break;
-    T* row = dq + b * sdq.b + (long long)t * sdq.t + h * sdq.h;
-    for (int d = lane; d < D; d += 32) row[d] = from_f<T>(sAcc[r * C::LDF + d]);
+    store_row<T, D>(dq, b * sdq.b + (long long)t * sdq.t + h * sdq.h, sAcc + r * C::LDF,
+                    out_f32, lane);
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool SEG>
 __global__ void __launch_bounds__(Cfg<T, D>::NT)
     flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ dout,
                          const float* __restrict__ lse, const float* __restrict__ delta,
-                         T* __restrict__ dk, T* __restrict__ dv, Strides sq, Strides sk,
-                         Strides sv, Strides sdo, Strides sdk, Strides sdv, int H, int Tq,
-                         int Tk, int causal, int q_off, int k_off, int window, float scale) {
+                         void* __restrict__ dk, void* __restrict__ dv,
+                         const int* __restrict__ q_ids, const int* __restrict__ k_ids,
+                         Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdk,
+                         Strides sdv, int out_f32, int H, int Tq, int Tk, int causal,
+                         int q_off, int k_off, int window, float scale) {
   using C = Cfg<T, D>;
   constexpr int BM = C::BM;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -375,6 +447,8 @@ __global__ void __launch_bounds__(Cfg<T, D>::NT)
   float* sDV = reinterpret_cast<float*>(smem + 4 * C::TILE + 2 * C::SCORE + C::ACC);
   float* sLse = reinterpret_cast<float*>(smem + 4 * C::TILE + 2 * C::SCORE + 2 * C::ACC);
   float* sDelta = sLse + C::ROW / 4;
+  int* sQid = reinterpret_cast<int*>(sDelta + C::ROW / 4);
+  int* sKid = sQid + C::ROW / 4;
 
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int row0 = blockIdx.x * BM;  // first key row of this CTA
@@ -385,6 +459,7 @@ __global__ void __launch_bounds__(Cfg<T, D>::NT)
 
   load_tile<T, D, BM, C::NT>(sK, C::LDT, k + b * sk.b + h * sk.h, sk.t, row0, Tk);
   load_tile<T, D, BM, C::NT>(sV, C::LDT, v + b * sv.b + h * sv.h, sv.t, row0, Tk);
+  if (SEG) load_ids<BM, C::NT>(sKid, k_ids, b, row0, Tk);
   for (int i = threadIdx.x; i < BM * C::LDF; i += C::NT) {
     sDK[i] = 0.0f;
     sDV[i] = 0.0f;
@@ -398,6 +473,7 @@ __global__ void __launch_bounds__(Cfg<T, D>::NT)
     __syncthreads();  // the previous tile's readers are done with sQ/sDO/rows
     load_tile<T, D, BM, C::NT>(sQ, C::LDT, q + b * sq.b + h * sq.h, sq.t, qt * BM, Tq);
     load_tile<T, D, BM, C::NT>(sDO, C::LDT, dout + b * sdo.b + h * sdo.h, sdo.t, qt * BM, Tq);
+    if (SEG) load_ids<BM, C::NT>(sQid, q_ids, b, qt * BM, Tq);
     for (int i = threadIdx.x; i < BM; i += C::NT) {
       const int t = qt * BM + i;
       sLse[i] = t < Tq ? lse[(long long)bh * Tq + t] : -NEG_INF;
@@ -412,10 +488,12 @@ __global__ void __launch_bounds__(Cfg<T, D>::NT)
     for (int i = 0; i < 16; ++i) {
       const int r = r0 + i;
       const int kpos = k_base + r;
+      const int kid = SEG ? sKid[r] : 0;
 #pragma unroll
       for (int j = 0; j < BM / 32; ++j) {
         const int c = lane + 32 * j;
-        const bool ok = (qt * BM + c < Tq) && visible_pair(q_base + c, kpos, causal, window);
+        const bool ok = (qt * BM + c < Tq) && visible_pair(q_base + c, kpos, causal, window) &&
+                        (!SEG || sQid[c] == kid);
         p[i][j] = ok ? expf(sS[r * C::LDS + c] * scale - sLse[c]) : 0.0f;
         ds[i][j] = p[i][j] * (sDP[r * C::LDS + c] - sDelta[c]) * scale;
       }
@@ -438,12 +516,10 @@ __global__ void __launch_bounds__(Cfg<T, D>::NT)
     const int r = r0 + i;
     const int t = row0 + r;
     if (t >= Tk) break;
-    T* krow = dk + b * sdk.b + (long long)t * sdk.t + h * sdk.h;
-    T* vrow = dv + b * sdv.b + (long long)t * sdv.t + h * sdv.h;
-    for (int d = lane; d < D; d += 32) {
-      krow[d] = from_f<T>(sDK[r * C::LDF + d]);
-      vrow[d] = from_f<T>(sDV[r * C::LDF + d]);
-    }
+    store_row<T, D>(dk, b * sdk.b + (long long)t * sdk.t + h * sdk.h, sDK + r * C::LDF,
+                    out_f32, lane);
+    store_row<T, D>(dv, b * sdv.b + (long long)t * sdv.t + h * sdv.h, sDV + r * C::LDF,
+                    out_f32, lane);
   }
 }
 
@@ -456,46 +532,52 @@ int prepare(Kernel kernel, int smem) {
 
 template <typename T, int D>
 int launch_fwd(int B, int H, int Tq, int Tk, const void* q, const void* k, const void* v,
-               void* o, void* lse, const long long* s, int causal, int q_off, int k_off,
-               int window, float scale, cudaStream_t stream) {
+               void* o, void* lse, void* m, void* l, const void* q_ids, const void* k_ids,
+               const long long* s, int causal, int q_off, int k_off, int window, float scale,
+               cudaStream_t stream) {
   using C = Cfg<T, D>;
-  if (int err = prepare(flash_fwd_kernel<T, D>, C::FWD_SMEM)) return err;
+  auto kernel = q_ids ? flash_fwd_kernel<T, D, true> : flash_fwd_kernel<T, D, false>;
+  if (int err = prepare(kernel, C::FWD_SMEM)) return err;
   dim3 grid((Tq + C::BM - 1) / C::BM, B * H);
-  flash_fwd_kernel<T, D><<<grid, C::NT, C::FWD_SMEM, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, (float*)lse, strides_at(s, 0),
-      strides_at(s, 1), strides_at(s, 2), strides_at(s, 3), H, Tq, Tk, causal, q_off, k_off,
-      window, scale);
+  kernel<<<grid, C::NT, C::FWD_SMEM, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, o, (float*)lse, (float*)m, (float*)l,
+      (const int*)q_ids, (const int*)k_ids, strides_at(s, 0), strides_at(s, 1),
+      strides_at(s, 2), strides_at(s, 3), H, Tq, Tk, causal, q_off, k_off, window, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
 int launch_dq(int B, int H, int Tq, int Tk, const void* q, const void* k, const void* v,
               const void* dout, const void* lse, const void* delta, void* dq,
-              const long long* s, int causal, int q_off, int k_off, int window, float scale,
-              cudaStream_t stream) {
+              const void* q_ids, const void* k_ids, const long long* s, int out_f32,
+              int causal, int q_off, int k_off, int window, float scale, cudaStream_t stream) {
   using C = Cfg<T, D>;
-  if (int err = prepare(flash_bwd_dq_kernel<T, D>, C::DQ_SMEM)) return err;
+  auto kernel = q_ids ? flash_bwd_dq_kernel<T, D, true> : flash_bwd_dq_kernel<T, D, false>;
+  if (int err = prepare(kernel, C::DQ_SMEM)) return err;
   dim3 grid((Tq + C::BM - 1) / C::BM, B * H);
-  flash_bwd_dq_kernel<T, D><<<grid, C::NT, C::DQ_SMEM, stream>>>(
+  kernel<<<grid, C::NT, C::DQ_SMEM, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, (const float*)lse,
-      (const float*)delta, (T*)dq, strides_at(s, 0), strides_at(s, 1), strides_at(s, 2),
-      strides_at(s, 3), strides_at(s, 4), H, Tq, Tk, causal, q_off, k_off, window, scale);
+      (const float*)delta, dq, (const int*)q_ids, (const int*)k_ids, strides_at(s, 0),
+      strides_at(s, 1), strides_at(s, 2), strides_at(s, 3), strides_at(s, 4), out_f32, H, Tq,
+      Tk, causal, q_off, k_off, window, scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
 int launch_dkv(int B, int H, int Tq, int Tk, const void* q, const void* k, const void* v,
                const void* dout, const void* lse, const void* delta, void* dk, void* dv,
-               const long long* s, int causal, int q_off, int k_off, int window, float scale,
+               const void* q_ids, const void* k_ids, const long long* s, int out_f32,
+               int causal, int q_off, int k_off, int window, float scale,
                cudaStream_t stream) {
   using C = Cfg<T, D>;
-  if (int err = prepare(flash_bwd_dkv_kernel<T, D>, C::DKV_SMEM)) return err;
+  auto kernel = q_ids ? flash_bwd_dkv_kernel<T, D, true> : flash_bwd_dkv_kernel<T, D, false>;
+  if (int err = prepare(kernel, C::DKV_SMEM)) return err;
   dim3 grid((Tk + C::BM - 1) / C::BM, B * H);
-  flash_bwd_dkv_kernel<T, D><<<grid, C::NT, C::DKV_SMEM, stream>>>(
+  kernel<<<grid, C::NT, C::DKV_SMEM, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)dout, (const float*)lse,
-      (const float*)delta, (T*)dk, (T*)dv, strides_at(s, 0), strides_at(s, 1),
-      strides_at(s, 2), strides_at(s, 3), strides_at(s, 4), strides_at(s, 5), H, Tq, Tk,
-      causal, q_off, k_off, window, scale);
+      (const float*)delta, dk, dv, (const int*)q_ids, (const int*)k_ids, strides_at(s, 0),
+      strides_at(s, 1), strides_at(s, 2), strides_at(s, 3), strides_at(s, 4),
+      strides_at(s, 5), out_f32, H, Tq, Tk, causal, q_off, k_off, window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -503,72 +585,48 @@ constexpr int kUnsupported = -1;
 
 }  // namespace
 
+// The four (dtype, head dim) instantiations of one launcher.
+#define HVD_DISPATCH(launcher, ...)                                       \
+  if (dtype == 1 && D == 64) return launcher<bf16, 64>(__VA_ARGS__);      \
+  if (dtype == 1 && D == 128) return launcher<bf16, 128>(__VA_ARGS__);    \
+  if (dtype == 0 && D == 64) return launcher<float, 64>(__VA_ARGS__);     \
+  if (dtype == 0 && D == 128) return launcher<float, 128>(__VA_ARGS__);   \
+  return kUnsupported
+
 // C interface, bound with ctypes (horovod_tpu_torch/ops/_build.py).
 // dtype: 0 = fp32, 1 = bf16. `strides` holds (b, t, h) element strides of
-// each tensor argument in order. Returns 0 or the cudaError_t of the
+// each tensor argument in order. Null q_ids/k_ids: no segment ids. Forward
+// modes: lse set = train; m and l set = state (o is fp32). out_f32: the
+// backward kernels write fp32 outputs. Returns 0 or the cudaError_t of the
 // launch (-1 for an unsupported dtype/D pair).
 extern "C" {
 
 const char* hvd_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
 int hvd_flash_fwd(int dtype, int D, int B, int H, int Tq, int Tk, const void* q,
-                  const void* k, const void* v, void* o, void* lse, const long long* strides,
-                  int causal, int q_off, int k_off, int window, float scale, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 1 && D == 64)
-    return launch_fwd<bf16, 64>(B, H, Tq, Tk, q, k, v, o, lse, strides, causal, q_off, k_off,
-                                window, scale, st);
-  if (dtype == 1 && D == 128)
-    return launch_fwd<bf16, 128>(B, H, Tq, Tk, q, k, v, o, lse, strides, causal, q_off, k_off,
-                                 window, scale, st);
-  if (dtype == 0 && D == 64)
-    return launch_fwd<float, 64>(B, H, Tq, Tk, q, k, v, o, lse, strides, causal, q_off, k_off,
-                                 window, scale, st);
-  if (dtype == 0 && D == 128)
-    return launch_fwd<float, 128>(B, H, Tq, Tk, q, k, v, o, lse, strides, causal, q_off,
-                                  k_off, window, scale, st);
-  return kUnsupported;
+                  const void* k, const void* v, void* o, void* lse, void* m, void* l,
+                  const void* q_ids, const void* k_ids, const long long* strides, int causal,
+                  int q_off, int k_off, int window, float scale, void* stream) {
+  HVD_DISPATCH(launch_fwd, B, H, Tq, Tk, q, k, v, o, lse, m, l, q_ids, k_ids, strides, causal,
+               q_off, k_off, window, scale, (cudaStream_t)stream);
 }
 
 int hvd_flash_bwd_dq(int dtype, int D, int B, int H, int Tq, int Tk, const void* q,
                      const void* k, const void* v, const void* dout, const void* lse,
-                     const void* delta, void* dq, const long long* strides, int causal,
-                     int q_off, int k_off, int window, float scale, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 1 && D == 64)
-    return launch_dq<bf16, 64>(B, H, Tq, Tk, q, k, v, dout, lse, delta, dq, strides, causal,
-                               q_off, k_off, window, scale, st);
-  if (dtype == 1 && D == 128)
-    return launch_dq<bf16, 128>(B, H, Tq, Tk, q, k, v, dout, lse, delta, dq, strides, causal,
-                                q_off, k_off, window, scale, st);
-  if (dtype == 0 && D == 64)
-    return launch_dq<float, 64>(B, H, Tq, Tk, q, k, v, dout, lse, delta, dq, strides, causal,
-                                q_off, k_off, window, scale, st);
-  if (dtype == 0 && D == 128)
-    return launch_dq<float, 128>(B, H, Tq, Tk, q, k, v, dout, lse, delta, dq, strides, causal,
-                                 q_off, k_off, window, scale, st);
-  return kUnsupported;
+                     const void* delta, void* dq, const void* q_ids, const void* k_ids,
+                     const long long* strides, int out_f32, int causal, int q_off, int k_off,
+                     int window, float scale, void* stream) {
+  HVD_DISPATCH(launch_dq, B, H, Tq, Tk, q, k, v, dout, lse, delta, dq, q_ids, k_ids, strides,
+               out_f32, causal, q_off, k_off, window, scale, (cudaStream_t)stream);
 }
 
 int hvd_flash_bwd_dkv(int dtype, int D, int B, int H, int Tq, int Tk, const void* q,
                       const void* k, const void* v, const void* dout, const void* lse,
-                      const void* delta, void* dk, void* dv, const long long* strides,
-                      int causal, int q_off, int k_off, int window, float scale,
-                      void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 1 && D == 64)
-    return launch_dkv<bf16, 64>(B, H, Tq, Tk, q, k, v, dout, lse, delta, dk, dv, strides,
-                                causal, q_off, k_off, window, scale, st);
-  if (dtype == 1 && D == 128)
-    return launch_dkv<bf16, 128>(B, H, Tq, Tk, q, k, v, dout, lse, delta, dk, dv, strides,
-                                 causal, q_off, k_off, window, scale, st);
-  if (dtype == 0 && D == 64)
-    return launch_dkv<float, 64>(B, H, Tq, Tk, q, k, v, dout, lse, delta, dk, dv, strides,
-                                 causal, q_off, k_off, window, scale, st);
-  if (dtype == 0 && D == 128)
-    return launch_dkv<float, 128>(B, H, Tq, Tk, q, k, v, dout, lse, delta, dk, dv, strides,
-                                  causal, q_off, k_off, window, scale, st);
-  return kUnsupported;
+                      const void* delta, void* dk, void* dv, const void* q_ids,
+                      const void* k_ids, const long long* strides, int out_f32, int causal,
+                      int q_off, int k_off, int window, float scale, void* stream) {
+  HVD_DISPATCH(launch_dkv, B, H, Tq, Tk, q, k, v, dout, lse, delta, dk, dv, q_ids, k_ids,
+               strides, out_f32, causal, q_off, k_off, window, scale, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -1,9 +1,13 @@
-"""The flagship decoder, data parallel only — the port of
-``horovod_tpu/models/transformer.py`` at dp = world size, sp = tp = pp = 1.
+"""The flagship decoder — the port of ``horovod_tpu/models/transformer.py``
+at tp = pp = 1: data parallel, and sequence parallel over the sp group
+``hvd.init(sp=...)`` made.
 
-Each layer's attention is one ``flash_attention`` call (the port's CUDA
-kernels on a GPU), exactly as the JAX model's attention is at sp = 1.
-Parameters keep the JAX layouts (``wqkv [d, 3, H, Dh]``,
+Each layer's attention is one ``context_parallel_attention`` call on the
+sp group (ring or Ulysses, ``cfg.sp_strategy``); at sp = 1 that is one
+``flash_attention`` call (the port's CUDA kernels on a GPU), exactly as
+the JAX model's attention is. Tokens are sharded along T over sp: learned
+positions are sliced at this rank's offset and RoPE takes global
+positions. Parameters keep the JAX layouts (``wqkv [d, 3, H, Dh]``,
 ``wo [H, Dh, d]``, ...), one set per layer, so ``params_from_jax`` maps
 an ``init_params(cfg, key, n_stages=1)`` pytree onto the module
 one-to-one. The numerics follow the JAX model: layer norm without bias in
@@ -21,8 +25,10 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..common import state as _state
 from ..common.state import resolve_device
-from ..ops.flash_attention import flash_attention
+from ..parallel.ulysses import (context_parallel_attention,
+                                gather_segment_ids, resolve_strategy)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,12 +94,22 @@ def _rope(x, positions, theta):
                      -1).to(x.dtype)
 
 
-def _expand_kv(k, v, g):
-    """GQA: KV head j serves query heads j*g .. j*g+g-1 (consecutive
-    repeat, as the JAX package's ``_expand_kv``)."""
-    if g <= 1:
-        return k, v
-    return k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)
+def _sp_axis(device):
+    """The sp group of the running world, or None (sp = 1) when
+    ``hvd.init`` was not called. Raises for inputs on another device than
+    the world's when sp > 1: they cannot be this rank's shard."""
+    if not _state.is_initialized():
+        return None
+    axis = _state.axis_group("sp")
+    world = _state.device()
+    if axis.size > 1 and (device.type != world.type or None not in (
+            device.index, world.index) and device.index != world.index):
+        raise ValueError(
+            f"sp={axis.size}: the model treats its input as this rank's "
+            f"shard of the sequence, but the input is on {device} and the "
+            f"sp ranks run on {_state.device()}; run a model on another "
+            f"device outside the sp world")
+    return axis
 
 
 def _param(shape, dtype, device):
@@ -118,7 +134,10 @@ class DecoderLayer(nn.Module):
         self.w1 = _param((d, Fd), dt, device)
         self.w2 = _param((Fd, d), dt, device)
 
-    def forward(self, x):
+    def forward(self, x, positions, axis=None, segment_ids=None,
+                gathered_segment_ids=None):
+        """x: this rank's ``[b, t, d]`` shard; ``positions``: its global
+        token positions ``[t]``; ``axis``: the sp group (None: sp = 1)."""
         cfg = self.cfg
         b, t, d = x.shape
         H, Hkv, Dh = cfg.n_heads, cfg.kv_heads, cfg.d_head
@@ -131,12 +150,15 @@ class DecoderLayer(nn.Module):
             kv = (h @ self.wkv.reshape(d, -1)).view(b, t, 2, Hkv, Dh)
             k, v = kv.unbind(2)
         if cfg.rope:
-            pos = torch.arange(t, device=x.device)
-            q = _rope(q, pos, cfg.rope_theta)
-            k = _rope(k, pos, cfg.rope_theta)
-        k, v = _expand_kv(k, v, H // Hkv)
-        attn = flash_attention(q, k, v, causal=True,
-                               window=cfg.attention_window)
+            q = _rope(q, positions, cfg.rope_theta)
+            k = _rope(k, positions, cfg.rope_theta)
+        # GQA K/V stay at their reduced width: the sp strategies carry
+        # them at that width and expand them at the kernel boundary.
+        attn = context_parallel_attention(
+            q, k, v, axis, causal=True, strategy=cfg.sp_strategy,
+            segment_ids=segment_ids,
+            gathered_segment_ids=gathered_segment_ids,
+            window=cfg.attention_window)
         x = x + attn.reshape(b, t, H * Dh) @ self.wo.reshape(H * Dh, d)
         h = _layernorm(x, self.ln2)
         y = F.gelu(h @ self.w1, approximate="tanh")
@@ -191,17 +213,29 @@ class Transformer(nn.Module):
                 p.copy_(noise * scales[leaf])
 
     def forward(self, tokens, segment_ids=None):
-        if segment_ids is not None:
-            raise NotImplementedError(
-                "packed segment ids come with the ring-attention slice of "
-                "the port")
+        """tokens (and optional packed ``segment_ids``): this rank's
+        ``[b, t]`` shard, the sp axis's slice ``sp_rank * t`` onward of the
+        global sequence. Returns this shard's fp32 logits."""
+        cfg = self.cfg
+        axis = _sp_axis(tokens.device)
+        sp = 1 if axis is None else axis.size
         t = tokens.shape[1]
+        t0 = 0 if axis is None else axis.rank * t
         x = self.embed[tokens]
-        if not self.cfg.rope:
-            x = x + self.pos[:t][None]
-        x = x.to(self.cfg.dtype)
+        if not cfg.rope:
+            if t0 + t > cfg.max_seq:
+                raise ValueError(f"positions {t0}..{t0 + t} exceed max_seq "
+                                 f"{cfg.max_seq}")
+            x = x + self.pos[t0:t0 + t][None]
+        x = x.to(cfg.dtype)
+        positions = torch.arange(t0, t0 + t, device=tokens.device)
+        gathered = None
+        if segment_ids is not None and sp > 1 and resolve_strategy(
+                cfg.sp_strategy, cfg.n_heads, cfg.kv_heads, sp) == "ulysses":
+            # Once per forward, not once per layer.
+            gathered = gather_segment_ids(segment_ids, axis)
         for layer in self.layers:
-            x = layer(x)
+            x = layer(x, positions, axis, segment_ids, gathered)
         x = _layernorm(x, self.final_ln)
         return x.float() @ self.head.float()
 
@@ -231,9 +265,12 @@ def params_from_jax(params: Dict[str, np.ndarray],
 
 
 def check_parallelism(sp: int = 1, tp: int = 1, pp: int = 1) -> None:
-    """This slice trains data parallel only."""
-    if sp != 1 or tp != 1 or pp != 1:
+    """This slice trains data and sequence parallel (any sp); tensor and
+    pipeline parallelism come later."""
+    if sp < 1:
+        raise ValueError(f"sp must be >= 1, got {sp}")
+    if tp != 1 or pp != 1:
         raise NotImplementedError(
-            f"sp={sp} tp={tp} pp={pp}: sequence (ring/Ulysses), tensor and "
-            "pipeline parallelism come with later slices of the port; this "
-            "slice is data parallel only")
+            f"tp={tp} pp={pp}: tensor and pipeline parallelism come with "
+            "later slices of the port; this slice is data and sequence "
+            "parallel")

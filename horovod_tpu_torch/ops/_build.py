@@ -37,12 +37,14 @@ _F = ctypes.c_float
 # C signatures of each library's entry points (argtypes, restype int).
 SIGNATURES: Dict[str, Dict[str, List]] = {
     "flash_attention": {
-        "hvd_flash_fwd": [_I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                          _I, _I, _I, _I, _F, _P],
-        "hvd_flash_bwd_dq": [_I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                             _P, _P, _I, _I, _I, _I, _F, _P],
-        "hvd_flash_bwd_dkv": [_I, _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                              _P, _P, _P, _I, _I, _I, _I, _F, _P],
+        # dtype, D, B, H, Tq, Tk; q, k, v, o, lse, m, l, q_ids, k_ids,
+        # strides; causal, q_off, k_off, window; scale; stream
+        "hvd_flash_fwd": [_I] * 6 + [_P] * 10 + [_I] * 4 + [_F, _P],
+        # ...; q, k, v, dout, lse, delta, dq, q_ids, k_ids, strides;
+        # out_f32, causal, q_off, k_off, window; scale; stream
+        "hvd_flash_bwd_dq": [_I] * 6 + [_P] * 10 + [_I] * 5 + [_F, _P],
+        # as dq with dk, dv in place of dq
+        "hvd_flash_bwd_dkv": [_I] * 6 + [_P] * 11 + [_I] * 5 + [_F, _P],
     },
 }
 

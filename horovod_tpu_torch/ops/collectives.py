@@ -15,6 +15,11 @@ call on the group ``hvd.init()`` made, with the same numerics:
 arithmetic; the optimizer launches one per fusion bucket from backward
 hooks and waits in ``step()``. The default op is Average, Horovod's
 user-level default.
+
+Sequence parallelism adds collectives on one axis group of
+``parallel/mesh.py`` (an ``AxisGroup``), in the roles ``lax.ppermute``,
+``lax.all_to_all`` and ``lax.all_gather`` play in the JAX package:
+``ring_exchange``, ``all_to_all`` and ``allgather_along``.
 """
 
 from __future__ import annotations
@@ -177,6 +182,82 @@ def broadcast(tensor, root_rank: int):
     out = tensor.clone()
     dist.broadcast(out, src=root_rank)
     return out
+
+
+class PendingExchange:
+    """A ring exchange in flight; ``wait()`` returns the received
+    tensors. It holds the tensors being sent until then."""
+
+    def __init__(self, works, sent, received):
+        self._works = works
+        self._sent = sent
+        self._received = received
+
+    def wait(self) -> List[torch.Tensor]:
+        for w in self._works:
+            w.wait()
+        self._sent = None
+        return self._received
+
+
+def ring_exchange(tensors: Sequence[torch.Tensor], axis, tag: int = 0
+                  ) -> PendingExchange:
+    """Send each tensor to the next rank of the ring ``axis`` (an
+    ``AxisGroup``: index i sends to i + 1 and receives from i - 1, modulo
+    the axis size) and receive the previous rank's tensors of the same
+    shapes and dtypes: the port's ``lax.ppermute(x, axis, fwd_perm)``.
+    One ``batch_isend_irecv``; the caller computes while it is in flight.
+    Tensor i travels under tag ``tag + i``."""
+    nxt = axis.global_rank(axis.rank + 1)
+    prv = axis.global_rank(axis.rank - 1)
+    sent = [t.contiguous() for t in tensors]
+    received = [torch.empty_like(t) for t in sent]
+    ops = []
+    for i, (s, r) in enumerate(zip(sent, received)):
+        ops.append(dist.P2POp(dist.isend, s, nxt, axis.group, tag + i))
+        ops.append(dist.P2POp(dist.irecv, r, prv, axis.group, tag + i))
+    return PendingExchange(dist.batch_isend_irecv(ops), sent, received)
+
+
+def _all_to_all(x, split_dim, concat_dim, axis):
+    chunks = torch.stack(x.chunk(axis.size, split_dim)).contiguous()
+    out = torch.empty_like(chunks)
+    dist.all_to_all_single(out, chunks, group=axis.group)
+    return torch.cat(out.unbind(0), concat_dim)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, split_dim, concat_dim, axis):
+        ctx.args = (split_dim, concat_dim, axis)
+        return _all_to_all(x, split_dim, concat_dim, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, concat_dim, axis = ctx.args
+        return _all_to_all(g, concat_dim, split_dim, axis), None, None, None
+
+
+def all_to_all(x: torch.Tensor, split_dim: int, concat_dim: int, axis
+               ) -> torch.Tensor:
+    """``lax.all_to_all(x, axis, split_dim, concat_dim, tiled=True)`` on
+    the group ``axis``: ``x`` is cut into ``axis.size`` equal chunks
+    along ``split_dim``, chunk i goes to axis rank i, and the chunks
+    received are joined along ``concat_dim`` in axis-rank order (one
+    ``all_to_all_single``). Differentiable: the backward is the reverse
+    exchange."""
+    if x.shape[split_dim] % axis.size:
+        raise ValueError(f"all_to_all: dim {split_dim} of {list(x.shape)} "
+                         f"does not split {axis.size} ways")
+    return _AllToAll.apply(x, split_dim, concat_dim, axis)
+
+
+def allgather_along(x: torch.Tensor, dim: int, axis) -> torch.Tensor:
+    """Every axis rank's ``x`` joined along ``dim`` in axis-rank order
+    (``lax.all_gather(..., tiled=True)``); not differentiable."""
+    parts = [torch.empty_like(x) for _ in range(axis.size)]
+    dist.all_gather(parts, x.contiguous(), group=axis.group)
+    return torch.cat(parts, dim)
 
 
 @torch.no_grad()

@@ -1,13 +1,18 @@
 """Transformer training benchmark on the port: tokens/s and MFU for a
-GPT-2-small-class decoder, data parallel.
+GPT-2-small-class decoder, data and sequence parallel.
 
 The port of ``tools/transformer_bench.py``: the same flags and defaults
-and one JSON line with the same keys. One process per GPU; under a
-launcher every rank takes its 8-sequence share of the global batch.
+and one JSON line with the same keys. One process per GPU. The world is
+dp x sp (``--sp``, tp = pp = 1): the global batch (default 8 per dp
+shard) splits over dp and the global sequence over sp, so every rank
+takes a ``[batch / dp, seq_len / sp]`` shard. Labels are rolled over the
+global sequence before it is sharded.
 
     python -m horovod_tpu_torch.transformer_bench          # GPT-2-small-ish
     python -m horovod_tpu_torch.transformer_bench --device cpu --d-model 64 \\
         --n-heads 4 --n-layers 2 --vocab 256 --seq-len 64 --num-iters 2
+    # long context, under a launcher of 4 ranks (one per GPU):
+    python -m horovod_tpu_torch.transformer_bench --sp 4 --seq-len 8192
 
 MFU convention (copied): model FLOPs per token = 6*N (N = matmul
 parameter count: embedding table and learned positions excluded, untied
@@ -48,7 +53,8 @@ def parse_args(argv=None):
                    help="GLOBAL sequence length")
     p.add_argument("--batch-size", type=int, default=None,
                    help="global batch (default: 8 per dp shard)")
-    p.add_argument("--sp", type=int, default=1)
+    p.add_argument("--sp", type=int, default=1,
+                   help="sequence-parallel ranks; dp = world size / sp")
     p.add_argument("--tp", type=int, default=1)
     p.add_argument("--strategy", default="ring",
                    choices=["ring", "ulysses", "auto"])
@@ -93,16 +99,19 @@ def run(args) -> BenchRun:
     check_parallelism(sp=args.sp, tp=args.tp)
     if args.zero:
         raise NotImplementedError("ZeRO comes with a later slice of the port")
-    hvd.init(device=args.device)
+    hvd.init(device=args.device, sp=args.sp)
     device = hvd.device()
-    size, rank = hvd.size(), hvd.rank()
-    batch = args.batch_size if args.batch_size is not None else 8 * size
-    if batch % size:
-        raise ValueError(f"global batch {batch} does not split over {size}")
-    local = batch // size
+    size, dp, sp = hvd.size(), hvd.dp_size(), hvd.sp_size()
+    batch = args.batch_size if args.batch_size is not None else 8 * dp
+    if batch % dp:
+        raise ValueError(f"global batch {batch} does not split over dp={dp}")
+    if args.seq_len % sp:
+        raise ValueError(f"seq_len {args.seq_len} does not split over "
+                         f"sp={sp}")
+    local, t_local = batch // dp, args.seq_len // sp
     kind = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
-    print(f"bench: dp={size} on {device} ({kind}); B={batch} "
+    print(f"bench: dp={dp} sp={sp} on {device} ({kind}); B={batch} "
           f"T={args.seq_len}", file=sys.stderr)
 
     cfg = TransformerConfig(
@@ -124,10 +133,11 @@ def run(args) -> BenchRun:
 
     rng = np.random.RandomState(0)
     tokens_all = rng.randint(0, cfg.vocab, (batch, args.seq_len))
-    labels_all = np.roll(tokens_all, -1, axis=1)
-    shard = slice(rank * local, (rank + 1) * local)
-    tokens = torch.as_tensor(tokens_all[shard], device=device)
-    labels = torch.as_tensor(labels_all[shard], device=device)
+    labels_all = np.roll(tokens_all, -1, axis=1)  # global roll, then shard
+    rows = slice(hvd.dp_rank() * local, (hvd.dp_rank() + 1) * local)
+    cols = slice(hvd.sp_rank() * t_local, (hvd.sp_rank() + 1) * t_local)
+    tokens = torch.as_tensor(tokens_all[rows, cols], device=device)
+    labels = torch.as_tensor(labels_all[rows, cols], device=device)
 
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
@@ -159,11 +169,11 @@ def run(args) -> BenchRun:
         "n_layers": args.n_layers,
         "seq_len": args.seq_len,
         "global_batch": batch,
-        "mesh": {"dp": size, "pp": 1, "sp": args.sp, "tp": args.tp},
+        "mesh": hvd.axis_sizes(),
         "sp_strategy": args.strategy,
         "window": args.window,
         "zero": bool(args.zero),
-        "loss": round(losses[-1], 4),
+        "loss": round(losses[-1], 4),  # world average
         "step_ms": round(1e3 * dt / args.num_iters, 2),
     }
     peak = peak_flops(device)

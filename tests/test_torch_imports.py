@@ -22,6 +22,9 @@ names = [m.name for m in pkgutil.walk_packages(horovod_tpu_torch.__path__,
                                                 "horovod_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+for name in ("parallel", "parallel.mesh", "parallel.ring_attention",
+             "parallel.ulysses"):
+    assert "horovod_tpu_torch." + name in names, name
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib",
                                                            "horovod_tpu"))
 print(len(names), bad)
@@ -37,7 +40,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                           timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 12, proc.stdout
+    assert n_modules >= 16, proc.stdout
 
 
 @pytest.fixture

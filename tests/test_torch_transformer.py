@@ -175,9 +175,21 @@ def test_later_slice_configs_raise(kwargs, match):
 
 
 def test_later_slice_inputs_raise():
+    """tp and pp still raise; sp and packed segment ids run (a size-1 run
+    here; tests/test_torch_ring_attention.py runs sp = 2 and 4)."""
+    for kwargs in (dict(tp=2), dict(pp=2)):
+        with pytest.raises(NotImplementedError, match="pipeline"):
+            tt.check_parallelism(**kwargs)
+    tt.check_parallelism(sp=2)
     model = tt.Transformer(tt.TransformerConfig(n_layers=1), device="cpu")
     tokens = torch.zeros((1, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="segment ids"):
-        model(tokens, segment_ids=tokens)
-    with pytest.raises(NotImplementedError, match="sequence"):
-        tt.check_parallelism(sp=2)
+    seg = torch.tensor([[0, 0, 0, 1, 1, 1, 1, 1]])
+    logits = model(tokens, segment_ids=seg)
+    assert logits.shape == (1, 8, 256) and torch.isfinite(logits).all()
+
+
+@pytest.mark.parametrize("sp", [1, 2, 4, 8])
+def test_check_parallelism_accepts_sp(sp):
+    tt.check_parallelism(sp=sp)
+    with pytest.raises(ValueError, match="sp must be >= 1"):
+        tt.check_parallelism(sp=0)
