@@ -8,20 +8,25 @@ Phases, in order; any failure exits nonzero:
 
 (a) device and build: the card, its power limit, the torch and CUDA
     versions; every kernel of ``horovod_tpu_torch/csrc`` built with nvcc
-    for sm_90a into ``build/horovod_tpu_torch/``.
+    for sm_90a into ``build/horovod_tpu_torch/``, with each kernel's
+    registers and spill bytes (``-Xptxas -v``) and HGMMA instructions
+    (``cuobjdump -sass``) logged, and the forward's key tile in the
+    library held equal to ``FWD_KEY_TILE``.
 (b) kernels: every mode of each kernel (forward plain, train and state;
     dQ and dK/dV in the input dtype and in fp32) against its plain
     PyTorch version on the card, by normwise relative error — at the
     slice's shape (B=8, T=1024, H=12, D=64, bf16, causal) with q/k/v as
     views of one qkv tensor, as the model passes them, and contiguous; at
-    ragged fp32 shapes (T=1000) and at a windowed causal case (W=256).
+    ragged fp32 and bf16 shapes (T=1000, Tk=700 with offsets and segment
+    ids at D=128) and at a windowed causal case (W=256).
     For bf16 inputs the fp32 outputs are also held, at a tighter limit,
     against a plain version that rounds P and dS where the kernels do,
     which must refuse that reference rounded through bf16. At
     the slice's shape also: the plain versions with the last tile dropped,
-    which the comparison must refuse, and each kernel's time beside the
-    plain version's, the bound, and PyTorch's scaled_dot_product_attention
-    as a yardstick. Then the ring's blocks at the sp trainer's block shape
+    which the comparison must refuse, and each kernel's time (CUDA events,
+    and the profiler's device time beside it) beside the plain version's,
+    the bound, and PyTorch's scaled_dot_product_attention as a
+    yardstick. Then the ring's blocks at the sp trainer's block shape
     (B=8, Tq=Tk=2048): the state mode in a past, a diagonal and a future
     block, the fp32-output backward with the global lse and delta, their
     planted faults and times; and every mode with packed segment ids, at
@@ -49,6 +54,8 @@ Phases, in order; any failure exits nonzero:
 import json
 import math
 import os
+import re
+import shutil
 import socket
 import subprocess
 import sys
@@ -82,7 +89,10 @@ TOLERANCE = {"torch.bfloat16": 5e-3, "torch.float32": 1e-5}
 # acc sums P.V with P rounded to bf16; the fp32-output backward rounds P
 # and dS to bf16 before its products), so it takes the inputs' limit.
 ROW_STATS = ("lse", "m", "l")
-TILE = 64   # rows (and keys) of a kernel tile for bf16 inputs, D 64 or 128
+# Keys (rows of q for dK/dV) that a planted last-tile fault drops: the
+# smallest tile any kernel loops over, so a kernel whose loop ends one tile
+# early loses at least this many.
+DROPPED = 64
 # The bf16 limit cannot tell an fp32 output from one rounded through bf16:
 # the plain versions keep P and dS in fp32 (P rounded only against the
 # final row max), and that alone reads ~1.7e-3, as much as rounding the
@@ -123,6 +133,30 @@ def time_ms(fn, iters=20, warmup=3):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters=20):
+    """Device time per call of the port's kernels (names with "flash_")
+    that ``fn`` launches, from torch.profiler over ``iters`` calls after
+    one warm-up: the kernel's own time where back-to-back CUDA events
+    would read the host's launch time. None if the profiler saw none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and \
+                "flash_" in e.key:
+            t = getattr(e, "self_device_time_total", None)
+            us += e.self_cuda_time_total if t is None else t
+    return us / 1e3 / iters if us else None
 
 
 def visible_pairs(Tq, Tk, causal, q_off=0, k_off=0, window=None):
@@ -215,13 +249,66 @@ def modes(q, k, v, do, lse, delta, kw, names=OUTPUTS):
     return {m: table[m] for m in names}
 
 
-def rounded_plain(mode, q, k, v, do, lse, delta, kw):
+def demangle(names):
+    """C++ names as the source spells them (c++filt), else as given."""
+    tool = shutil.which("c++filt") or shutil.which("cu++filt")
+    if not tool or not names:
+        return {n: n for n in names}
+    out = subprocess.run([tool], input="\n".join(names), capture_output=True,
+                         text=True).stdout.splitlines()
+    return dict(zip(names, out)) if len(out) == len(names) else \
+        {n: n for n in names}
+
+
+def kernel_report(name, path):
+    """Registers, spill bytes (``-Xptxas -v``) and HGMMA instructions in
+    the SASS (``cuobjdump -sass``) of each flash_* instantiation of the
+    library: a log, not a check. Registers are the count at entry; the
+    bf16 kernels' consumer warpgroups raise theirs with setmaxnreg."""
+    from horovod_tpu_torch.ops import _build
+
+    stats, fn = {}, None
+    for line in _build.BUILD_LOG.get(name, "").splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) "
+                      r"'?(\w+)'?", line)
+        if m:
+            fn = m.group(1)
+            stats.setdefault(fn, {})
+        elif fn and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                                     r"spill loads", line)):
+            stats[fn]["spill"] = f"{m.group(1)}/{m.group(2)}"
+        elif fn and (m := re.search(r"Used (\d+) registers", line)):
+            stats[fn]["regs"] = int(m.group(1))
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    hgmma = None
+    if os.access(tool, os.X_OK):
+        sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                              text=True).stdout
+        hgmma, fn = {}, None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\w+)", line)
+            if m:
+                fn = m.group(1)
+                hgmma[fn] = 0
+            elif fn and "HGMMA" in line:
+                hgmma[fn] += 1
+    names = sorted(n for n in stats if "flash_" in n)
+    pretty = demangle(names)
+    for n in names:
+        st = stats[n]
+        count = "not measured (no cuobjdump)" if hgmma is None else \
+            hgmma.get(n, 0)
+        log(f"    {pretty[n][:70]:<70} regs {st.get('regs')}, spill "
+            f"stores/loads {st.get('spill')} bytes, HGMMA {count}")
+
+
+def rounded_plain(mode, q, k, v, do, lse, delta, kw, tile):
     """The F32_OUTPUTS of ``mode`` for bf16 inputs, computed as the kernels
-    round them: the forward walks the keys in tiles of TILE, takes P =
-    exp(S - running max) and rounds it to bf16 before P.V, rescaling the
-    fp32 accumulator as the max grows; the backward rounds P (for dV) and
-    dS (for dQ and dK) to bf16 before their products. Every other step
-    is fp32, as in the kernels."""
+    round them: the forward walks the keys in tiles of ``tile`` (the
+    kernel's, ``FWD_KEY_TILE``), takes P = exp(S - running max) and rounds
+    it to bf16 before P.V, rescaling the fp32 accumulator as the max
+    grows; the backward rounds P (for dV) and dS (for dQ and dK) to bf16
+    before their products. Every other step is fp32, as in the kernels."""
     import torch
 
     from horovod_tpu_torch.ops import flash_attention as fa
@@ -237,15 +324,15 @@ def rounded_plain(mode, q, k, v, do, lse, delta, kw):
         B, Tq, H, D = q.shape
         acc = torch.zeros((B, H, Tq, D), device=q.device)
         m = torch.full((B, H, Tq, 1), fa.NEG_INF, device=q.device)
-        for k0 in range(0, k.shape[1], TILE):
-            st = s[..., k0:k0 + TILE]
+        for k0 in range(0, k.shape[1], tile):
+            st = s[..., k0:k0 + tile]
             m_new = torch.maximum(m, st.amax(-1, keepdim=True))
             corr = torch.where(m_new > fa.NEG_INF / 2, torch.exp(m - m_new),
                                1.0)
             p = torch.where(st <= fa.NEG_INF / 2, 0.0, torch.exp(st - m_new))
             acc = acc * corr + torch.einsum(
                 "bhts,bshd->bhtd", p.to(bf16).float(),
-                v[:, k0:k0 + TILE].float())
+                v[:, k0:k0 + tile].float())
             m = m_new
         return (acc.transpose(1, 2),)
     p, ds = fa._probs_and_dscores(q, k, v, do, lse, delta, *args)
@@ -265,6 +352,8 @@ def check_modes(label, calls, in_dtype, rounded=None):
     out": plain output})."""
     import torch
 
+    from horovod_tpu_torch.ops import flash_attention as fa
+
     errs, refs, bad = {}, {}, []
     for mode, (kern, plain) in calls.items():
         want = plain()
@@ -281,8 +370,10 @@ def check_modes(label, calls, in_dtype, rounded=None):
             continue
         outs = dict(zip(OUTPUTS[mode], got))
         exact = {}
+        q = rounded[0]
+        tile = fa.FWD_KEY_TILE[(q.dtype, q.shape[-1])]
         for out, w in zip(F32_OUTPUTS[mode],
-                          rounded_plain(mode, *rounded[:6], rounded[6])):
+                          rounded_plain(mode, *rounded[:6], rounded[6], tile)):
             exact[f"{mode} {out}"] = w
             compare(f"{mode} {out} (rounded P/dS)", outs[out], w,
                     ROUNDED_LIMIT, bad)
@@ -319,15 +410,15 @@ def dropped_tile_faults(q, k, v, do, lse, delta, kw, names):
     as a kernel whose loop ends one tile early would compute them (for
     dK/dV the last q-tile)."""
     def cut(ids):
-        return None if ids is None else ids[:, :-TILE].contiguous()
+        return None if ids is None else ids[:, :-DROPPED].contiguous()
 
     kw_k = dict(kw, k_seg=cut(kw.get("k_seg")))
     kw_q = dict(kw, q_seg=cut(kw.get("q_seg")))
-    short = modes(q, k[:, :-TILE], v[:, :-TILE], do, lse, delta, kw_k,
+    short = modes(q, k[:, :-DROPPED], v[:, :-DROPPED], do, lse, delta, kw_k,
                   [n for n in names if "dkv" not in n])
-    short.update(modes(q[:, :-TILE], k, v, do[:, :-TILE],
-                       lse[..., :-TILE].contiguous(),
-                       delta[..., :-TILE].contiguous(), kw_q,
+    short.update(modes(q[:, :-DROPPED], k, v, do[:, :-DROPPED],
+                       lse[..., :-DROPPED].contiguous(),
+                       delta[..., :-DROPPED].contiguous(), kw_q,
                        [n for n in names if "dkv" in n]))
     return {f"{mode} {out}": t for mode, (_, plain) in short.items()
             for out, t in zip(OUTPUTS[mode], plain())}
@@ -369,6 +460,7 @@ def time_rows(calls, shape, dtype, pairs, library, errs):
     table = {}
     for name, (kern, plain) in calls.items():
         ms = time_ms(kern)
+        dev_ms = device_ms(kern)
         plain_ms = time_ms(plain, iters=5, warmup=1)
         nbytes, flops = work(name, B, Tq, Tk, H, D, dtype.itemsize, pairs)
         bound_ms, bound_by = bound(nbytes, flops, dtype)
@@ -377,8 +469,9 @@ def time_rows(calls, shape, dtype, pairs, library, errs):
             "replaces": REPLACES[name], "launches": 0,
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library.get(name)}
-        log(f"  {name:<18} {ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
+            "library_ms": library.get(name), "device_ms": dev_ms}
+        log(f"  {name:<18} {ms:.4f} ms (profiler: {dev_ms} ms on the device) "
+            f" plain {plain_ms:.4f} ms  bound "
             f"{1e3 * bound_ms:.2f} us ({bound_by}; {nbytes / 1e6:.1f} MB, "
             f"{flops / 1e9:.2f} GFLOP)  library {library.get(name)}")
     return table
@@ -495,15 +588,14 @@ def kernel_case(label, B, T, H, D, dtype, causal, window=None, Tk=None,
                      library, errs)
 
 
-def ring_case():
-    """The ring's block kernels at the sp trainer's block shape (B=8,
-    Tq=Tk=2048, H=12, D=64, bf16, causal), q/k/v views of one qkv tensor
-    per block. Rank 1 of an sp=2 ring holds q block 1 and meets k/v block
-    1 (diagonal) and block 0 (past); rank 0 meets block 1 as a future
-    block. The state mode runs in all three; the fp32-output backward in
-    the past and diagonal blocks with rank 1's GLOBAL lse and delta, as
-    the ring's backward calls it. Returns the state and fp32 rows (timed
-    at the past block, where every pair is visible)."""
+def ring_inputs():
+    """The ring's blocks at the sp trainer's block shape (B=8, Tq=Tk=2048,
+    H=12, D=64, bf16, causal), q/k/v views of one qkv tensor per block.
+    Rank 1 of an sp=2 ring holds q block 1 and meets k/v block 1
+    (diagonal) and block 0 (past); rank 0 meets block 1 as a future
+    block. Returns (q, {block: (k, v, q_off, k_off)}, dO, lse, delta)
+    with rank 1's GLOBAL lse and delta (its two blocks merged, plain), as
+    the ring's backward passes them."""
     import torch
 
     from horovod_tpu_torch.ops import flash_attention as fa
@@ -519,7 +611,6 @@ def ring_case():
     do = randn(B, T, H, D)
     blocks = {"past": (k0, v0, T, 0), "diagonal": (k1, v1, T, T),
               "future": (k1, v1, 0, T)}
-    # Rank 1's global row statistics: its two blocks merged (plain).
     states = [fa.flash_fwd_state_plain(q, k, v, True, qo, ko)
               for k, v, qo, ko in (blocks["past"], blocks["diagonal"])]
     m = torch.maximum(states[0][1], states[1][1])
@@ -529,7 +620,21 @@ def ring_case():
     o = acc / l.transpose(1, 2)[..., None]
     lse = (m + torch.log(l)).contiguous()
     delta = (do.float() * o).sum(-1).transpose(1, 2).contiguous()
+    return q, blocks, do, lse, delta
 
+
+def ring_case():
+    """The ring's block kernels on ``ring_inputs()``: the state mode in
+    the past, diagonal and future blocks; the fp32-output backward in the
+    past and diagonal blocks with the global lse and delta. Returns the
+    state and fp32 rows (timed at the past block, where every pair is
+    visible)."""
+    import torch
+
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    q, blocks, do, lse, delta = ring_inputs()
+    (B, T, H, D), dt = q.shape, q.dtype
     table = {}
     for name, (k, v, q_off, k_off) in blocks.items():
         kw = dict(causal=True, q_off=q_off, k_off=k_off, window=None)
@@ -826,16 +931,19 @@ def sp_phase(gpu):
 
 
 AB_MODES = ("flash_fwd", "flash_fwd_train", "flash_bwd_dq", "flash_bwd_dkv")
+AB_RING_MODES = ("flash_fwd_state", "flash_bwd_dkv_f32")
 
 
 def time_tree(tree):
-    """``chip_smoke.py --time-tree DIR``: the four modes every version of
-    the port has, from the checkout DIR (say, a parent commit unpacked
-    with ``git archive``; it builds its own library in its own
-    ``build/``), timed at the slice's shape (B=8, T=1024, H=12, D=64,
-    bf16, causal, q/k/v views of one qkv tensor) over 50 launches after 5
-    of warm-up; one JSON line. Run parent, change, change, parent in one
-    call and compare within it."""
+    """``chip_smoke.py --time-tree DIR``: kernel times of the checkout DIR
+    (say, a parent commit unpacked with ``git archive``; it builds its own
+    library in its own ``build/``), each over 50 launches after 5 of
+    warm-up by CUDA events and, beside them, the kernels' device time by
+    torch.profiler over 20: AB_MODES at the slice's shape (B=8, T=1024,
+    H=12, D=64, bf16, causal, q/k/v views of one qkv tensor) and
+    AB_RING_MODES at the ring's past block (``ring_inputs()``). One JSON
+    line. Run parent, change, change, parent in one call and compare
+    within it."""
     tree = Path(tree).resolve()
     sys.path.insert(0, str(tree))
     import torch
@@ -856,10 +964,18 @@ def time_tree(tree):
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
     kw = dict(causal=True, q_off=0, k_off=0, window=None)
     calls = modes(q, k, v, do, lse, delta, kw, AB_MODES)
+    rq, blocks, rdo, rlse, rdelta = ring_inputs()
+    rk, rv, q_off, k_off = blocks["past"]
+    ring = modes(rq, rk, rv, rdo, rlse, rdelta,
+                 dict(causal=True, q_off=q_off, k_off=k_off, window=None),
+                 AB_RING_MODES)
+    calls.update({f"{name}@past": c for name, c in ring.items()})
     ms = {name: time_ms(kern, iters=50, warmup=5)
           for name, (kern, _) in calls.items()}
+    dev = {name: device_ms(kern) for name, (kern, _) in calls.items()}
     log(json.dumps({"tree": str(tree), "card": card(), "shape": [B, T, H, D],
-                    "iters": 50, "ms": ms}))
+                    "ring_block": list(rq.shape), "iters": 50, "ms": ms,
+                    "device_ms": dev}))
     return 0
 
 
@@ -888,6 +1004,14 @@ def main():
     libs = _build.build_all(verbose=True)
     log(f"    built {', '.join(str(p.relative_to(REPO)) for p in libs.values())}"
         f" in {time.perf_counter() - t0:.1f} s")
+    for name, path in libs.items():
+        kernel_report(name, path)
+    lib = _build.load("flash_attention")
+    for (dt, d), tile in fa.FWD_KEY_TILE.items():
+        got = lib.hvd_flash_fwd_key_tile(fa._DTYPE_CODE[dt], d)
+        if got != tile:
+            raise AssertionError(f"the forward's key tile at {dt}, D={d} is "
+                                 f"{got}; FWD_KEY_TILE says {tile}")
 
     # (b) kernels against their plain versions
     log("(b) kernels")
@@ -898,6 +1022,12 @@ def main():
     kernel_case("ragged-fp32-d128-offsets", 1, 1000, 2, 128, torch.float32,
                 True, Tk=700, q_off=300, k_off=0)
     kernel_case("window", 2, 1024, 4, 128, torch.bfloat16, True, window=256)
+    # The bf16 kernels' ragged edges: T not a multiple of any tile (TMA
+    # reads rows past T as zeros; columns past Tk are masked), Tq != Tk
+    # with offsets, D=128 and segment ids in one case.
+    kernel_case("ragged-bf16", 2, 1000, 4, 64, torch.bfloat16, False)
+    kernel_case("ragged-bf16-d128-offsets-segments", 2, 1000, 4, 128,
+                torch.bfloat16, True, Tk=700, q_off=300, segments=4)
     table.update(ring_case())   # the state and fp32 rows at the ring's shape
     kernel_case("segments-bf16", 8, 2048, 12, 64, torch.bfloat16, True,
                 fused=True, segments=4, timing=True)

@@ -6,8 +6,9 @@ loaded with ``ctypes``. Nothing is built when a module is imported: the
 first kernel launch builds, and later launches reuse the loaded library.
 
 Libraries land in ``build/horovod_tpu_torch/`` beside the package (the
-repository's ``build/`` directory), named by a hash of the source and the
-flags, so an edit rebuilds and an unchanged source is built once.
+repository's ``build/`` directory), named by a hash of the source, the
+headers beside it (``csrc/*.cuh``) and the flags, so an edit of either
+rebuilds and an unchanged source is built once.
 """
 
 from __future__ import annotations
@@ -17,7 +18,6 @@ import hashlib
 import os
 import shutil
 import subprocess
-import sys
 import tempfile
 import threading
 from pathlib import Path
@@ -45,11 +45,16 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "hvd_flash_bwd_dq": [_I] * 6 + [_P] * 10 + [_I] * 5 + [_F, _P],
         # as dq with dk, dv in place of dq
         "hvd_flash_bwd_dkv": [_I] * 6 + [_P] * 11 + [_I] * 5 + [_F, _P],
+        # dtype, D -> keys per tile of the forward kernel
+        "hvd_flash_fwd_key_tile": [_I] * 2,
     },
 }
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
+# The compiler's report (``-Xptxas -v``: registers, spills) of each
+# library built with ``verbose``.
+BUILD_LOG: Dict[str, str] = {}
 
 
 def find_nvcc() -> str:
@@ -71,9 +76,11 @@ def find_nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where the library built from ``csrc/<name>.cu`` lives: keyed by a
-    hash of the source and the flags."""
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes())
+    hash of the source, every ``csrc/*.cuh`` header and the flags."""
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode())
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
@@ -83,6 +90,7 @@ def build(name: str, verbose: bool = False) -> Path:
 
     The compiler writes to a temporary file that is renamed into place,
     so processes that build at once never load a half-written library.
+    ``verbose`` adds ``-Xptxas -v`` and keeps its report in BUILD_LOG.
     """
     out = library_path(name)
     if out.exists():
@@ -98,8 +106,8 @@ def build(name: str, verbose: bool = False) -> Path:
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
-        if verbose and proc.stderr:
-            print(proc.stderr, file=sys.stderr)
+        if verbose:
+            BUILD_LOG[name] = proc.stderr
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
@@ -119,6 +127,9 @@ def build_all(verbose: bool = False) -> Dict[str, Path]:
 
 def load(name: str) -> ctypes.CDLL:
     """The bound library for ``csrc/<name>.cu``, built on first use."""
+    lib = _loaded.get(name)
+    if lib is not None:
+        return lib
     with _lock:
         lib = _loaded.get(name)
         if lib is None:

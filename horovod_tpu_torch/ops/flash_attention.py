@@ -41,6 +41,14 @@ NEG_INF = -1e30
 HEAD_DIMS = (64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
+# Keys per tile of the forward kernel, by (dtype, head dim): the state
+# mode's P is rounded to bf16 against the running max of each such tile,
+# so a reference that rounds as the kernel does walks the keys in these
+# tiles. The library reports the tile its launcher uses
+# (``hvd_flash_fwd_key_tile``); ``chip_smoke.py`` holds the two equal.
+FWD_KEY_TILE = {(torch.bfloat16, 64): 128, (torch.bfloat16, 128): 128,
+                (torch.float32, 64): 64, (torch.float32, 128): 32}
+
 # Launches of each kernel. flash_fwd counts its three output modes apart,
 # and the backward kernels their fp32-output mode.
 LAUNCHES = {"flash_fwd": 0, "flash_fwd_train": 0, "flash_fwd_state": 0,
@@ -172,7 +180,9 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal=True, q_off=0,
 
 
 def _kernel_strides_ok(t: torch.Tensor) -> bool:
-    """The kernels read 16 bytes at a time along a contiguous head dim."""
+    """The kernels read 16 bytes at a time along a contiguous head dim;
+    the bf16 kernels' TMA tensor maps also need a 16-byte-aligned base and
+    b/t/h strides that are multiples of 16 bytes."""
     es = t.element_size()
     return (t.stride(3) == 1 and t.data_ptr() % 16 == 0
             and all(t.stride(i) * es % 16 == 0 for i in range(3)))

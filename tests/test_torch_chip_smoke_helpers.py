@@ -1,0 +1,113 @@
+"""``chip_smoke.py``'s references, held against the JAX package on the CPU.
+
+``rounded_plain`` is the reference that the fp32 outputs of bf16 inputs
+meet on the card at ``chip_smoke.ROUNDED_LIMIT``: for the state mode it
+walks the keys in tiles, rounds P = exp(S - running max) to bf16 per tile
+and rescales the fp32 accumulator. Where P is rounded depends on the
+tile, so the reference takes the kernel's tile as an argument. Here it
+runs with the Pallas kernel's own tile (``bk`` = 512 keys at T = 1024)
+against ``_pallas_block_state`` in interpret mode on the same numpy
+inputs, and must agree at ROUNDED_LIMIT, while a 64-key tile must not:
+the limit can tell one tile from another.
+
+The tolerance is ROUNDED_LIMIT (2e-4, normwise), the limit the card's
+comparison uses: the two sides round P at the same places and differ
+only by fp32 summation order and exp, which moved the comparison by
+1.5e-5 to 3.3e-5 on the CPU, while rounding P per 64 keys instead of 512
+moves it by ~1e-3.
+"""
+
+import importlib.util
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import torch
+
+from horovod_tpu.ops import pallas_attention as ref
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _inputs(BH, T, D, seed):
+    rng = np.random.RandomState(seed)
+    return [rng.randn(BH, T, D).astype(np.float32) for _ in range(3)]
+
+
+def _pallas_state_acc(q, k, v, causal):
+    """acc [BH, T, D] of the Pallas block-state kernel (interpret mode),
+    bf16 inputs, and its key tile."""
+    args = [jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)]
+    acc, _, _ = ref._pallas_block_state(
+        *args, jnp.asarray([0, 0], jnp.int32), causal, interpret=True)
+    return np.asarray(acc, np.float32), ref._pick_block(q.shape[1],
+                                                        ref.BLOCK_K)
+
+
+def _rounded_acc(cs, q, k, v, causal, tile):
+    """rounded_plain's state acc for the same inputs as [BH, T, D]: the
+    BH rows are the heads of one batch entry ([1, T, BH, D])."""
+    q_t, k_t, v_t = (torch.tensor(x).to(torch.bfloat16).permute(1, 0, 2)[None]
+                     for x in (q, k, v))
+    kw = dict(causal=causal, q_off=0, k_off=0, window=None)
+    (acc,) = cs.rounded_plain("flash_fwd_state", q_t, k_t, v_t, None, None,
+                              None, kw, tile)
+    return acc[0].permute(1, 0, 2)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_rounded_plain_follows_the_tile(causal):
+    cs = _chip_smoke()
+    q, k, v = _inputs(2, 1024, 64, seed=5)
+    want, bk = _pallas_state_acc(q, k, v, causal)
+    assert bk == 512
+    want = torch.tensor(want)
+    same = cs.rel_err(_rounded_acc(cs, q, k, v, causal, bk), want)
+    other = cs.rel_err(_rounded_acc(cs, q, k, v, causal, 64), want)
+    assert same <= cs.ROUNDED_LIMIT, (same, other)
+    assert other > cs.ROUNDED_LIMIT, (same, other)
+
+
+def test_rounded_plain_tile_comes_from_the_wrapper():
+    """chip_smoke takes the tile from the wrapper module's FWD_KEY_TILE,
+    which names a tile for every (dtype, head dim) the kernels take."""
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    assert set(fa.FWD_KEY_TILE) == {(dt, d) for dt in (torch.bfloat16,
+                                                       torch.float32)
+                                    for d in fa.HEAD_DIMS}
+    src = open(os.path.join(REPO, "chip_smoke.py")).read()
+    assert "fa.FWD_KEY_TILE[" in src
+
+
+_PURITY = r"""
+import importlib.util, sys
+spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
+mod = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(mod)
+import horovod_tpu_torch.ops.flash_attention
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib",
+                                                           "horovod_tpu"))
+assert not bad, bad
+"""
+
+
+def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("JAX_PLATFORMS", "HVD_PALLAS_INTERPRET")}
+    proc = subprocess.run([sys.executable, "-c", _PURITY], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
