@@ -27,11 +27,12 @@ Phases, in order; any failure exits nonzero:
     and the profiler's device time beside it) beside the plain version's,
     the bound, and PyTorch's scaled_dot_product_attention as a
     yardstick. Then the ring's blocks at the sp trainer's block shape
-    (B=8, Tq=Tk=2048): the state mode in a past, a diagonal and a future
-    block, the fp32-output backward with the global lse and delta, their
-    planted faults and times; and every mode with packed segment ids, at
-    bf16 (timed, at the ring's block shape) and ragged fp32, where
-    ignoring the ids must be refused.
+    (B=8, Tq=Tk=2048): the state mode and the fp32 dQ in a past, a
+    diagonal and a future block (where the state must be exactly empty and
+    dQ exactly 0), the fp32 dK/dV in the first two, with the global lse
+    and delta, their planted faults and times; and every mode with packed
+    segment ids, at bf16 (timed, at the ring's block shape) and ragged
+    fp32, where ignoring the ids must be refused.
 (c) the slice: a small transformer's loss and gradients through the
     kernels against the same model on the CPU; then the GPT-2-small-class
     trainer (12 layers, d_model 768, T 1024, bf16, batch 8) for 2 warm-up
@@ -624,11 +625,12 @@ def ring_inputs():
 
 
 def ring_case():
-    """The ring's block kernels on ``ring_inputs()``: the state mode in
-    the past, diagonal and future blocks; the fp32-output backward in the
-    past and diagonal blocks with the global lse and delta. Returns the
-    state and fp32 rows (timed at the past block, where every pair is
-    visible)."""
+    """The ring's block kernels on ``ring_inputs()``: the state mode and
+    the fp32 dQ in the past, diagonal and future blocks; the fp32 dK/dV in
+    the past and diagonal blocks; the backward with the global lse and
+    delta. In the future block every tile is culled, and the state must be
+    exactly empty and dQ exactly 0. Returns the state and fp32 rows (timed
+    at the past block, where every pair is visible)."""
     import torch
 
     from horovod_tpu_torch.ops import flash_attention as fa
@@ -638,12 +640,12 @@ def ring_case():
     table = {}
     for name, (k, v, q_off, k_off) in blocks.items():
         kw = dict(causal=True, q_off=q_off, k_off=k_off, window=None)
-        names = ["flash_fwd_state"]
+        names = ["flash_fwd_state", "flash_bwd_dq_f32"]
         if name != "future":
-            names += ["flash_bwd_dq_f32", "flash_bwd_dkv_f32"]
+            names += ["flash_bwd_dkv_f32"]
         log(f"case ring-{name}: B={B} Tq=Tk={T} H={H} D={D} {dt} causal "
-            f"q_off={q_off} k_off={k_off}, q/k/v views of one [B,T,3,H,D]"
-            f"{', global lse/delta' if name != 'future' else ''}")
+            f"q_off={q_off} k_off={k_off}, q/k/v views of one [B,T,3,H,D], "
+            f"global lse/delta")
         args = (q, k, v, do, lse, delta)
         calls = modes(*args, kw, names)
         errs, refs = check_modes(f"ring-{name}", calls, dt, (*args, kw))
@@ -653,6 +655,10 @@ def ring_case():
                     and torch.all(m_k == fa.NEG_INF)):
                 raise AssertionError("future block: state is not the empty "
                                      "state (acc 0, m -1e30, l 0)")
+            (dq_k,) = calls["flash_bwd_dq_f32"][0]()
+            if not torch.all(dq_k == 0):
+                raise AssertionError("future block: fp32 dQ is not exactly 0")
+            log("  future block: state empty and fp32 dQ exactly 0")
         if name == "past":
             refuse(dropped_tile_faults(*args, kw, names), refs, dt,
                    "last tile dropped")
@@ -931,7 +937,7 @@ def sp_phase(gpu):
 
 
 AB_MODES = ("flash_fwd", "flash_fwd_train", "flash_bwd_dq", "flash_bwd_dkv")
-AB_RING_MODES = ("flash_fwd_state", "flash_bwd_dkv_f32")
+AB_RING_MODES = ("flash_fwd_state", "flash_bwd_dq_f32", "flash_bwd_dkv_f32")
 
 
 def time_tree(tree):

@@ -31,49 +31,58 @@
 // Bounds on an H100 SXM (989 TFLOP/s bf16, 3.35 TB/s). At the slice's
 // shape (B=8, T=1024, H=12, D=64, causal, bf16, one layer) the forward
 // needs ~12.9 GFLOP over the visible pairs (13 us) and moves ~50 MB
-// (15 us): bound by bytes; dK/dV needs twice its operations (26 us) over
-// ~76 MB. At the ring's past block (Tq = Tk = 2048, every pair visible)
-// the state mode needs ~103 GFLOP (104 us) and dK/dV with fp32 outputs
-// ~206 GFLOP (208 us): both bound by operations.
+// (15 us): bound by bytes; dQ needs 1.5 times its operations (20 us) and
+// dK/dV twice (26 us) over ~76 MB. At the ring's past block (Tq = Tk =
+// 2048, every pair visible) the state mode needs ~103 GFLOP (104 us), dQ
+// with an fp32 output ~155 GFLOP (156 us) and dK/dV ~206 GFLOP (208 us):
+// all bound by operations.
 //
-// bf16 forward and dK/dV (flash_fwd_sm90, flash_bwd_dkv_sm90). Each CTA is
+// bf16 inputs run three kernels of one design: flash_fwd_sm90 (every
+// forward mode), flash_bwd_dq_sm90 and flash_bwd_dkv_sm90. Each CTA is
 // three warpgroups: two consumers of 64 rows each and one producer. What
-// the design does about the limits of the WMMA kernels it replaced:
-//  1. Products run as wgmma with fp32 accumulators in registers: S = Q.K^T
-//     (dK/dV: S^T = K.Q^T and dP^T = V.dO^T) with both operands read from
-//     shared memory, K-major; P (dK/dV: P^T and dS^T), rounded to bf16 as
-//     the Pallas kernels round it, is the register A operand of O += P.V
-//     (dV += P^T.dO, dK += dS^T.Q), B read MN-major by the descriptor's
-//     transpose. O, dK and dV never leave registers until the epilogue,
-//     and no score tile goes through shared memory.
-//  2. Loads are asynchronous: Q (dK/dV: K and V) arrives once by TMA into
-//     128-byte-swizzled shared memory; the streamed tiles (K/V; Q, dO and
-//     the rows' lse and delta) pass through a ring of two stages that one
-//     producer warp fills while the consumers compute on the other stage,
-//     with full/empty mbarriers between them.
-//  3. Shared memory holds only bf16 tiles: the forward keeps a 128-row Q
+// the design does about what bounds attention on this card:
+//  1. Products run as wgmma with fp32 accumulators in registers. The score
+//     tiles (S = Q.K^T; dQ also dP = dO.V^T; dK/dV S^T = K.Q^T and dP^T =
+//     V.dO^T) read both operands from shared memory, K-major. P (dQ: dS;
+//     dK/dV: P^T and dS^T), rounded to bf16 where the Pallas kernels round
+//     it, is the register A operand of the next product (O += P.V,
+//     dQ += dS.K, dV += P^T.dO, dK += dS^T.Q), whose B operand is read
+//     MN-major by the descriptor's transpose: dQ reads one K tile both
+//     ways. O, dQ, dK and dV never leave registers until the epilogue, and
+//     no score tile goes through shared memory.
+//  2. Loads are asynchronous: the CTA's own rows (forward: Q; dQ: Q and
+//     dO; dK/dV: K and V) arrive once by TMA into 128-byte-swizzled shared
+//     memory; the streamed tiles (K/V and, with SEG, their ids; dK/dV: Q,
+//     dO and the rows' lse, delta and ids) pass through a ring of two
+//     stages that one producer warp fills while the consumers compute on
+//     the other stage, with full/empty mbarriers between them.
+//  3. Shared memory holds only bf16 tiles and ids: the forward a 128-row Q
 //     tile and two stages of 128-key K/V tiles (80 KB at D=64, 160 KB at
-//     D=128), dK/dV a 128-key K/V tile and two stages of 64-row Q/dO tiles
-//     (64 KB and 128 KB). The producer gives up its registers
-//     (setmaxnreg) so the consumers hold their accumulators.
-//  4. The softmax runs in the log2 domain: scores are scaled by
-//     scale * log2(e) in one multiply and exponentiated with exp2f; row
-//     max and sum are reduced across the four lanes of a row by shuffles.
+//     D=128); dQ 128-row Q and dO tiles and two stages of K/V tiles of 128
+//     keys at D=64, 64 at D=128 (96 KB and 128 KB); dK/dV a 128-key K/V
+//     tile and two stages of 64-row Q/dO tiles (64 KB and 128 KB). The
+//     producer gives up its registers (setmaxnreg) so the consumers hold
+//     their accumulators; dQ's key tile is halved at D=128 so that dQ, S,
+//     dP and the dS fragments fit in them without spilling.
+//  4. Exponentials run in the log2 domain: scores are scaled by
+//     scale * log2(e) in one multiply and exponentiated with exp2f (the
+//     backward kernels scale each row's lse by log2(e) once); the
+//     forward's row max and sum are reduced across the four lanes of a row
+//     by shuffles.
 //  5. Tile culling is an index range computed once (no per-tile test);
 //     tiles wholly visible to a warpgroup skip the per-element mask; the
-//     causal forward launches its heaviest (last) query tiles first; a
-//     kernel's shared-memory attribute is set once per device.
+//     causal forward and dQ launch their heaviest (last) query tiles
+//     first; a kernel's shared-memory attribute is set once per device.
 //
-// fp32 inputs (and dQ in every dtype) keep the first design: one CTA owns
-// one 64-row tile (32 rows for fp32 at D=128) and loops over the tiles of
-// the other dimension, each warp a 16-row strip of every per-tile matrix;
-// fp32 products are an FMA loop, so fp32 stays fp32 (no TF32 rounding), and
-// dQ's bf16 products run on WMMA through shared memory.
+// fp32 inputs keep a simpler design by choice (fp32 stays fp32, with no
+// TF32 rounding; the model runs in bf16): one CTA owns one 64-row tile (32
+// rows at D=128) and loops over the tiles of the other dimension, each
+// warp a 16-row strip of every per-tile matrix, its products an FMA loop
+// through shared memory.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -89,115 +98,64 @@ struct Strides {
   long long b, t, h;  // element strides of a [B, T, H, D] tensor
 };
 
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ bf16 from_f<bf16>(float x) { return __float2bfloat16(x); }
-
-// One output row of D values from a fp32 shared row, in the input dtype T
-// or (out_f32) in fp32.
-template <typename T, int D>
-__device__ __forceinline__ void store_row(void* base, long long off, const float* src,
-                                          bool out_f32, int lane) {
-  if (out_f32) {
-    float* row = static_cast<float*>(base) + off;
-    for (int d = lane; d < D; d += 32) row[d] = src[d];
-  } else {
-    T* row = static_cast<T*>(base) + off;
-    for (int d = lane; d < D; d += 32) row[d] = from_f<T>(src[d]);
-  }
+// One fp32 output row of D values from a fp32 shared row.
+template <int D>
+__device__ __forceinline__ void store_row(float* row, const float* src, int lane) {
+  for (int d = lane; d < D; d += 32) row[d] = src[d];
 }
 
 __host__ __device__ constexpr int align128(int x) { return (x + 127) & ~127; }
 
-// Tile geometry. BM rows per tile (of Q and of K alike); one warp per
-// 16-row strip. Leading dimensions are padded against bank conflicts and
-// keep every WMMA pointer 32-byte aligned.
+// Tile geometry of the fp32 kernels. BM rows per tile (of Q and of K
+// alike); one warp per 16-row strip. Leading dimensions are padded against
+// bank conflicts.
 template <typename T, int D>
 struct Cfg {
-  static constexpr int ES = (int)sizeof(T);
-  static constexpr int BM = (ES == 4 && D == 128) ? 32 : 64;
+  static_assert(std::is_same<T, float>::value, "bf16 runs the sm90 kernels");
+  static constexpr int BM = D == 128 ? 32 : 64;
   static constexpr int NW = BM / 16;
   static constexpr int NT = NW * 32;
-  static constexpr int LDT = D + (ES == 2 ? 8 : 4);   // [BM][D] tiles of T
-  static constexpr int LDF = D + 4;                   // [BM][D] fp32 accumulators
-  static constexpr int LDS = BM + 4;                  // [BM][BM] fp32 scores
-  static constexpr int LDP = BM + (ES == 2 ? 8 : 4);  // [BM][BM] tiles of T
-  static constexpr int TILE = align128(BM * LDT * ES);
+  static constexpr int LDT = D + 4;   // [BM][D] input tiles
+  static constexpr int LDF = D + 4;   // [BM][D] accumulators
+  static constexpr int LDS = BM + 4;  // [BM][BM] scores
+  static constexpr int LDP = BM + 4;  // [BM][BM] probabilities
+  static constexpr int TILE = align128(BM * LDT * 4);
   static constexpr int ACC = align128(BM * LDF * 4);
   static constexpr int SCORE = align128(BM * LDS * 4);
-  static constexpr int PROB = align128(BM * LDP * ES);
+  static constexpr int PROB = align128(BM * LDP * 4);
   static constexpr int ROW = align128(BM * 4);  // BM floats or int32 ids
   // Four row vectors each: two of fp32 row statistics, two of segment ids.
   static constexpr int FWD_SMEM = 3 * TILE + SCORE + PROB + ACC + 4 * ROW;
-  // The backward kernels write P and dS (in T) over their warp's strip of
-  // the fp32 S and dP tiles once read: dK/dV then fits two CTAs per SM.
+  // The backward kernels write P and dS over their warp's strip of the S
+  // and dP tiles once read: dK/dV then fits two CTAs per SM.
   static constexpr int DQ_SMEM = 4 * TILE + 2 * SCORE + ACC + 4 * ROW;
   static constexpr int DKV_SMEM = 4 * TILE + 2 * SCORE + 2 * ACC + 4 * ROW;
 };
 
-// C[16][N] = A[16][K] . B[N][K]^T for this warp's strip.
+// C[16][N] = A[16][K] . B[N][K]^T for this warp's strip, by FMA.
 template <typename T, int N, int K>
 __device__ __forceinline__ void warp_gemm_nt(const T* A, int lda, const T* B, int ldb,
                                              float* C, int ldc) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    using namespace nvcuda;
-#pragma unroll
-    for (int n0 = 0; n0 < N; n0 += 16) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-      wmma::fill_fragment(c, 0.0f);
-#pragma unroll
-      for (int k0 = 0; k0 < K; k0 += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> b;
-        wmma::load_matrix_sync(a, A + k0, lda);
-        wmma::load_matrix_sync(b, B + n0 * ldb + k0, ldb);
-        wmma::mma_sync(c, a, b, c);
-      }
-      wmma::store_matrix_sync(C + n0, c, ldc, wmma::mem_row_major);
-    }
-  } else {
-    const int lane = threadIdx.x & 31;
-    for (int idx = lane; idx < 16 * N; idx += 32) {
-      const int i = idx / N, n = idx % N;
-      float acc = 0.0f;
-      for (int k = 0; k < K; ++k) acc = fmaf(A[i * lda + k], B[n * ldb + k], acc);
-      C[i * ldc + n] = acc;
-    }
+  const int lane = threadIdx.x & 31;
+  for (int idx = lane; idx < 16 * N; idx += 32) {
+    const int i = idx / N, n = idx % N;
+    float acc = 0.0f;
+    for (int k = 0; k < K; ++k) acc = fmaf(A[i * lda + k], B[n * ldb + k], acc);
+    C[i * ldc + n] = acc;
   }
   __syncwarp();
 }
 
-// C[16][N] += A[16][K] . B[K][N] for this warp's strip.
+// C[16][N] += A[16][K] . B[K][N] for this warp's strip, by FMA.
 template <typename T, int N, int K>
 __device__ __forceinline__ void warp_gemm_nn(const T* A, int lda, const T* B, int ldb,
                                              float* C, int ldc) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    using namespace nvcuda;
-#pragma unroll
-    for (int n0 = 0; n0 < N; n0 += 16) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-      wmma::load_matrix_sync(c, C + n0, ldc, wmma::mem_row_major);
-#pragma unroll
-      for (int k0 = 0; k0 < K; k0 += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(a, A + k0, lda);
-        wmma::load_matrix_sync(b, B + k0 * ldb + n0, ldb);
-        wmma::mma_sync(c, a, b, c);
-      }
-      wmma::store_matrix_sync(C + n0, c, ldc, wmma::mem_row_major);
-    }
-  } else {
-    const int lane = threadIdx.x & 31;
-    for (int idx = lane; idx < 16 * N; idx += 32) {
-      const int i = idx / N, n = idx % N;
-      float acc = C[i * ldc + n];
-      for (int k = 0; k < K; ++k) acc = fmaf(A[i * lda + k], B[k * ldb + n], acc);
-      C[i * ldc + n] = acc;
-    }
+  const int lane = threadIdx.x & 31;
+  for (int idx = lane; idx < 16 * N; idx += 32) {
+    const int i = idx / N, n = idx % N;
+    float acc = C[i * ldc + n];
+    for (int k = 0; k < K; ++k) acc = fmaf(A[i * lda + k], B[k * ldb + n], acc);
+    C[i * ldc + n] = acc;
   }
   __syncwarp();
 }
@@ -264,6 +222,14 @@ struct Sm90Cfg {
   static constexpr int FWD_Q = FBM * ROW_BYTES;
   static constexpr int FWD_KV = FBN * ROW_BYTES;
   static constexpr int FWD_SMEM = FWD_Q + 2 * STAGES * FWD_KV + STAGES * FBN * 4 + 1024 + 1024;
+  // dQ: QBM query rows per CTA, QBN keys per streamed tile. Consumers hold
+  // dQ (D / 2 floats), S and dP (QBN / 2 each) and the dS fragments
+  // (QBN / 4 words): 128-key tiles at D=128 would need ~224 and spill.
+  static constexpr int QBM = 64 * CW;
+  static constexpr int QBN = D == 64 ? 128 : 64;
+  static constexpr int DQ_Q = QBM * ROW_BYTES;
+  static constexpr int DQ_KV = QBN * ROW_BYTES;
+  static constexpr int DQ_SMEM = 2 * DQ_Q + 2 * STAGES * DQ_KV + STAGES * QBN * 4 + 1024 + 1024;
   // dK/dV: BBN keys per CTA, BBQ queries per streamed tile.
   static constexpr int BBN = 64 * CW;
   static constexpr int BBQ = 64;
@@ -358,6 +324,48 @@ __device__ __forceinline__ void store2(void* row, int col, float x, float y, boo
         __floats2bfloat162_rn(x, y);
 }
 
+// A thread's two rows (t0 and t0 + 8) of a 64 x D accumulator in the
+// wgmma layout into a [B, T, H, D] output with strides `so`, in bf16 or
+// fp32; rows at or past T are not stored.
+template <int D>
+__device__ __forceinline__ void store_acc(void* out, Strides so, int b, int h, int t0, int T,
+                                          const float (&acc)[D / 2], bool f32, int lane) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int t = t0 + 8 * r;
+    if (t >= T) continue;
+    unsigned char* row = static_cast<unsigned char*>(out) +
+                         (b * so.b + (long long)t * so.t + h * so.h) * (f32 ? 4 : 2);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      store2(row, 8 * j + 2 * (lane % 4), acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1], f32);
+  }
+}
+
+// The producer warp's K/V stream: key tiles [lo, hi) of BN keys (and,
+// with SEG, their ids) through the ST stages of sK/sV/sKid, each stage
+// handed to the consumers on full[s] and taken back on empty[s].
+template <int D, int BN, int ST, bool SEG>
+__device__ __forceinline__ void stream_kv(bf16* sK, bf16* sV, int* sKid, uint64_t* full,
+                                          uint64_t* empty, const CUtensorMap* mk,
+                                          const CUtensorMap* mv, const int* k_ids, int b,
+                                          int h, int Tk, int lo, int hi, int lane) {
+  for (int i = 0; i < hi - lo; ++i) {
+    const int s = i % ST, k0 = (lo + i) * BN;
+    if (i >= ST) hopper::mbar_wait(&empty[s], (i / ST - 1) & 1);
+    if (SEG)
+      for (int c = lane; c < BN; c += 32)
+        sKid[s * BN + c] = k0 + c < Tk ? k_ids[(long long)b * Tk + k0 + c] : 0;
+    if (lane == 0) {
+      hopper::mbar_expect_tx(&full[s], 2 * BN * D * 2);
+      tma_tile<D>(sK + s * BN * D, BN, mk, &full[s], h, k0, b);
+      tma_tile<D>(sV + s * BN * D, BN, mv, &full[s], h, k0, b);
+    } else {
+      hopper::mbar_arrive(&full[s]);
+    }
+  }
+}
+
 // bf16 forward. One CTA owns FBM query rows of one (b, h); the producer
 // warp loads Q once and streams K/V tiles (and, with SEG, their ids)
 // through the ring; each consumer warpgroup runs the online softmax for
@@ -413,20 +421,7 @@ __global__ void __launch_bounds__(Sm90Cfg<D>::NT, 1)
       hopper::mbar_expect_tx(q_full, C::FWD_Q);
       tma_tile<D>(sQ, BM, &mq, q_full, h, row0, b);
     }
-    for (int i = 0; i < hi - lo; ++i) {
-      const int s = i % ST, k0 = (lo + i) * BN;
-      if (i >= ST) hopper::mbar_wait(&empty[s], (i / ST - 1) & 1);
-      if (SEG)
-        for (int c = lane; c < BN; c += 32)
-          sKid[s * BN + c] = k0 + c < Tk ? k_ids[(long long)b * Tk + k0 + c] : 0;
-      if (lane == 0) {
-        hopper::mbar_expect_tx(&full[s], 2 * C::FWD_KV);
-        tma_tile<D>(sK + s * BN * D, BN, &mk, &full[s], h, k0, b);
-        tma_tile<D>(sV + s * BN * D, BN, &mv, &full[s], h, k0, b);
-      } else {
-        hopper::mbar_arrive(&full[s]);
-      }
-    }
+    stream_kv<D, BN, ST, SEG>(sK, sV, sKid, full, empty, &mk, &mv, k_ids, b, h, Tk, lo, hi, lane);
     return;
   }
 
@@ -543,6 +538,155 @@ __global__ void __launch_bounds__(Sm90Cfg<D>::NT, 1)
       lse[at] = l > 0.0f ? (m2[r] + log2f(l)) * LN2 : -NEG_INF;
     }
   }
+}
+
+// bf16 dQ. One CTA owns QBM query rows of one (b, h): the producer warp
+// loads Q and dO once, then streams K/V tiles (and, with SEG, their ids)
+// through the ring over the key tiles these rows can see; each consumer
+// warpgroup keeps dQ of its 64 rows in registers over the whole key loop.
+// A CTA that sees no key tile (a future block of the ring) loads nothing
+// and writes dQ = 0.
+template <int D, bool SEG>
+__global__ void __launch_bounds__(Sm90Cfg<D>::NT, 1)
+    flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap mq,
+                      const __grid_constant__ CUtensorMap mk,
+                      const __grid_constant__ CUtensorMap mv,
+                      const __grid_constant__ CUtensorMap mdo, const float* __restrict__ lse,
+                      const float* __restrict__ delta, void* __restrict__ dq,
+                      const int* __restrict__ q_ids, const int* __restrict__ k_ids, Strides sdq,
+                      int out_f32, int H, int Tq, int Tk, int causal, int q_off, int k_off,
+                      int window, float scale) {
+  using C = Sm90Cfg<D>;
+  constexpr int BM = C::QBM, BN = C::QBN, ST = C::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
+  bf16* sQ = reinterpret_cast<bf16*>(smem);
+  bf16* sDO = reinterpret_cast<bf16*>(smem + C::DQ_Q);
+  bf16* sK = reinterpret_cast<bf16*>(smem + 2 * C::DQ_Q);
+  bf16* sV = reinterpret_cast<bf16*>(smem + 2 * C::DQ_Q + ST * C::DQ_KV);
+  int* sKid = reinterpret_cast<int*>(smem + 2 * C::DQ_Q + 2 * ST * C::DQ_KV);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sKid + ST * BN);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + ST;
+
+  const int nqt = (Tq + BM - 1) / BM;
+  const int qt = causal ? nqt - 1 - blockIdx.x : blockIdx.x;  // longest rows first
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int row0 = qt * BM, q_base = q_off + row0;
+  int lo, hi;
+  key_tiles(q_base, BM, k_off, BN, (Tk + BN - 1) / BN, causal, window, lo, hi);
+  const int wg = threadIdx.x / WG;
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_full, 1);
+    for (int s = 0; s < ST; ++s) {
+      hopper::mbar_init(&full[s], 32);
+      hopper::mbar_init(&empty[s], C::CW * WG);
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == C::CW) {
+    hopper::regs_dec<40>();
+    const int lane = threadIdx.x % 32;
+    if (threadIdx.x / 32 != C::CW * 4 || hi == lo) return;
+    if (lane == 0) {
+      hopper::prefetch_map(&mk);
+      hopper::prefetch_map(&mv);
+      hopper::mbar_expect_tx(q_full, 2 * C::DQ_Q);
+      tma_tile<D>(sQ, BM, &mq, q_full, h, row0, b);
+      tma_tile<D>(sDO, BM, &mdo, q_full, h, row0, b);
+    }
+    stream_kv<D, BN, ST, SEG>(sK, sV, sKid, full, empty, &mk, &mv, k_ids, b, h, Tk, lo, hi, lane);
+    return;
+  }
+
+  // Consumer warpgroup wg: query rows [64 wg, 64 wg + 64) of the tile.
+  hopper::regs_inc<232>();
+  const int t = threadIdx.x % WG, warp = t / 32, lane = t % 32;
+  const int wrow0 = 64 * wg;
+  const float c2 = scale * LOG2E;
+  int qpos[2], qid[2];
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int tq = row0 + wrow0 + 16 * warp + lane / 4 + 8 * r;
+    const bool in = tq < Tq;
+    qpos[r] = q_off + tq;
+    qid[r] = SEG && in ? q_ids[(long long)b * Tq + tq] : 0;
+    // A padded row gets lse = +1e30, so exp2(s - lse) is exactly zero.
+    lse2[r] = in ? lse[(long long)bh * Tq + tq] * LOG2E : -NEG_INF;
+    dlt[r] = in ? delta[(long long)bh * Tq + tq] : 0.0f;
+  }
+  float dq_acc[D / 2], sc[BN / 2], dps[BN / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) sc[i] = dps[i] = 0.0f;
+
+  if (hi > lo) hopper::mbar_wait(q_full, 0);
+  for (int i = 0; i < hi - lo; ++i) {
+    const int s = i % ST, k0 = (lo + i) * BN;
+    const bf16* tK = sK + s * BN * D;
+    const bf16* tV = sV + s * BN * D;
+    hopper::mbar_wait(&full[s], (i / ST) & 1);
+
+    // S = Q . K^T and dP = dO . V^T, two groups in flight.
+    hopper::fence_regs(sc);
+    hopper::fence_regs(dps);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < D / 16; ++k)
+      hopper::wgmma_ss<BN>(sc, kmajor(sQ, BM, wrow0, k), kmajor(tK, BN, 0, k), k > 0);
+    hopper::wgmma_commit();
+#pragma unroll
+    for (int k = 0; k < D / 16; ++k)
+      hopper::wgmma_ss<BN>(dps, kmajor(sDO, BM, wrow0, k), kmajor(tV, BN, 0, k), k > 0);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<1>();
+    hopper::fence_regs(sc);
+
+    // P = exp2(S c - lse2) under the masks. Keys past Tk read as zeros
+    // (S = 0, P = exp2(-lse2) != 0), so a ragged last tile takes the mask.
+    const bool masked = SEG || k0 + BN > Tk ||
+                        !all_visible(q_base + wrow0, 64, k_off + k0, BN, causal, window);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * j + 2 * (lane % 4) + (e & 1), r = e >> 1;
+        float p = exp2f(fmaf(sc[4 * j + e], c2, -lse2[r]));
+        if (masked && !(k0 + c < Tk && visible_pair(qpos[r], k_off + k0 + c, causal, window) &&
+                        (!SEG || sKid[s * BN + c] == qid[r])))
+          p = 0.0f;
+        sc[4 * j + e] = p;
+      }
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dps);
+    // dS = P (dP - delta) scale, from the fp32 P.
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dps[4 * j + e] = sc[4 * j + e] * (dps[4 * j + e] - dlt[e >> 1]) * scale;
+
+    // dQ += dS . K, dS rounded to bf16 (K's dtype, as the Pallas kernel),
+    // the K tile read MN-major.
+    uint32_t da[BN / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) a_frag(da[kk], dps, kk);
+    hopper::fence_regs(dq_acc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) hopper::wgmma_rs<D>(dq_acc, da[kk], mnmajor(tK, BN, kk));
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dq_acc);
+    hopper::mbar_arrive(&empty[s]);
+  }
+
+  store_acc<D>(dq, sdq, b, h, row0 + wrow0 + 16 * warp + lane / 4, Tq, dq_acc, out_f32, lane);
 }
 
 // bf16 dK/dV. One CTA owns BBN keys of one (b, h): the producer warp loads
@@ -714,22 +858,9 @@ __global__ void __launch_bounds__(Sm90Cfg<D>::NT, 1)
     hopper::mbar_arrive(&empty[s]);
   }
 
-  const int es = out_f32 ? 4 : 2;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int tk = key0 + krow0 + 16 * warp + lane / 4 + 8 * r;
-    if (tk >= Tk) continue;
-    unsigned char* rk =
-        static_cast<unsigned char*>(dk) + (b * sdk.b + (long long)tk * sdk.t + h * sdk.h) * es;
-    unsigned char* rv =
-        static_cast<unsigned char*>(dv) + (b * sdv.b + (long long)tk * sdv.t + h * sdv.h) * es;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      const int col = 8 * j + 2 * (lane % 4);
-      store2(rk, col, dk_acc[4 * j + 2 * r], dk_acc[4 * j + 2 * r + 1], out_f32);
-      store2(rv, col, dv_acc[4 * j + 2 * r], dv_acc[4 * j + 2 * r + 1], out_f32);
-    }
-  }
+  const int tk = key0 + krow0 + 16 * warp + lane / 4;
+  store_acc<D>(dk, sdk, b, h, tk, Tk, dk_acc, out_f32, lane);
+  store_acc<D>(dv, sdv, b, h, tk, Tk, dv_acc, out_f32, lane);
 }
 
 // fp32 forward. Plain mode (lse == m_out == nullptr): o = normalized O in T.
@@ -810,7 +941,7 @@ __global__ void __launch_bounds__(Cfg<T, D>::NT)
       for (int j = 0; j < PER; ++j) {
         const float p = s[j] <= NEG_INF / 2 ? 0.0f : expf(s[j] - m_new);
         sum += p;
-        sP[r * C::LDP + 2 * j + half] = from_f<T>(p);  // P in V's dtype, as Pallas
+        sP[r * C::LDP + 2 * j + half] = p;
       }
       sum += __shfl_xor_sync(0xffffffffu, sum, 1);
       for (int d = half; d < D; d += 2) sAcc[r * C::LDF + d] *= corr;
@@ -841,21 +972,23 @@ __global__ void __launch_bounds__(Cfg<T, D>::NT)
       continue;
     }
     T* orow = static_cast<T*>(o) + off;
-    for (int d = lane; d < D; d += 32) orow[d] = from_f<T>(sAcc[r * C::LDF + d] / fmaxf(l, 1e-30f));
+    for (int d = lane; d < D; d += 32) orow[d] = sAcc[r * C::LDF + d] / fmaxf(l, 1e-30f);
     if (lse != nullptr && lane == 0)
       lse[(long long)bh * Tq + t] = l > 0.0f ? sM[r] + logf(fmaxf(l, 1e-30f)) : -NEG_INF;
   }
 }
 
+// fp32 dQ (bf16 runs flash_bwd_dq_sm90).
 template <typename T, int D, bool SEG>
 __global__ void __launch_bounds__(Cfg<T, D>::NT)
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dout,
                         const float* __restrict__ lse, const float* __restrict__ delta,
-                        void* __restrict__ dq, const int* __restrict__ q_ids,
+                        float* __restrict__ dq, const int* __restrict__ q_ids,
                         const int* __restrict__ k_ids, Strides sq, Strides sk, Strides sv,
-                        Strides sdo, Strides sdq, int out_f32, int H, int Tq, int Tk,
-                        int causal, int q_off, int k_off, int window, float scale) {
+                        Strides sdo, Strides sdq, int H, int Tq, int Tk, int causal, int q_off,
+                        int k_off, int window, float scale) {
+  static_assert(std::is_same<T, float>::value, "bf16 runs flash_bwd_dq_sm90");
   using C = Cfg<T, D>;
   constexpr int BM = C::BM;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -921,7 +1054,7 @@ __global__ void __launch_bounds__(Cfg<T, D>::NT)
 #pragma unroll
     for (int i = 0; i < 16; ++i)
 #pragma unroll
-      for (int j = 0; j < BM / 32; ++j) sDS[i * C::LDP + lane + 32 * j] = from_f<T>(ds[i][j]);
+      for (int j = 0; j < BM / 32; ++j) sDS[i * C::LDP + lane + 32 * j] = ds[i][j];
     __syncwarp();
     warp_gemm_nn<T, D, BM>(sDS, C::LDP, sK, C::LDT, sAcc + r0 * C::LDF, C::LDF);
     __syncthreads();
@@ -931,8 +1064,7 @@ __global__ void __launch_bounds__(Cfg<T, D>::NT)
     const int r = r0 + i;
     const int t = row0 + r;
     if (t >= Tq) break;
-    store_row<T, D>(dq, b * sdq.b + (long long)t * sdq.t + h * sdq.h, sAcc + r * C::LDF,
-                    out_f32, lane);
+    store_row<D>(dq + b * sdq.b + (long long)t * sdq.t + h * sdq.h, sAcc + r * C::LDF, lane);
   }
 }
 
@@ -942,11 +1074,11 @@ __global__ void __launch_bounds__(Cfg<T, D>::NT)
     flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ dout,
                          const float* __restrict__ lse, const float* __restrict__ delta,
-                         void* __restrict__ dk, void* __restrict__ dv,
+                         float* __restrict__ dk, float* __restrict__ dv,
                          const int* __restrict__ q_ids, const int* __restrict__ k_ids,
                          Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdk,
-                         Strides sdv, int out_f32, int H, int Tq, int Tk, int causal,
-                         int q_off, int k_off, int window, float scale) {
+                         Strides sdv, int H, int Tq, int Tk, int causal, int q_off, int k_off,
+                         int window, float scale) {
   static_assert(std::is_same<T, float>::value, "bf16 runs flash_bwd_dkv_sm90");
   using C = Cfg<T, D>;
   constexpr int BM = C::BM;
@@ -1017,8 +1149,8 @@ __global__ void __launch_bounds__(Cfg<T, D>::NT)
     for (int i = 0; i < 16; ++i)
 #pragma unroll
       for (int j = 0; j < BM / 32; ++j) {
-        sP[i * C::LDP + lane + 32 * j] = from_f<T>(p[i][j]);
-        sDS[i * C::LDP + lane + 32 * j] = from_f<T>(ds[i][j]);
+        sP[i * C::LDP + lane + 32 * j] = p[i][j];
+        sDS[i * C::LDP + lane + 32 * j] = ds[i][j];
       }
     __syncwarp();
     warp_gemm_nn<T, D, BM>(sP, C::LDP, sDO, C::LDT, sDV + r0 * C::LDF, C::LDF);
@@ -1030,10 +1162,8 @@ __global__ void __launch_bounds__(Cfg<T, D>::NT)
     const int r = r0 + i;
     const int t = row0 + r;
     if (t >= Tk) break;
-    store_row<T, D>(dk, b * sdk.b + (long long)t * sdk.t + h * sdk.h, sDK + r * C::LDF,
-                    out_f32, lane);
-    store_row<T, D>(dv, b * sdv.b + (long long)t * sdv.t + h * sdv.h, sDV + r * C::LDF,
-                    out_f32, lane);
+    store_row<D>(dk + b * sdk.b + (long long)t * sdk.t + h * sdk.h, sDK + r * C::LDF, lane);
+    store_row<D>(dv + b * sdv.b + (long long)t * sdv.t + h * sdv.h, sDV + r * C::LDF, lane);
   }
 }
 
@@ -1139,22 +1269,50 @@ int launch_fwd(int B, int H, int Tq, int Tk, const void* q, const void* k, const
   }
 }
 
+template <int D>
+int launch_dq_sm90(int B, int H, int Tq, int Tk, const void* q, const void* k, const void* v,
+                   const void* dout, const void* lse, const void* delta, void* dq,
+                   const void* q_ids, const void* k_ids, const long long* s, int out_f32,
+                   int causal, int q_off, int k_off, int window, float scale,
+                   cudaStream_t stream) {
+  using C = Sm90Cfg<D>;
+  constexpr auto seg = flash_bwd_dq_sm90<D, true>;
+  constexpr auto plain = flash_bwd_dq_sm90<D, false>;
+  if (int err = q_ids ? prepare<seg>(C::DQ_SMEM) : prepare<plain>(C::DQ_SMEM)) return err;
+  CUtensorMap mq, mk, mv, mdo;
+  if (int err = tensor_map(&mq, q, B, Tq, H, D, strides_at(s, 0), C::QBM)) return err;
+  if (int err = tensor_map(&mk, k, B, Tk, H, D, strides_at(s, 1), C::QBN)) return err;
+  if (int err = tensor_map(&mv, v, B, Tk, H, D, strides_at(s, 2), C::QBN)) return err;
+  if (int err = tensor_map(&mdo, dout, B, Tq, H, D, strides_at(s, 3), C::QBM)) return err;
+  dim3 grid((Tq + C::QBM - 1) / C::QBM, B * H);
+  (q_ids ? seg : plain)<<<grid, C::NT, C::DQ_SMEM, stream>>>(
+      mq, mk, mv, mdo, (const float*)lse, (const float*)delta, dq, (const int*)q_ids,
+      (const int*)k_ids, strides_at(s, 4), out_f32, H, Tq, Tk, causal, q_off, k_off, window,
+      scale);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int D>
 int launch_dq(int B, int H, int Tq, int Tk, const void* q, const void* k, const void* v,
               const void* dout, const void* lse, const void* delta, void* dq,
               const void* q_ids, const void* k_ids, const long long* s, int out_f32,
               int causal, int q_off, int k_off, int window, float scale, cudaStream_t stream) {
-  using C = Cfg<T, D>;
-  constexpr auto seg = flash_bwd_dq_kernel<T, D, true>;
-  constexpr auto plain = flash_bwd_dq_kernel<T, D, false>;
-  if (int err = q_ids ? prepare<seg>(C::DQ_SMEM) : prepare<plain>(C::DQ_SMEM)) return err;
-  dim3 grid((Tq + C::BM - 1) / C::BM, B * H);
-  (q_ids ? seg : plain)<<<grid, C::NT, C::DQ_SMEM, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, (const float*)lse,
-      (const float*)delta, dq, (const int*)q_ids, (const int*)k_ids, strides_at(s, 0),
-      strides_at(s, 1), strides_at(s, 2), strides_at(s, 3), strides_at(s, 4), out_f32, H, Tq,
-      Tk, causal, q_off, k_off, window, scale);
-  return (int)cudaGetLastError();
+  if constexpr (std::is_same<T, bf16>::value) {
+    return launch_dq_sm90<D>(B, H, Tq, Tk, q, k, v, dout, lse, delta, dq, q_ids, k_ids, s,
+                             out_f32, causal, q_off, k_off, window, scale, stream);
+  } else {
+    using C = Cfg<T, D>;
+    constexpr auto seg = flash_bwd_dq_kernel<T, D, true>;
+    constexpr auto plain = flash_bwd_dq_kernel<T, D, false>;
+    if (int err = q_ids ? prepare<seg>(C::DQ_SMEM) : prepare<plain>(C::DQ_SMEM)) return err;
+    dim3 grid((Tq + C::BM - 1) / C::BM, B * H);
+    (q_ids ? seg : plain)<<<grid, C::NT, C::DQ_SMEM, stream>>>(
+        (const T*)q, (const T*)k, (const T*)v, (const T*)dout, (const float*)lse,
+        (const float*)delta, (float*)dq, (const int*)q_ids, (const int*)k_ids, strides_at(s, 0),
+        strides_at(s, 1), strides_at(s, 2), strides_at(s, 3), strides_at(s, 4), H, Tq, Tk,
+        causal, q_off, k_off, window, scale);
+    return (int)cudaGetLastError();
+  }
 }
 
 template <int D>
@@ -1197,9 +1355,9 @@ int launch_dkv(int B, int H, int Tq, int Tk, const void* q, const void* k, const
     dim3 grid((Tk + C::BM - 1) / C::BM, B * H);
     (q_ids ? seg : plain)<<<grid, C::NT, C::DKV_SMEM, stream>>>(
         (const T*)q, (const T*)k, (const T*)v, (const T*)dout, (const float*)lse,
-        (const float*)delta, dk, dv, (const int*)q_ids, (const int*)k_ids, strides_at(s, 0),
-        strides_at(s, 1), strides_at(s, 2), strides_at(s, 3), strides_at(s, 4),
-        strides_at(s, 5), out_f32, H, Tq, Tk, causal, q_off, k_off, window, scale);
+        (const float*)delta, (float*)dk, (float*)dv, (const int*)q_ids, (const int*)k_ids,
+        strides_at(s, 0), strides_at(s, 1), strides_at(s, 2), strides_at(s, 3),
+        strides_at(s, 4), strides_at(s, 5), H, Tq, Tk, causal, q_off, k_off, window, scale);
     return (int)cudaGetLastError();
   }
 }

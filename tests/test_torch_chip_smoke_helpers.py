@@ -8,13 +8,16 @@ tile, so the reference takes the kernel's tile as an argument. Here it
 runs with the Pallas kernel's own tile (``bk`` = 512 keys at T = 1024)
 against ``_pallas_block_state`` in interpret mode on the same numpy
 inputs, and must agree at ROUNDED_LIMIT, while a 64-key tile must not:
-the limit can tell one tile from another.
+the limit can tell one tile from another. Its dQ branch (dS rounded to
+bf16 before dS.K) is held in the same way against the Pallas dQ kernel
+(``_pallas_bwd`` with an fp32 output, interpret mode), and the same
+reference rounded through bf16 must be refused.
 
 The tolerance is ROUNDED_LIMIT (2e-4, normwise), the limit the card's
-comparison uses: the two sides round P at the same places and differ
+comparison uses: the two sides round P (dS) at the same places and differ
 only by fp32 summation order and exp, which moved the comparison by
-1.5e-5 to 3.3e-5 on the CPU, while rounding P per 64 keys instead of 512
-moves it by ~1e-3.
+1.4e-5 to 3.3e-5 on the CPU, while rounding P per 64 keys instead of 512,
+or the dQ output through bf16, moves it by ~1e-3.
 """
 
 import importlib.util
@@ -78,6 +81,48 @@ def test_rounded_plain_follows_the_tile(causal):
     other = cs.rel_err(_rounded_acc(cs, q, k, v, causal, 64), want)
     assert same <= cs.ROUNDED_LIMIT, (same, other)
     assert other > cs.ROUNDED_LIMIT, (same, other)
+
+
+def _bwd_inputs(BH, T, D, seed, causal):
+    """bf16 q/k/v/dO as [1, T, BH, D] torch tensors (the BH rows are the
+    heads of one batch entry) with fp32 lse and delta [1, BH, T] from the
+    plain forward, as the trainer's backward receives them."""
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.RandomState(seed)
+    q, k, v, do = (torch.tensor(rng.randn(1, T, BH, D).astype(np.float32))
+                   .to(torch.bfloat16) for _ in range(4))
+    o, lse = fa.flash_fwd_plain(q, k, v, causal, with_lse=True)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    return q, k, v, do, lse, delta
+
+
+def _pallas_dq(q, k, v, do, lse, delta, causal):
+    """fp32 dQ of the Pallas backward (interpret mode) on the same inputs,
+    as [1, T, BH, D]."""
+    merged = [jnp.asarray(x[0].permute(1, 0, 2).float().numpy(), jnp.bfloat16)
+              for x in (q, k, v, do)]
+    rows = [jnp.asarray(x[0, ..., None].numpy()) for x in (lse, delta)]
+    dq, _, _ = ref._pallas_bwd(*merged, *rows, jnp.asarray([0, 0], jnp.int32),
+                               causal, True, out_dtype=jnp.float32)
+    return torch.tensor(np.asarray(dq, np.float32)).permute(1, 0, 2)[None]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_rounded_plain_dq_matches_the_pallas_dq_kernel(causal):
+    """rounded_plain's dQ branch (dS rounded to bf16 before dS.K, as the
+    Pallas kernel rounds it) is the reference the fp32 dQ of bf16 inputs
+    meets on the card: it agrees with the Pallas dQ kernel at
+    ROUNDED_LIMIT, and the same reference rounded through bf16 does not."""
+    cs = _chip_smoke()
+    args = _bwd_inputs(4, 1024, 64, seed=7, causal=causal)
+    want = _pallas_dq(*args, causal)
+    kw = dict(causal=causal, q_off=0, k_off=0, window=None)
+    (dq,) = cs.rounded_plain("flash_bwd_dq_f32", *args, kw, None)
+    same = cs.rel_err(dq, want)
+    rounded = cs.rel_err(dq.to(torch.bfloat16).float(), want)
+    assert same <= cs.ROUNDED_LIMIT, (same, rounded)
+    assert rounded > cs.ROUNDED_LIMIT, (same, rounded)
 
 
 def test_rounded_plain_tile_comes_from_the_wrapper():
