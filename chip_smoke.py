@@ -4,7 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --time-tree DIR   # kernel times of one checkout
 
-Phases, in order; any failure exits nonzero:
+Phases, in order (a, b, c, e, f, d); any failure exits nonzero:
 
 (a) device and build: the card, its power limit, the torch and CUDA
     versions; every kernel of ``horovod_tpu_torch/csrc`` built with nvcc
@@ -31,8 +31,10 @@ Phases, in order; any failure exits nonzero:
     diagonal and a future block (where the state must be exactly empty and
     dQ exactly 0), the fp32 dK/dV in the first two, with the global lse
     and delta, their planted faults and times; and every mode with packed
-    segment ids, at bf16 (timed, at the ring's block shape) and ragged
-    fp32, where ignoring the ids must be refused.
+    segment ids, at bf16 (timed, at the ring's block shape, with the bound
+    over the pairs visible inside segments and the library on the same
+    boolean mask, printed as rows of their own) and ragged fp32, where
+    ignoring the ids must be refused.
 (c) the slice: a small transformer's loss and gradients through the
     kernels against the same model on the CPU; then the GPT-2-small-class
     trainer (12 layers, d_model 768, T 1024, bf16, batch 8) for 2 warm-up
@@ -48,6 +50,19 @@ Phases, in order; any failure exits nonzero:
     4096``), with its loss, launch counts and bucket all-reduces checked
     on both ranks. The two ranks share one card: its step time is a
     correctness run, not a throughput figure.
+(f) images (cuDNN and PyTorch ops; no kernel of the port): a small fp32
+    ResNet18 on the card against the same weights on the CPU (loss,
+    gradients, updated batch-norm statistics, rel 1e-4, TF32 off); then
+    ``image_bench.run`` at full width, bf16, batch 32: ResNet-50 at 224 px
+    (2 warm-up + 10 steps; again with ``--space-to-depth``, whose step-0
+    loss must be the 7x7 stem's), VGG-16 and Inception-V3 (2 + 3 steps),
+    each with images/s, step ms, MFU, peak memory and a profile by kernel
+    group; loss finite (falling for ResNet-50), a bucket all-reduce run.
+    Then dp=2 on cuda:0 as in (e) (``--dp-worker``): the small model on
+    each rank's half batch, world-averaged, against the CPU's mean over
+    the halves; ResNet-50 at full width for 2 + 3 steps with fp16 and
+    with ef16 compression, the loss, parameters and batch-norm buffers
+    equal on both ranks after every step.
 (d) the kernel table as one JSON line, the card's name and power limit,
     and last the result line ``{"ok": true, "device": {...}}``.
 """
@@ -455,8 +470,9 @@ def work(name, B, Tq, Tk, H, D, es, pairs):
     return inputs + out, flops
 
 
-def time_rows(calls, shape, dtype, pairs, library, errs):
-    """{mode: kernel-table row} timing each mode and its plain version."""
+def time_rows(calls, shape, dtype, pairs, library, errs, ids_bytes=0):
+    """{mode: kernel-table row} timing each mode and its plain version;
+    ``ids_bytes``: the segment ids, read once more by every mode."""
     B, Tq, Tk, H, D = shape
     table = {}
     for name, (kern, plain) in calls.items():
@@ -464,6 +480,7 @@ def time_rows(calls, shape, dtype, pairs, library, errs):
         dev_ms = device_ms(kern)
         plain_ms = time_ms(plain, iters=5, warmup=1)
         nbytes, flops = work(name, B, Tq, Tk, H, D, dtype.itemsize, pairs)
+        nbytes += ids_bytes
         bound_ms, bound_by = bound(nbytes, flops, dtype)
         table[name] = {
             "name": name, "route": "cuda", "source": SOURCE,
@@ -478,26 +495,29 @@ def time_rows(calls, shape, dtype, pairs, library, errs):
     return table
 
 
-def sdpa_times(q, k, v, do, causal):
+def sdpa_times(q, k, v, do, causal, mask=None):
     """PyTorch's fused attention on the same inputs ([B, H, T, D] views),
-    a yardstick the port never calls: (fwd ms, bwd ms)."""
+    a yardstick the port never calls: (fwd ms, bwd ms). With ``mask`` (a
+    boolean [B, 1, Tq, Tk], True where a pair is visible) in place of
+    ``causal``: the same function as the kernels' segment-id mode."""
     import torch
     import torch.nn.functional as F
 
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
+    kw = (dict(is_causal=causal) if mask is None else dict(attn_mask=mask))
     with torch.no_grad():
-        fwd = time_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=causal))
-    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+        fwd = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                             **kw))
+    out = F.scaled_dot_product_attention(qt, kt, vt, **kw)
     dot = do.transpose(1, 2)
     bwd = time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
                                               retain_graph=True))
     both = time_ms(lambda: torch.autograd.grad(
-        F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal),
-        (qt, kt, vt), dot))
-    log(f"  library (scaled_dot_product_attention, yardstick): fwd "
-        f"{fwd:.4f} ms, bwd {bwd:.4f} ms, fwd+bwd {both:.4f} ms")
+        F.scaled_dot_product_attention(qt, kt, vt, **kw), (qt, kt, vt), dot))
+    log(f"  library (scaled_dot_product_attention"
+        f"{'' if mask is None else ' with the boolean mask'}, yardstick): "
+        f"fwd {fwd:.4f} ms, bwd {bwd:.4f} ms, fwd+bwd {both:.4f} ms")
     return fwd, bwd
 
 
@@ -578,15 +598,28 @@ def kernel_case(label, B, T, H, D, dtype, causal, window=None, Tk=None,
         return {}
     refuse(dropped_tile_faults(*args, kw, OUTPUTS), refs, dtype,
            "last tile dropped")
-    library = {}
-    if window is None and q_off == k_off and not segments:
-        fwd, bwd = sdpa_times(q, k, v, do, causal)
+    library, ids_bytes, fwd = {}, 0, None
+    if segments:
+        # Pairs visible inside the segments only (the ids' own mask), and
+        # the library on the same boolean mask.
+        allowed = fa._allowed(q, k, **kw).expand(B, 1, T, Tk)
+        pairs = H * int(allowed.sum())
+        ids_bytes = kw["q_seg"].nbytes + kw["k_seg"].nbytes
+        log(f"  pairs visible inside the segments: {pairs} of "
+            f"{B * H * visible_pairs(T, Tk, causal, q_off, k_off, window)} "
+            f"causal")
+        if window is None:
+            fwd, bwd = sdpa_times(q, k, v, do, causal, mask=allowed)
+    else:
+        pairs = B * H * visible_pairs(T, Tk, causal, q_off, k_off, window)
+        if window is None and q_off == k_off:
+            fwd, bwd = sdpa_times(q, k, v, do, causal)
+    if fwd is not None:
         library = {"flash_fwd": fwd, "flash_fwd_train": fwd,
                    "flash_bwd_dq": bwd, "flash_bwd_dkv": bwd,
                    "flash_bwd_dq_f32": bwd, "flash_bwd_dkv_f32": bwd}
-    pairs = B * H * visible_pairs(T, Tk, causal, q_off, k_off, window)
     return time_rows(modes(*args, kw), (B, T, Tk, H, D), dtype, pairs,
-                     library, errs)
+                     library, errs, ids_bytes)
 
 
 def ring_inputs():
@@ -677,9 +710,30 @@ def ring_case():
     return table
 
 
-def profile_steps(step, n=2):
+TRANSFORMER_GROUPS = {"flash attention (port)": ("flash_",),
+                      "matmul (cuBLAS)": ("gemm", "Gemm", "nvjet", "cutlass",
+                                          "xmma"),
+                      "nccl": ("nccl",)}
+# Kernel-name keys of the image models' groups, first match wins: cuDNN's
+# batch-norm kernels before the convolutions ("cudnn" names both), the
+# convolutions' implicit GEMMs before cuBLAS's ("xmma" names both).
+IMAGE_GROUPS = {"batch norm": ("batch_norm", "bn_fw", "bn_bw", "BatchNorm",
+                               "welford"),
+                "conv (cuDNN)": ("fprop", "dgrad", "wgrad", "conv", "Conv",
+                                 "implicit", "cudnn", "winograd"),
+                "layout (NCHW<->NHWC)": ("nchwToNhwc", "nhwcToNchw"),
+                "matmul (cuBLAS)": TRANSFORMER_GROUPS["matmul (cuBLAS)"],
+                "optimizer (foreach)": ("multi_tensor_apply",),
+                "pooling": ("pool",),
+                "nccl": ("nccl",)}
+
+
+def profile_steps(step, n=2, groups=TRANSFORMER_GROUPS, host_top=0):
     """Device time by kernel over ``n`` training steps (torch.profiler),
-    grouped, with the device's busy share of the profiled wall time."""
+    grouped by kernel name (``groups``: {group: name keys}; the rest is
+    "elementwise and other"), with the device's busy share of the
+    profiled wall time; with ``host_top``, that many host-side ops by
+    their own CPU time (the profiler's overhead included)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -691,8 +745,10 @@ def profile_steps(step, n=2):
             step()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / n
-    kernels = []
+    kernels, host = [], []
     for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CPU:
+            host.append((e.self_cpu_time_total / 1e3 / n, e.count // n, e.key))
         # Annotation ranges (e.g. "Optimizer.step#AdamW.step") span other
         # kernels on the device timeline; counting them would count twice.
         if e.device_type != torch.autograd.DeviceType.CUDA or \
@@ -704,13 +760,11 @@ def profile_steps(step, n=2):
             us = e.self_cuda_time_total
         kernels.append((us / 1e3 / n, e.count // n, e.key))
     kernels.sort(reverse=True)
-    groups = {"flash attention (port)": ("flash_",),
-              "matmul (cuBLAS)": ("gemm", "Gemm", "nvjet", "cutlass", "xmma"),
-              "nccl": ("nccl",)}
-    by_group = {g: 0.0 for g in (*groups, "other")}
+    other = "elementwise and other"
+    by_group = {g: 0.0 for g in (*groups, other)}
     for ms, _, name in kernels:
         g = next((g for g, keys in groups.items()
-                  if any(k in name for k in keys)), "other")
+                  if any(k in name for k in keys)), other)
         by_group[g] += ms
     busy = sum(ms for ms, _, _ in kernels)
     if busy == 0:
@@ -722,8 +776,15 @@ def profile_steps(step, n=2):
     for g, ms in by_group.items():
         log(f"      {g:<24} {ms:8.3f} ms/step ({100 * ms / busy:.1f}% of "
             f"device time)")
-    for ms, count, name in kernels[:12]:
+    for ms, count, name in kernels[:16]:
         log(f"      {ms:8.3f} ms/step  x{count:<4} {name[:90]}")
+    if host_top:
+        host.sort(reverse=True)
+        log(f"    host ops by own CPU time (all ops: "
+            f"{sum(ms for ms, _, _ in host):.2f} ms/step, "
+            f"{sum(c for _, c, _ in host)} calls/step):")
+        for ms, count, name in host[:host_top]:
+            log(f"      {ms:8.3f} ms/step  x{count:<5} {name[:80]}")
 
 
 def small_model_check():
@@ -864,33 +925,36 @@ def sp_worker(out_path):
     return 0
 
 
-def sp_phase(gpu):
-    """(e): two ranks on cuda:0 in one NCCL world. Returns rank 0's
-    launch counts of the sp trainer's run."""
+def run_workers(flag, n, timeout_s):
+    """``n`` processes of this script (``flag``: ``--sp-worker`` or
+    ``--dp-worker``), ranks of one NCCL world on cuda:0, each with its
+    own ``NCCL_HOSTID`` and sockets over ``lo``; their logs are printed
+    and each rank's JSON result returned. Any worker that fails or
+    outlives ``timeout_s`` fails the phase."""
     import torch
 
     torch.cuda.empty_cache()   # leave the card to the workers
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
-    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_sp_"))
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_workers_"))
     procs = []
-    for r in range(SP):
-        env = dict(os.environ, HOROVOD_RANK=str(r), HOROVOD_SIZE=str(SP),
-                   HOROVOD_LOCAL_RANK=str(r), HOROVOD_LOCAL_SIZE=str(SP),
+    for r in range(n):
+        env = dict(os.environ, HOROVOD_RANK=str(r), HOROVOD_SIZE=str(n),
+                   HOROVOD_LOCAL_RANK=str(r), HOROVOD_LOCAL_SIZE=str(n),
                    HOROVOD_CONTROLLER_ADDR="127.0.0.1",
                    HOROVOD_CONTROLLER_PORT=str(port),
-                   NCCL_HOSTID=f"chip-smoke-sp-rank{r}",
+                   NCCL_HOSTID=f"chip-smoke-rank{r}",
                    NCCL_IB_DISABLE="1", NCCL_SOCKET_IFNAME="lo")
         with open(tmp / f"log{r}.txt", "w") as logf:
             procs.append(subprocess.Popen(
-                [sys.executable, str(Path(__file__).resolve()),
-                 "--sp-worker", str(tmp / f"rank{r}.json")], env=env,
+                [sys.executable, str(Path(__file__).resolve()), flag,
+                 str(tmp / f"rank{r}.json")], env=env,
                 stdout=logf, stderr=subprocess.STDOUT))
     t0 = time.perf_counter()
     try:
         for p in procs:
-            p.wait(timeout=max(1.0, SP_TIMEOUT_S - (time.perf_counter() - t0)))
+            p.wait(timeout=max(1.0, timeout_s - (time.perf_counter() - t0)))
     except subprocess.TimeoutExpired:
         pass
     finally:
@@ -902,9 +966,17 @@ def sp_phase(gpu):
         for line in (tmp / f"log{r}.txt").read_text().splitlines():
             log(f"    [rank {r}] {line}")
     codes = [p.returncode for p in procs]
-    if codes != [0] * SP:
-        raise AssertionError(f"sp workers exited {codes}")
-    res = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(SP)]
+    if codes != [0] * n:
+        raise AssertionError(f"{flag} processes exited {codes}")
+    res = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(n)]
+    shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
+def sp_phase(gpu):
+    """(e): two ranks on cuda:0 in one NCCL world. Returns rank 0's
+    launch counts of the sp trainer's run."""
+    res = run_workers("--sp-worker", SP, SP_TIMEOUT_S)
     layers, steps = res[0]["layers"], res[0]["steps"]
     for r in res:
         losses = r["losses"]
@@ -934,6 +1006,261 @@ def sp_phase(gpu):
         raise AssertionError("sp trainer: the ranks' losses differ")
     log(f"    bench line {json.dumps(res[0]['result'])}")
     return res[0]["launches"]
+
+
+# ---- (f) images --------------------------------------------------------------
+
+IMAGE_TOL = 1e-4     # fp32 through cuDNN (TF32 off) against the CPU
+# The s2d stem computes the 7x7 stem's function; in bf16 the two round the
+# stem's products differently, which moves the step-0 loss (~6.9) by far
+# less than a hundredth.
+S2D_LOSS_TOL = 1e-2
+DP = 2               # ranks of the image dp phase, both on cuda:0
+DP_TIMEOUT_S = 420
+# (model, extra flags, timed steps) of the full-width runs, 2 warm-up each.
+IMAGE_RUNS = (("resnet50", (), 10), ("resnet50", ("--space-to-depth",), 10),
+              ("vgg16", (), 3), ("inception3", (), 3))
+
+
+def small_image_problem():
+    """The small image model on the CPU (fp32 ResNet18, num_filters 8, 10
+    classes, seed 0) with its batch norms' scales, offsets and running
+    statistics moved off their init values, so that every gradient and
+    statistic shows (a block's last scale, zero at init, to 0.1 +- 0.02);
+    and 4 standard-normal 64 px NHWC images with their labels."""
+    import torch
+
+    from horovod_tpu_torch.models import image_layers, resnet
+
+    model = resnet.ResNet18(num_classes=10, num_filters=8,
+                            dtype=torch.float32, device="cpu", seed=0)
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, image_layers.BatchNorm):
+                gain = 0.1 if m.scale_init == 0 else 1.0
+                n = m.weight.shape
+                m.weight.copy_(gain * (1 + 0.2 * torch.randn(n, generator=g)))
+                m.bias.copy_(0.1 * torch.randn(n, generator=g))
+                m.running_mean.copy_(0.1 * torch.randn(n, generator=g))
+                m.running_var.uniform_(0.5, 1.5, generator=g)
+    images = torch.randn((4, 64, 64, 3), generator=g)
+    labels = torch.randint(0, 10, (4,), generator=g)
+    return model, images, labels
+
+
+def image_grads(model, images, labels):
+    """One training-mode forward and backward: (loss, {name: gradient},
+    {name: updated running statistic}), the tensors copied to the CPU."""
+    from horovod_tpu_torch.training import cross_entropy_loss
+
+    model.train()
+    model.zero_grad(set_to_none=True)
+    dev = next(model.parameters()).device
+    loss = cross_entropy_loss(model(images.to(dev)), labels.to(dev))
+    loss.backward()
+    return (loss.item(),
+            {n: p.grad.to("cpu", copy=True)
+             for n, p in model.named_parameters()},
+            {n: b.to("cpu", copy=True) for n, b in model.named_buffers()})
+
+
+def worst_rel(got, want):
+    """max over tensors of max |got - want| / max |want|."""
+    return max((got[n] - w).abs().max().item()
+               / max(1e-6, w.abs().max().item()) for n, w in want.items())
+
+
+def check_image_agreement(what, loss, grads, stats, ref):
+    """Loss, gradients and statistics against ``ref`` = (loss, grads,
+    stats) at IMAGE_TOL; logs and raises on a miss."""
+    rel = abs(loss - ref[0]) / abs(ref[0])
+    g, s = worst_rel(grads, ref[1]), worst_rel(stats, ref[2])
+    log(f"    {what}: loss {loss:.6f} vs cpu {ref[0]:.6f} (rel {rel:.2e}); "
+        f"worst grad err / max |grad| {g:.2e}, worst running-statistic err "
+        f"/ max |statistic| {s:.2e} (tolerance {IMAGE_TOL:g})")
+    if not max(rel, g, s) <= IMAGE_TOL:
+        raise AssertionError(f"{what} disagrees with the CPU")
+    return {"rel": rel, "worst_grad": g, "worst_stat": s}
+
+
+def small_image_check():
+    """(f) first: the small ResNet18 through cuDNN on the card against the
+    same weights on the CPU."""
+    import torch
+
+    from horovod_tpu_torch.models import resnet
+
+    cpu, images, labels = small_image_problem()
+    gpu = resnet.ResNet18(num_classes=10, num_filters=8,
+                          dtype=torch.float32, device="cuda", seed=1)
+    gpu.load_state_dict(cpu.state_dict())
+    if not gpu.conv_init.weight.is_contiguous(
+            memory_format=torch.channels_last):
+        raise AssertionError("conv weights on the card are not channels_last")
+    ref = image_grads(cpu, images, labels)
+    check_image_agreement("small ResNet18 (fp32, num_filters 8, 64 px, "
+                          "batch 4) on the card", *image_grads(
+                              gpu, images, labels), ref)
+
+
+def run_image_bench(model, flags, iters, device=None):
+    """``image_bench.run`` of ``model`` at its full width with 2 warm-up
+    and ``iters`` timed steps; returns the run."""
+    from horovod_tpu_torch import image_bench
+
+    argv = ["--model", model, "--num-warmup", "2", "--num-iters", str(iters),
+            *flags]
+    if device is not None:
+        argv += ["--device", device]
+    return image_bench.run(image_bench.parse_args(argv))
+
+
+def image_phase(gpu):
+    """(f): the small model's agreement, the full-width image runs on one
+    card with their profiles, then dp=2 on cuda:0."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+
+    small_image_check()
+    first_loss = {}
+    for model, flags, iters in IMAGE_RUNS:
+        label = " ".join((model, *flags))
+        log(f"  {label}: 2 warm-up + {iters} timed steps")
+        run = run_image_bench(model, flags, iters)
+        res, losses = run.result, run.losses
+        log(f"    losses {[round(x, 4) for x in losses]}")
+        log(f"    {res['value']} images/s, step {res['step_ms']} ms, MFU "
+            f"{res.get('mfu')}, peak memory "
+            f"{res['peak_mem_bytes'] / 2**30:.2f} GiB, bucket all-reduces "
+            f"{run.allreduce_count} on {gpu}")
+        profile_steps(run.step, groups=IMAGE_GROUPS, host_top=10)
+        log(f"    bench line {json.dumps(res)}")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{label}: non-finite loss")
+        if model == "resnet50" and not losses[-1] < losses[0]:
+            raise AssertionError(f"{label}: loss did not fall")
+        if not run.allreduce_count >= 1:
+            raise AssertionError(f"{label}: no bucket all-reduce ran")
+        first_loss[label] = losses[0]
+        del run
+        torch.cuda.empty_cache()
+    hvd.shutdown()
+    plain, s2d = first_loss["resnet50"], first_loss["resnet50 --space-to-depth"]
+    rel = abs(s2d - plain) / abs(plain)
+    log(f"  space-to-depth stem: step-0 loss {s2d:.6f} vs the 7x7 stem's "
+        f"{plain:.6f} (rel {rel:.2e}, tolerance {S2D_LOSS_TOL:g})")
+    if not rel <= S2D_LOSS_TOL:
+        raise AssertionError("the s2d stem does not give the 7x7 model")
+
+    log(f"  dp={DP}: two ranks on cuda:0, one NCCL world")
+    res = run_workers("--dp-worker", DP, DP_TIMEOUT_S)
+    for mode in ("fp16", "ef16"):
+        for r in res:
+            rr = r[mode]
+            log(f"    rank {r['rank']} resnet50 --compression {mode}: losses "
+                f"{[round(t[0], 4) for t in rr['trace']]}, step "
+                f"{rr['result']['step_ms']} ms (two ranks sharing one card: "
+                f"a correctness run), bucket all-reduces {rr['allreduces']}, "
+                f"wire bytes/step "
+                f"{rr['result']['compression']['wire_bytes_per_step']}")
+            if rr["result"]["compression"]["mode"] != mode:
+                raise AssertionError(f"rank {r['rank']} ran "
+                                     f"{rr['result']['compression']}")
+            if not all(math.isfinite(t[0]) for t in rr["trace"]):
+                raise AssertionError(f"dp {mode}: non-finite loss")
+            if not rr["allreduces"] >= 1:
+                raise AssertionError(f"dp {mode}: no bucket all-reduce ran")
+        traces = [r[mode]["trace"] for r in res]
+        if len(traces[0]) != 5 or traces[0] != traces[1]:
+            raise AssertionError(f"dp {mode}: the ranks' losses, parameters "
+                                 f"or batch-norm buffers differ: {traces}")
+        log(f"    {mode}: after each of {len(traces[0])} steps both ranks "
+            f"hold the same loss, parameters and batch-norm buffers "
+            f"(sha256 of each)")
+
+
+def dp_worker(out_path):
+    """One rank of the image dp phase (run as ``chip_smoke.py
+    --dp-worker``): the small model on this rank's half batch, its
+    world-averaged loss, gradients and statistics against the CPU's mean
+    over the two halves; then ResNet-50 at full width, 2 + 3 steps with
+    fp16 and then ef16 compression, with a digest of the loss, the
+    parameters and the batch-norm buffers after every step."""
+    import hashlib
+
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import training
+    from horovod_tpu_torch.models import resnet
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cpu, images, labels = small_image_problem()
+    # A copy: a training-mode forward updates the live buffers in place.
+    state = {n: t.clone() for n, t in cpu.state_dict().items()}
+    b = images.shape[0] // DP
+    halves = []
+    for r in range(DP):
+        cpu.load_state_dict(state)
+        halves.append(image_grads(cpu, images[r * b:(r + 1) * b],
+                                  labels[r * b:(r + 1) * b]))
+    ref = (sum(h[0] for h in halves) / DP,
+           *({n: sum(h[i][n] for h in halves) / DP for n in halves[0][i]}
+             for i in (1, 2)))
+
+    hvd.init(device="cuda:0")
+    rank = hvd.rank()
+    model = resnet.ResNet18(num_classes=10, num_filters=8,
+                            dtype=torch.float32, device="cuda:0", seed=1)
+    model.load_state_dict(state)
+    opt = training.init_train_state(
+        model, torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9),
+        compression="none", bucket_cap_bytes=None)
+    rows = slice(rank * b, (rank + 1) * b)
+    loss = training.make_train_step(model, opt)(images[rows].cuda(),
+                                                labels[rows].cuda()).item()
+    # After the step .grad holds the world-averaged gradients it applied.
+    out = {"rank": rank, "small": check_image_agreement(
+        f"rank {rank}: small ResNet18 at dp={DP}, world-averaged", loss,
+        {n: p.grad.cpu() for n, p in model.named_parameters()},
+        {n: t.cpu() for n, t in model.named_buffers()}, ref)}
+    del model, opt
+
+    def digest(tensors):
+        flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
+        return hashlib.sha256(flat.cpu().numpy().tobytes()).hexdigest()
+
+    make_step = training.make_train_step
+    for mode in ("fp16", "ef16"):
+        trace = []
+
+        def traced(model, opt, trace=trace):
+            step = make_step(model, opt)
+
+            def traced_step(inputs, labels):
+                loss = step(inputs, labels)
+                trace.append([loss.item(), digest(model.parameters()),
+                              digest(model.buffers())])
+                return loss
+            return traced_step
+
+        training.make_train_step = traced
+        try:
+            run = run_image_bench("resnet50", ("--compression", mode), 3,
+                                  device="cuda:0")
+        finally:
+            training.make_train_step = make_step
+        out[mode] = {"trace": trace, "result": run.result,
+                     "allreduces": run.allreduce_count}
+        del run
+        torch.cuda.empty_cache()
+    hvd.shutdown()
+    Path(out_path).write_text(json.dumps(out))
+    return 0
 
 
 AB_MODES = ("flash_fwd", "flash_fwd_train", "flash_bwd_dq", "flash_bwd_dkv")
@@ -1001,9 +1328,15 @@ def main():
     from horovod_tpu_torch.ops import flash_attention as fa
 
     # (a) device and build
+    started = time.perf_counter()
+
+    def since():
+        return f"(+{time.perf_counter() - started:.1f} s)"
+
     gpu = card()
     log(f"(a) card: {gpu}; torch {torch.__version__}, CUDA "
-        f"{torch.version.cuda}, {torch.cuda.device_count()} visible")
+        f"{torch.version.cuda}, cuDNN {torch.backends.cudnn.version()}, "
+        f"{torch.cuda.device_count()} visible")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
@@ -1020,7 +1353,7 @@ def main():
                                  f"{got}; FWD_KEY_TILE says {tile}")
 
     # (b) kernels against their plain versions
-    log("(b) kernels")
+    log(f"(b) kernels {since()}")
     table = kernel_case("slice", 8, 1024, 12, 64, torch.bfloat16, True,
                         fused=True, timing=True)
     kernel_case("slice-contiguous", 8, 1024, 12, 64, torch.bfloat16, True)
@@ -1035,13 +1368,20 @@ def main():
     kernel_case("ragged-bf16-d128-offsets-segments", 2, 1000, 4, 128,
                 torch.bfloat16, True, Tk=700, q_off=300, segments=4)
     table.update(ring_case())   # the state and fp32 rows at the ring's shape
-    kernel_case("segments-bf16", 8, 2048, 12, 64, torch.bfloat16, True,
-                fused=True, segments=4, timing=True)
+    # The segment-id mode: rows of their own, with the bound over the pairs
+    # visible inside segments and the library on the same boolean mask.
+    # The main paths run no segment ids, so these rows have no launches
+    # and stay out of the kernel line.
+    seg_rows = kernel_case("segments-bf16", 8, 2048, 12, 64, torch.bfloat16,
+                           True, fused=True, segments=4, timing=True)
+    log(json.dumps({"segment_id_rows": [
+        {k: v for k, v in row.items() if k != "launches"}
+        for row in seg_rows.values()]}))
     kernel_case("segments-ragged-fp32", 2, 1000, 4, 128, torch.float32, True,
                 segments=4)
 
     # (c) the slice
-    log("(c) slice")
+    log(f"(c) slice {since()}")
     small_model_check()
     hvd.init()
     args = transformer_bench.parse_args(["--num-warmup", "2",
@@ -1084,12 +1424,17 @@ def main():
     hvd.shutdown()
 
     # (e) sp on the card
-    log(f"(e) sp={SP}: two ranks on cuda:0, one NCCL world")
+    log(f"(e) sp={SP}: two ranks on cuda:0, one NCCL world {since()}")
     launches.update({k: v for k, v in sp_phase(gpu).items()
                      if k in ("flash_fwd_state", "flash_bwd_dq_f32",
                               "flash_bwd_dkv_f32")})
 
+    # (f) images: cuDNN and PyTorch ops, no kernel of the port
+    log(f"(f) images {since()}")
+    image_phase(gpu)
+
     # (d) result
+    log(f"(d) result {since()}")
     for name, row in table.items():
         row["launches"] = launches[name]
     log(json.dumps({"kernels": list(table.values())}))
@@ -1103,6 +1448,8 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--sp-worker"]:
         sys.exit(sp_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--dp-worker"]:
+        sys.exit(dp_worker(sys.argv[2]))
     if sys.argv[1:2] == ["--time-tree"]:
         sys.exit(time_tree(sys.argv[2]))
     sys.exit(main())

@@ -1,12 +1,17 @@
-"""On-wire gradient compression — the port's copy of the none/fp16/bf16
-compressors of ``horovod_tpu/common/compression.py``.
+"""On-wire gradient compression — the port's copy of the compressors of
+``horovod_tpu/common/compression.py``: none, fp16, bf16 and ef16.
 
 A compressor names the dtype a floating tensor travels at inside the
 all-reduce (``wire_dtype``); integer and bool tensors are never
 compressed. ``resolve_compression("auto")`` follows ``HOROVOD_COMPRESSION``
 with the same precedence as the JAX package: the config ``init()`` froze,
-then the raw env, and no compression when the knob is unset. ``ef16``
-(fp16 with error-feedback residuals) comes with a later slice.
+then the raw env, and no compression when the knob is unset.
+
+``ef16`` is fp16 with error feedback: the optimizer keeps an fp32
+residual per parameter element, adds it to the gradient before the fp16
+cast and keeps the cast's error for the next step
+(``apply_error_feedback``), so the rounding is re-injected instead of
+lost. The raw collectives treat it as its fp16 wire format.
 """
 
 from __future__ import annotations
@@ -20,8 +25,11 @@ __all__ = [
     "NoneCompressor",
     "Fp16Compressor",
     "Bf16Compressor",
+    "ErrorFeedbackCompressor",
     "Compression",
     "resolve_compression",
+    "apply_error_feedback",
+    "init_residual",
 ]
 
 
@@ -32,6 +40,7 @@ class Compressor:
 
     name = "none"
     wire: Optional[torch.dtype] = None
+    error_feedback = False
 
     def wire_dtype(self, dtype: torch.dtype) -> Optional[torch.dtype]:
         if self.wire is None or not dtype.is_floating_point:
@@ -71,15 +80,33 @@ class Bf16Compressor(Compressor):
     wire = torch.bfloat16
 
 
+class ErrorFeedbackCompressor(Compressor):
+    """A lossy wire compressor with error feedback. Stateless: the
+    residuals live in the optimizer's state (``opt.py``), and
+    ``apply_error_feedback`` is the correct/quantize/keep-the-error step."""
+
+    error_feedback = True
+
+    def __init__(self, inner: Compressor, name: Optional[str] = None):
+        if inner.wire is None:
+            raise ValueError("error feedback needs a lossy wire format; "
+                             "wrapping the NoneCompressor is meaningless")
+        self.inner = inner
+        self.name = name or f"ef-{inner.name}"
+        self.wire = inner.wire
+
+
 class Compression:
-    """Option namespace (``hvd.Compression.none/fp16/bf16``)."""
+    """Option namespace (``hvd.Compression.none/fp16/bf16/ef16``)."""
 
     none = NoneCompressor()
     fp16 = Fp16Compressor()
     bf16 = Bf16Compressor()
+    ef16 = ErrorFeedbackCompressor(Fp16Compressor(), name="ef16")
 
 
-_BY_NAME = {"none": None, "fp16": Compression.fp16, "bf16": Compression.bf16}
+_BY_NAME = {"none": None, "fp16": Compression.fp16, "bf16": Compression.bf16,
+            "ef16": Compression.ef16}
 
 
 def resolve_compression(compression="auto") -> Optional[Compressor]:
@@ -87,7 +114,8 @@ def resolve_compression(compression="auto") -> Optional[Compressor]:
 
     - ``"auto"``: ``HOROVOD_COMPRESSION`` when it was set, else None.
     - ``None`` / ``"none"`` / ``Compression.none``: no compression.
-    - ``"fp16"`` / ``"bf16"`` or a ``Compressor``: that compressor.
+    - ``"fp16"`` / ``"bf16"`` / ``"ef16"`` or a ``Compressor``: that
+      compressor.
     """
     if compression is None:
         return None
@@ -106,11 +134,28 @@ def resolve_compression(compression="auto") -> Optional[Compressor]:
             name = st.config.compression
         else:
             name = _config.parse_compression_env()
-    if name == "ef16":
-        raise NotImplementedError(
-            "ef16 (fp16 with error-feedback residuals) comes with a later "
-            "slice of the port; use fp16 or bf16")
     if name not in _BY_NAME:
         raise ValueError(f"unknown compression {name!r}; expected one of "
                          f"{sorted(_BY_NAME)} or 'auto'")
     return _BY_NAME[name]
+
+
+def apply_error_feedback(compressor: ErrorFeedbackCompressor,
+                         grad: torch.Tensor, residual: torch.Tensor):
+    """One error-feedback step on a gradient (a bucket's flat gradients):
+    ``corrected = grad(fp32) + residual``, ``wire = corrected`` cast to
+    the wire dtype, and the new residual ``corrected - wire(fp32)``.
+    Returns ``(wire, new_residual)``. A gradient the wire format does not
+    apply to (integers) passes through with a zero residual."""
+    w = compressor.wire_dtype(grad.dtype)
+    if w is None:
+        return grad, torch.zeros_like(residual)
+    corrected = grad.float() + residual
+    wire = corrected.to(w)
+    return wire, corrected - wire.float()
+
+
+def init_residual(params):
+    """fp32 zero residuals, one per element of each tensor of ``params``."""
+    return [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+            for p in params]

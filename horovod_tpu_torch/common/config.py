@@ -24,9 +24,7 @@ HOROVOD_COMPRESSION = "HOROVOD_COMPRESSION"
 
 DEFAULT_FUSION_THRESHOLD_BYTES = 64 * 1024 * 1024
 
-# On-wire gradient compression modes (common/compression.py). "ef16" is
-# parsed so that one environment serves both packages; the port raises
-# NotImplementedError when it is resolved.
+# On-wire gradient compression modes (common/compression.py).
 COMPRESSION_CHOICES = ("none", "fp16", "bf16", "ef16")
 
 _log = logging.getLogger("horovod_tpu_torch")

@@ -16,7 +16,14 @@ optimizer:
 - ``step()`` waits on every bucket, writes the averaged gradients back
   into ``.grad`` and runs the wrapped optimizer.
 
-The hook path runs at every world size, including 1.
+The hook path runs at every world size, including 1. With ``ef16``
+(fp16 with error feedback) each bucket's flat gradient is corrected by
+its fp32 residual before the fp16 cast and the cast's error is kept for
+the next step (``apply_error_feedback``). The residuals sit in the
+optimizer's ``state`` under ``RESIDUAL_KEY``, one fp32 tensor per
+parameter, so ``state_dict()`` carries them; ``load_state_dict`` refuses
+a state whose residuals disagree with the optimizer's compression mode
+(the JAX package's state-owns-the-mode check).
 """
 
 from __future__ import annotations
@@ -25,9 +32,14 @@ from typing import Dict, List
 
 import torch
 
-from .common.compression import resolve_compression
+from .common.compression import (apply_error_feedback, init_residual,
+                                 resolve_compression)
 from .common.fusion import plan_buckets_for, resolve_bucket_cap
 from .ops import collectives as _coll
+
+# The optimizer-state key of the error-feedback residuals (a list of fp32
+# tensors in the wrapped parameters' order).
+RESIDUAL_KEY = "error_feedback_residual"
 
 
 class _DistributedOptimizer(torch.optim.Optimizer):
@@ -45,6 +57,8 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                 f"Average or Sum; Adasum comes with a later slice")
         self.op = op
         self._compression = resolve_compression(compression)
+        self._ef = (self._compression is not None
+                    and self._compression.error_feedback)
         self._params: List[torch.Tensor] = [
             p for group in self.param_groups for p in group["params"]
             if p.requires_grad]
@@ -66,6 +80,8 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         self._pending: Dict[int, _coll.PendingReduce] = {}
         # Bucket all-reduces launched since construction.
         self.allreduce_count = 0
+        if self._ef:
+            self.state[RESIDUAL_KEY] = init_residual(self._params)
         self._hooks = [p.register_post_accumulate_grad_hook(self._grad_ready)
                        for p in self._params]
 
@@ -82,9 +98,18 @@ class _DistributedOptimizer(torch.optim.Optimizer):
     def _launch(self, b: int) -> None:
         idxs = self._buckets[b].indices
         flats = {i: self._params[i].grad.reshape(-1) for i in idxs}
+        flat = _coll.fuse(flats, idxs)
+        if self._ef:
+            res = self.state[RESIDUAL_KEY]
+            flat, new_res = apply_error_feedback(
+                self._compression, flat,
+                _coll.fuse({i: res[i].reshape(-1) for i in idxs}, idxs))
+            shapes = {i: res[i].shape for i in idxs}
+            torch._foreach_copy_(
+                [res[i] for i in idxs],
+                [r for _, r in _coll.unfuse(new_res, shapes, idxs)])
         self._pending[b] = _coll.allreduce_async(
-            _coll.fuse(flats, idxs), op=self.op,
-            compression=self._compression)
+            flat, op=self.op, compression=self._compression)
         self.allreduce_count += 1
 
     def synchronize(self) -> None:
@@ -112,6 +137,33 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         self.synchronize()
         return super(self.__class__, self).step(closure)
 
+    def load_state_dict(self, state_dict):
+        """Load a state; its error-feedback residuals must agree with this
+        optimizer's compression mode: present (one per parameter, of its
+        shape) under ef16, absent otherwise."""
+        residual = state_dict["state"].get(RESIDUAL_KEY)
+        if self._ef and residual is None:
+            raise ValueError(
+                "compression mismatch: this DistributedOptimizer was built "
+                "with error feedback (ef16) but the state carries no "
+                "residuals; save and load with the same compression mode")
+        if not self._ef and residual is not None:
+            raise ValueError(
+                "compression mismatch: the state carries error-feedback "
+                "residuals but this DistributedOptimizer was built without "
+                "error feedback; save and load with the same compression "
+                "mode")
+        if residual is not None and [tuple(r.shape) for r in residual] != [
+                tuple(p.shape) for p in self._params]:
+            raise ValueError("the state's error-feedback residuals do not "
+                             "match the parameters' shapes")
+        super(self.__class__, self).load_state_dict(state_dict)
+        if residual is not None:
+            self.state[RESIDUAL_KEY] = [
+                r.detach().to(device=p.device, dtype=torch.float32,
+                              copy=True)
+                for r, p in zip(residual, self._params)]
+
     def zero_grad(self, set_to_none: bool = True):
         if self._pending:
             raise RuntimeError(
@@ -127,7 +179,7 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
     """Wrap ``optimizer`` so that ``step()`` applies world-averaged
     gradients (``op=Sum`` for summed ones).
 
-    ``compression``: ``Compression.none/fp16/bf16``, the name, or
+    ``compression``: ``Compression.none/fp16/bf16/ef16``, the name, or
     ``"auto"`` (``HOROVOD_COMPRESSION``). ``bucket_cap_bytes``: an int,
     ``None`` (one bucket per dtype) or ``"auto"``
     (``HOROVOD_FUSION_THRESHOLD``, else one bucket per dtype).

@@ -85,10 +85,15 @@ def test_resolve_compression_env_matches_jax(monkeypatch, env):
 
 
 def test_ef16_waits_for_a_later_slice(monkeypatch):
+    """ef16 resolves as in the JAX package: fp16 on the wire, with error
+    feedback (tests/test_torch_image_training.py runs it)."""
     monkeypatch.setenv("HOROVOD_COMPRESSION", "ef16")
-    assert jcomp.resolve_compression("auto").name == "ef16"
-    with pytest.raises(NotImplementedError, match="ef16"):
-        tcomp.resolve_compression("auto")
+    j = jcomp.resolve_compression("auto")
+    t = tcomp.resolve_compression("auto")
+    assert t.name == j.name == "ef16"
+    assert t.error_feedback and j.error_feedback
+    assert t.wire_dtype(torch.float32) == torch.float16
+    assert t.wire_dtype(torch.int32) is None
 
 
 def _bits(x):

@@ -23,7 +23,8 @@ names = [m.name for m in pkgutil.walk_packages(horovod_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 for name in ("parallel", "parallel.mesh", "parallel.ring_attention",
-             "parallel.ulysses"):
+             "parallel.ulysses", "models.image_layers", "models.resnet",
+             "models.vgg", "models.inception", "image_bench"):
     assert "horovod_tpu_torch." + name in names, name
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib",
                                                            "horovod_tpu"))
@@ -74,11 +75,35 @@ def test_model_defaults_to_cuda(no_gpu):
     assert next(model.parameters()).device == torch.device("cpu")
 
 
+@pytest.mark.parametrize("ctor,small", [
+    ("resnet.ResNet50", dict(num_filters=8)),
+    ("vgg.VGG16", dict(num_filters=(8,) * 5, dense_width=16, image_size=32)),
+    ("inception.InceptionV3", {})])
+def test_image_model_defaults_to_cuda(no_gpu, ctor, small):
+    import importlib
+
+    module, cls = ctor.split(".")
+    model_cls = getattr(importlib.import_module(
+        f"horovod_tpu_torch.models.{module}"), cls)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model_cls(**small)
+    model = model_cls(num_classes=10, device="cpu", **small)
+    assert next(model.parameters()).device == torch.device("cpu")
+
+
 def test_bench_defaults_to_cuda(no_gpu):
     from horovod_tpu_torch import transformer_bench
 
     with pytest.raises(RuntimeError, match="device='cpu'"):
         transformer_bench.main(["--n-layers", "1", "--num-iters", "1"])
+
+
+def test_image_bench_defaults_to_cuda(no_gpu):
+    from horovod_tpu_torch import image_bench
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        image_bench.main(["--image-size", "32", "--batch-size", "1",
+                          "--num-iters", "1"])
 
 
 def test_default_device_is_the_local_rank_gpu(monkeypatch):
