@@ -4,7 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --time-tree DIR   # kernel times of one checkout
 
-Phases, in order (a, b, c, e, f, d); any failure exits nonzero:
+Phases, in order (a, b, c, e, f, g, d); any failure exits nonzero:
 
 (a) device and build: the card, its power limit, the torch and CUDA
     versions; every kernel of ``horovod_tpu_torch/csrc`` built with nvcc
@@ -17,6 +17,7 @@ Phases, in order (a, b, c, e, f, d); any failure exits nonzero:
     PyTorch version on the card, by normwise relative error — at the
     slice's shape (B=8, T=1024, H=12, D=64, bf16, causal) with q/k/v as
     views of one qkv tensor, as the model passes them, and contiguous; at
+    the shapes of (g)'s tp=2 (6 heads) and pp=2/ep=2 (B=4) runs; at
     ragged fp32 and bf16 shapes (T=1000, Tk=700 with offsets and segment
     ids at D=128) and at a windowed causal case (W=256).
     For bf16 inputs the fp32 outputs are also held, at a tighter limit,
@@ -40,7 +41,11 @@ Phases, in order (a, b, c, e, f, d); any failure exits nonzero:
     trainer (12 layers, d_model 768, T 1024, bf16, batch 8) for 2 warm-up
     and 10 steps through hvd.init -> DistributedOptimizer, and one no-grad
     forward. Loss finite and falling, every kernel launched as often as
-    the layers and steps say, at least one bucket all-reduce.
+    the layers and steps say, at least one bucket all-reduce. Then the
+    same trainer with ``--remat`` (2 + 10 steps): step-0 loss within bf16
+    tolerance of the first run's and every later loss within 1 % of the
+    distance the first run's fell, lower peak memory, the forward's train
+    mode launched twice per layer and step (the recompute), and a profile.
 (e) sp on the card: two worker processes on cuda:0 form an NCCL world
     (each its own ``NCCL_HOSTID``, so NCCL's duplicate-GPU check, which
     compares host hashes, lets two ranks share one card; sockets over
@@ -63,6 +68,25 @@ Phases, in order (a, b, c, e, f, d); any failure exits nonzero:
     the halves; ResNet-50 at full width for 2 + 3 steps with fp16 and
     with ef16 compression, the loss, parameters and batch-norm buffers
     equal on both ranks after every step.
+(g) tensor, pipeline and expert parallelism: two ranks on cuda:0 in one
+    NCCL world as in (e) (``--mp-worker``). Small fp32 models (2 layers,
+    d_model 256, 4 heads of 64) at tp=2, pp=2 (M=2), ep=2 (MoE, 4
+    experts, top-2, ample capacity) and tp=2 with GQA and RoPE, from the
+    same global weights as a dense model on the CPU: the loss and the
+    gradients gathered from both ranks' shards against it (rel 1e-4);
+    allgather, reducescatter, alltoall, barrier and
+    hierarchical_allreduce (local=2/cross=1 and local=1/cross=2) against
+    their CPU values; backward_passes_per_step=2 with ef16 at dp=2,
+    equal on both ranks and to k=1 on the joined rows. Then the
+    GPT-2-small decoder at full width, bf16, 2 + 3 steps each:
+    ``transformer_bench --tp 2``, pp=2 (two stages of 6 layers, M=2) and
+    a MoE FFN at ep=2 (8 experts, d_expert 3072, top-2, capacity factor
+    2.0), through the model's API: loss finite, falling and equal on both
+    ranks, attention launched as the layers, steps and microbatches say;
+    the tp=2 and pp=2 losses within 1 % of the distance (c)'s size-1 run
+    fell (same weights and batch). (b) holds the bf16 kernels at these
+    runs' shapes (6 heads a rank, 4 rows a call).
+    Step times are correctness runs (two ranks share the card).
 (d) the kernel table as one JSON line, the card's name and power limit,
     and last the result line ``{"ok": true, "device": {...}}``.
 """
@@ -925,12 +949,14 @@ def sp_worker(out_path):
     return 0
 
 
-def run_workers(flag, n, timeout_s):
-    """``n`` processes of this script (``flag``: ``--sp-worker`` or
-    ``--dp-worker``), ranks of one NCCL world on cuda:0, each with its
-    own ``NCCL_HOSTID`` and sockets over ``lo``; their logs are printed
-    and each rank's JSON result returned. Any worker that fails or
-    outlives ``timeout_s`` fails the phase."""
+def run_workers(flag, n, timeout_s, inputs=None):
+    """``n`` processes of this script (``flag``: ``--sp-worker``,
+    ``--dp-worker`` or ``--mp-worker``), ranks of one NCCL world on
+    cuda:0, each with its own ``NCCL_HOSTID`` and sockets over ``lo``;
+    ``inputs`` (any object) is saved beside their results as
+    ``inputs.pt``. Their logs are printed and each rank's JSON result
+    returned. Any worker that fails or outlives ``timeout_s`` fails the
+    phase."""
     import torch
 
     torch.cuda.empty_cache()   # leave the card to the workers
@@ -938,6 +964,8 @@ def run_workers(flag, n, timeout_s):
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_workers_"))
+    if inputs is not None:
+        torch.save(inputs, tmp / "inputs.pt")
     procs = []
     for r in range(n):
         env = dict(os.environ, HOROVOD_RANK=str(r), HOROVOD_SIZE=str(n),
@@ -1263,6 +1291,395 @@ def dp_worker(out_path):
     return 0
 
 
+# ---- (g) tensor, pipeline and expert parallelism ---------------------------
+
+MP = 2                # ranks of the model-parallel phase, both on cuda:0
+MP_TIMEOUT_S = 420
+SMALL = dict(vocab=512, d_model=256, n_heads=4, d_head=64, d_ff=1024,
+             n_layers=2, max_seq=128)
+# name -> (model kwargs over SMALL, mesh, microbatches)
+SMALL_MESHES = {
+    "tp2": ({}, dict(tp=2), 1),
+    "pp2": ({}, dict(pp=2), 2),
+    "ep2-moe-top2": (dict(use_moe=True, n_experts=4, d_expert=256,
+                          moe_top_k=2, capacity_factor=8.0), {}, 1),
+    "tp2-gqa-rope": (dict(n_kv_heads=2, rope=True), dict(tp=2), 1),
+}
+# The flagship decoder of tools/transformer_bench.py:37-47 (bf16).
+GPT2 = dict(vocab=50304, d_model=768, n_heads=12, d_head=64, d_ff=3072,
+            n_layers=12, max_seq=1024)
+GPT2_MOE = dict(GPT2, use_moe=True, n_experts=8, d_expert=3072, moe_top_k=2,
+                capacity_factor=2.0)
+
+
+def loss_drift(losses, ref):
+    """The largest step-by-step difference between two runs' losses on
+    the same weights and batches, and its tolerance: 1 % of the distance
+    ``ref`` fell over those steps (bf16 runs that order their sums
+    differently stay well inside; a wrong gradient bends the curve)."""
+    n = min(len(losses), len(ref))
+    drift = max(abs(a - b) for a, b in zip(losses[:n], ref[:n]))
+    return drift, 1e-2 * (ref[0] - ref[n - 1])
+
+
+def expected_launches(layers, steps, remat=False, microbatches=1):
+    """The attention kernels one rank launches in ``steps`` training
+    steps of ``layers`` layers (its stage's under pp): the forward's train
+    mode once per layer and microbatch (twice under remat: the backward
+    recomputes it), each backward kernel once, the plain mode never."""
+    n = layers * steps * microbatches
+    return {"flash_fwd": 0, "flash_fwd_train": n * (2 if remat else 1),
+            "flash_bwd_dq": n, "flash_bwd_dkv": n}
+
+
+def per_layer(leaves):
+    """JAX-layout leaves with the per-layer ones ``[n_stages, L, ...]``
+    flattened to ``[n_stages * L, ...]``: the same for every mesh."""
+    from horovod_tpu_torch.models.transformer import REPLICATED
+
+    return {k: v if k in REPLICATED else v.reshape(-1, *v.shape[2:])
+            for k, v in leaves.items()}
+
+
+def gather_dense(shards, cfg):
+    """The whole model's tensors from every rank's ``(shard_coords(),
+    {name: tensor})`` (say, its reduced gradients), per leaf, the layers
+    stage-major (``per_layer``): the tp and expert slices put back in
+    place, as the dense model holds them."""
+    from horovod_tpu_torch.models.transformer import join_shards
+
+    return per_layer(join_shards(
+        [(c, {k: v.detach().float().cpu().numpy() for k, v in t.items()})
+         for c, t in shards], cfg))
+
+
+def global_leaves(model, n_stages):
+    """A dense model's parameters as the JAX package's global leaves for
+    ``n_stages`` pipeline stages (``params_from_jax`` slices any rank's
+    share from them)."""
+    from horovod_tpu_torch.models.transformer import REPLICATED, join_shards
+
+    leaves = join_shards([(model.shard_coords(), dict(model.state_dict()))],
+                         model.cfg)
+    return {k: v if k in REPLICATED else
+            v.reshape(n_stages, -1, *v.shape[2:]) for k, v in leaves.items()}
+
+
+def small_mp_problems():
+    """The small fp32 models of (g) on the CPU, dense and on one rank:
+    for each, its kwargs, mesh, microbatches, global leaves, a batch of 4
+    and the loss and per-leaf gradients (``per_layer``) to meet."""
+    import torch
+
+    from horovod_tpu_torch.models.transformer import (Transformer,
+                                                      TransformerConfig,
+                                                      join_shards)
+    from horovod_tpu_torch.training import cross_entropy_loss
+
+    out = {}
+    for name, (kw, mesh, M) in SMALL_MESHES.items():
+        cfg = TransformerConfig(**SMALL, **kw)
+        cpu = Transformer(cfg, device="cpu", seed=0)
+        g = torch.Generator().manual_seed(1)
+        tokens = torch.randint(0, cfg.vocab, (4, 128), generator=g)
+        labels = torch.roll(tokens, -1, 1)
+        loss = cross_entropy_loss(cpu(tokens), labels)
+        loss.backward()
+        grads = per_layer(join_shards([(cpu.shard_coords(), {
+            n: p.grad.numpy() for n, p in cpu.named_parameters()})], cfg))
+        out[name] = dict(kw=dict(SMALL, **kw), mesh=mesh, M=M,
+                         leaves=global_leaves(cpu, mesh.get("pp", 1)),
+                         tokens=tokens, labels=labels, loss=loss.item(),
+                         grads=grads)
+    return out
+
+
+def small_mp_check(name, prob):
+    """One small model of (g) on this rank's mesh through the kernels:
+    the loss and the gradients gathered from both ranks' shards against
+    the CPU's dense model, at (c)'s tolerance."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.transformer import (Transformer,
+                                                      TransformerConfig,
+                                                      params_from_jax)
+    from horovod_tpu_torch.training import make_train_step
+
+    hvd.init(device="cuda:0", **prob["mesh"])
+    cfg = TransformerConfig(**prob["kw"])
+    model = Transformer(cfg, device="cuda:0", seed=1,
+                        n_microbatches=prob["M"])
+    coords = model.shard_coords()
+    model.load_state_dict(params_from_jax(prob["leaves"], cfg, **coords))
+    opt = hvd.DistributedOptimizer(torch.optim.SGD(model.parameters(), lr=0.0),
+                                   named_parameters=model.named_parameters())
+    b = prob["tokens"].shape[0] // hvd.dp_size()
+    rows = slice(hvd.dp_rank() * b, (hvd.dp_rank() + 1) * b)
+    loss = make_train_step(model, opt)(prob["tokens"][rows].cuda(),
+                                       prob["labels"][rows].cuda()).item()
+    shards = [None] * MP
+    dist.all_gather_object(shards, (coords, {
+        n: p.grad.cpu() for n, p in model.named_parameters()}))
+    hvd.shutdown()
+    got = gather_dense(shards, cfg)
+    worst = max(float(np.abs(got[k] - want).max()
+                      / max(1e-6, np.abs(want).max()))
+                for k, want in prob["grads"].items())
+    rel = abs(loss - prob["loss"]) / abs(prob["loss"])
+    log(f"small {name} (fp32, mesh {prob['mesh'] or {'dp': MP}}, M="
+        f"{prob['M']}): loss {loss:.6f} vs cpu {prob['loss']:.6f} (rel "
+        f"{rel:.2e}); worst grad err / max |grad| over {len(got)} leaves "
+        f"{worst:.2e} (tolerance 1e-4)")
+    if set(got) != set(prob["grads"]) or not (rel <= 1e-4 and worst <= 1e-4):
+        raise AssertionError(f"small {name} disagrees with the CPU")
+    return {"loss": loss, "rel": rel, "worst_grad": worst}
+
+
+def collectives_check(rank):
+    """allgather, reducescatter, alltoall, barrier, and
+    hierarchical_allreduce as local=2/cross=1 and local=1/cross=2, each
+    once on the card against its value from both ranks' inputs on the
+    CPU."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+
+    xs = [torch.randn(8, 3, generator=torch.Generator().manual_seed(100 + r))
+          for r in range(MP)]
+    hs = [torch.randn(5, 3, generator=torch.Generator().manual_seed(200 + r))
+          for r in range(MP)]
+    x = xs[rank].cuda()
+    rows = slice(4 * rank, 4 * rank + 4)
+    want = {"allgather": torch.cat(xs),
+            "reducescatter": (xs[0] + xs[1])[rows],
+            "alltoall": torch.cat([xs[0][rows], xs[1][rows]]),
+            "barrier": torch.tensor(MP)}
+    hvd.init(device="cuda:0")
+    got = {"allgather": hvd.allgather(x),
+           "reducescatter": hvd.reducescatter(x, op=hvd.Sum),
+           "alltoall": hvd.alltoall(x), "barrier": hvd.barrier()}
+    hvd.shutdown()
+    env = {k: os.environ[k] for k in ("HOROVOD_LOCAL_SIZE",
+                                      "HOROVOD_LOCAL_RANK")}
+    for local in (MP, 1):
+        os.environ.update(HOROVOD_LOCAL_SIZE=str(local),
+                          HOROVOD_LOCAL_RANK=str(rank % local))
+        hvd.init(device="cuda:0")
+        key = f"hierarchical local={hvd.local_size()}/cross={hvd.cross_size()}"
+        got[key] = hvd.hierarchical_allreduce(hs[rank].cuda())
+        want[key] = (hs[0] + hs[1]) / 2
+        hvd.shutdown()
+    os.environ.update(env)
+    errs = {k: float((got[k].cpu().float() - want[k].float()).abs().max())
+            for k in want}
+    log(f"collectives on the card against the CPU, max abs err: {errs}")
+    if max(errs.values()) > 1e-6:
+        raise AssertionError(f"a collective disagrees with the CPU: {errs}")
+    return errs
+
+
+def accumulation_check(prob):
+    """backward_passes_per_step=2 with ef16 at dp=2: the small dense
+    model's two micro-batches of one row each (loss / 2) against k=1 on
+    both rows, each rank's reduced gradients and their digest."""
+    import hashlib
+
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.transformer import (Transformer,
+                                                      TransformerConfig,
+                                                      params_from_jax)
+    from horovod_tpu_torch.training import cross_entropy_loss
+
+    hvd.init(device="cuda:0")
+    cfg = TransformerConfig(**prob["kw"])
+    b = prob["tokens"].shape[0] // hvd.dp_size()
+    rows = slice(hvd.dp_rank() * b, (hvd.dp_rank() + 1) * b)
+    tokens, labels = (t[rows].cuda() for t in (prob["tokens"],
+                                                prob["labels"]))
+    grads = {}
+    for k in (2, 1):
+        model = Transformer(cfg, device="cuda:0", seed=1)
+        model.load_state_dict(params_from_jax(prob["leaves"], cfg))
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.0),
+            named_parameters=model.named_parameters(), compression="ef16",
+            backward_passes_per_step=k)
+        n = b // k
+        for i in range(k):
+            sl = slice(i * n, (i + 1) * n)
+            (cross_entropy_loss(model(tokens[sl]), labels[sl]) / k).backward()
+        opt.synchronize()
+        grads[k] = torch.cat([p.grad.reshape(-1) for p in model.parameters()])
+    hvd.shutdown()
+    rel = float((grads[2] - grads[1]).norm() / grads[1].norm())
+    digest = hashlib.sha256(grads[2].cpu().numpy().tobytes()).hexdigest()
+    log(f"k=2 ef16 at dp={MP}: reduced gradients against k=1 on the joined "
+        f"rows, normwise rel {rel:.2e} (tolerance 1e-3: one fp16 rounding "
+        f"of the wire)")
+    if not rel <= 1e-3:
+        raise AssertionError("k=2 accumulation disagrees with k=1")
+    return {"rel": rel, "digest": digest}
+
+
+def timed_run(step, warmup=2, iters=3):
+    """``step()`` ``warmup + iters`` times: (losses, ms per timed step,
+    peak bytes allocated)."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    losses = [step() for _ in range(warmup)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [step() for _ in range(iters)]
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0) / iters
+    return ([float(x) for x in losses], ms,
+            torch.cuda.max_memory_allocated())
+
+
+def model_run(name, kw, mesh, microbatches, batch):
+    """The full-width decoder through the model's API on ``mesh``: AdamW
+    3e-4 as the bench, bf16, seed 0, 2 + 3 steps on this rank's rows of a
+    ``batch`` x 1024 batch from RandomState(0)."""
+    import numpy as np
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.transformer import (Transformer,
+                                                      TransformerConfig)
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.training import make_train_step
+
+    hvd.init(device="cuda:0", **mesh)
+    cfg = TransformerConfig(dtype=torch.bfloat16, **kw)
+    model = Transformer(cfg, device="cuda:0", seed=0,
+                        n_microbatches=microbatches)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=1e-4),
+        named_parameters=model.named_parameters())
+    step = make_train_step(model, opt)
+    tokens = np.random.RandomState(0).randint(0, cfg.vocab, (batch, 1024))
+    b = batch // hvd.dp_size()
+    rows = slice(hvd.dp_rank() * b, (hvd.dp_rank() + 1) * b)
+    x = torch.as_tensor(tokens[rows], device="cuda:0")
+    y = torch.roll(x, -1, 1)
+    fa.reset_launches()
+    losses, ms, peak = timed_run(lambda: step(x, y))
+    out = {"name": name, "mesh": hvd.axis_sizes(), "losses": losses,
+           "step_ms": ms, "tokens_per_s": batch * 1024 / (ms / 1e3),
+           "peak_gib": peak / 2**30, "launches": dict(fa.LAUNCHES),
+           "expected": expected_launches(len(model.layers), 5,
+                                         microbatches=microbatches),
+           "batch": batch, "same_as_slice": kw is GPT2}
+    del model, opt, step
+    hvd.shutdown()
+    torch.cuda.empty_cache()
+    return out
+
+
+def mp_worker(out_path):
+    """One rank of (g) (run as ``chip_smoke.py --mp-worker``): the small
+    models, the collectives, k=2 accumulation, then the full-width tp=2,
+    pp=2 and ep=2 runs; writes what it saw to ``out_path`` as JSON."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(REPO))
+    from horovod_tpu_torch import transformer_bench
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = int(os.environ["HOROVOD_RANK"])
+    torch.cuda.set_device(0)
+    # One NCCL world for every mesh: hvd.init adopts it, hvd.shutdown
+    # leaves it up.
+    dist.init_process_group(
+        "nccl", rank=rank, world_size=MP, init_method=(
+            f"tcp://127.0.0.1:{os.environ['HOROVOD_CONTROLLER_PORT']}"))
+    problems = torch.load(Path(out_path).parent / "inputs.pt",
+                          weights_only=False)
+    out = {"rank": rank,
+           "small": {n: small_mp_check(n, p) for n, p in problems.items()},
+           "collectives": collectives_check(rank),
+           "accumulation": accumulation_check(problems["tp2"])}
+    runs = []
+    fa.reset_launches()
+    bench = transformer_bench.run(transformer_bench.parse_args([
+        "--tp", str(MP), "--num-warmup", "2", "--num-iters", "3",
+        "--device", "cuda:0"]))
+    res = bench.result
+    runs.append({"name": "tp2 (transformer_bench --tp 2)",
+                 "mesh": res["mesh"], "losses": bench.losses,
+                 "step_ms": res["step_ms"],
+                 "tokens_per_s": res["global_batch"] * res["seq_len"]
+                 / (res["step_ms"] / 1e3),
+                 "peak_gib": bench.peak_mem_bytes / 2**30,
+                 "launches": dict(fa.LAUNCHES),
+                 "expected": expected_launches(res["n_layers"], 5),
+                 "batch": res["global_batch"], "same_as_slice": True})
+    del bench
+    import horovod_tpu_torch as hvd
+    hvd.shutdown()
+    torch.cuda.empty_cache()
+    runs.append(model_run("pp2 (2 stages of 6 layers, M=2)", GPT2,
+                          dict(pp=MP), 2, 8))
+    runs.append(model_run("ep2 MoE (8 experts, 4 a rank, top-2, cf 2.0)",
+                          GPT2_MOE, {}, 1, 8))
+    out["runs"] = runs
+    dist.destroy_process_group()
+    Path(out_path).write_text(json.dumps(out))
+    return 0
+
+
+def mp_phase(gpu, slice_losses):
+    """(g): two ranks on cuda:0 in one NCCL world, against references
+    made here on the CPU first. The full-width runs of the slice's own
+    model (tp=2, pp=2: the same weights and batch) are also held to the
+    losses of (c)'s size-1 run, ``slice_losses``."""
+    res = run_workers("--mp-worker", MP, MP_TIMEOUT_S,
+                      inputs=small_mp_problems())
+    if res[0]["accumulation"]["digest"] != res[1]["accumulation"]["digest"]:
+        raise AssertionError("k=2 accumulation: the ranks' reduced "
+                             "gradients differ")
+    log(f"    k=2 ef16: both ranks hold the same reduced gradients "
+        f"(sha256 {res[0]['accumulation']['digest'][:16]})")
+    for i, run in enumerate(res[0]["runs"]):
+        other = res[1]["runs"][i]
+        for r, rr in enumerate((run, other)):
+            log(f"    rank {r} {rr['name']}: mesh {rr['mesh']}, batch "
+                f"{rr['batch']} x 1024, losses "
+                f"{[round(x, 4) for x in rr['losses']]}, step "
+                f"{rr['step_ms']:.2f} ms, {rr['tokens_per_s']:.1f} tokens/s, "
+                f"peak {rr['peak_gib']:.2f} GiB (two ranks sharing one card "
+                f"over host sockets: a correctness run) on {gpu}")
+            log(f"    rank {r} launches {rr['launches']}")
+            losses = rr["losses"]
+            if not all(math.isfinite(x) for x in losses):
+                raise AssertionError(f"{rr['name']}: non-finite loss")
+            if not losses[-1] < losses[0]:
+                raise AssertionError(f"{rr['name']}: loss did not fall")
+            got = {k: rr["launches"][k] for k in rr["expected"]}
+            if got != rr["expected"]:
+                raise AssertionError(f"{rr['name']} launches {got}, "
+                                     f"expected {rr['expected']}")
+        if run["losses"] != other["losses"]:
+            raise AssertionError(f"{run['name']}: the ranks' losses differ")
+        if run["same_as_slice"]:
+            drift, tol = loss_drift(run["losses"], slice_losses)
+            log(f"    {run['name']}: largest step difference from the "
+                f"size-1 run of (c) {drift:.3e} (tolerance {tol:.3e})")
+            if not drift <= tol:
+                raise AssertionError(f"{run['name']}: losses leave the "
+                                     f"size-1 run's")
+    return res[0]["runs"]
+
+
 AB_MODES = ("flash_fwd", "flash_fwd_train", "flash_bwd_dq", "flash_bwd_dkv")
 AB_RING_MODES = ("flash_fwd_state", "flash_bwd_dq_f32", "flash_bwd_dkv_f32")
 
@@ -1357,6 +1774,12 @@ def main():
     table = kernel_case("slice", 8, 1024, 12, 64, torch.bfloat16, True,
                         fused=True, timing=True)
     kernel_case("slice-contiguous", 8, 1024, 12, 64, torch.bfloat16, True)
+    # The shapes (g)'s full-width runs give the bf16 kernels: 6 heads a
+    # rank at tp=2, and 4 rows a call in pp=2's microbatches and ep=2's
+    # dp shard (the views' strides, and so the TMA maps, change).
+    kernel_case("tp2-heads", 8, 1024, 6, 64, torch.bfloat16, True,
+                fused=True)
+    kernel_case("batch-4", 4, 1024, 12, 64, torch.bfloat16, True, fused=True)
     kernel_case("ragged-fp32", 2, 1000, 4, 64, torch.float32, False)
     kernel_case("ragged-fp32-d128-offsets", 1, 1000, 2, 128, torch.float32,
                 True, Tk=700, q_off=300, k_off=0)
@@ -1406,21 +1829,53 @@ def main():
         raise AssertionError("non-finite loss")
     if not run.losses[-1] < run.losses[0]:
         raise AssertionError("loss did not fall")
-    layers = args.n_layers
-    for name in ("flash_fwd_train", "flash_bwd_dq", "flash_bwd_dkv"):
-        if train_launches[name] != layers * steps:
-            raise AssertionError(f"{name} launched {train_launches[name]} "
-                                 f"times, expected {layers * steps}")
-    if train_launches["flash_fwd"] != 0 or launches["flash_fwd"] != layers:
+    want = expected_launches(args.n_layers, steps)
+    got = {k: train_launches[k] for k in want}
+    if got != want:
+        raise AssertionError(f"launches {got}, expected {want}")
+    if launches["flash_fwd"] != args.n_layers:
         raise AssertionError(f"plain-mode flash_fwd launched "
                              f"{launches['flash_fwd']} times, expected "
-                             f"{layers} (the no-grad forward)")
+                             f"{args.n_layers} (the no-grad forward)")
     if not run.allreduce_count >= 1:
         raise AssertionError("no bucket all-reduce ran")
     log(f"    bucket all-reduces {run.allreduce_count}")
     if logits.shape != (run.tokens.shape[0], args.seq_len, args.vocab) or \
             not torch.isfinite(logits).all():
         raise AssertionError("no-grad forward: bad logits")
+    # The same trainer with every layer recomputed in the backward.
+    plain_losses, plain_peak = run.losses, run.peak_mem_bytes
+    del run, logits
+    torch.cuda.empty_cache()
+    remat_args = transformer_bench.parse_args(["--remat", "--num-warmup", "2",
+                                               "--num-iters", "10"])
+    fa.reset_launches()
+    remat = transformer_bench.run(remat_args)
+    remat_launches = dict(fa.LAUNCHES)
+    rel = abs(remat.losses[0] - plain_losses[0]) / abs(plain_losses[0])
+    # Step 0 is the forward before any update, which remat cannot change;
+    # the later steps follow the recomputed gradients.
+    drift, drift_tol = loss_drift(remat.losses, plain_losses)
+    log(f"    --remat: step-0 loss {remat.losses[0]:.6f} vs "
+        f"{plain_losses[0]:.6f} (rel {rel:.2e}, tolerance 1e-2 for bf16), "
+        f"losses {[round(x, 4) for x in remat.losses]}: largest step "
+        f"difference from the plain run {drift:.3e} (tolerance "
+        f"{drift_tol:.3e}), peak memory "
+        f"{remat.peak_mem_bytes / 2**30:.2f} GiB vs "
+        f"{plain_peak / 2**30:.2f} GiB, step {remat.result['step_ms']} ms, "
+        f"launches {remat_launches} on {gpu}")
+    profile_steps(remat.step)
+    want = expected_launches(remat_args.n_layers, steps, remat=True)
+    got = {k: remat_launches[k] for k in want}
+    if got != want:
+        raise AssertionError(f"--remat launches {got}, expected {want}")
+    if not rel <= 1e-2:
+        raise AssertionError("--remat changed the step-0 loss")
+    if not drift <= drift_tol:
+        raise AssertionError("--remat changed the losses after an update")
+    if not remat.peak_mem_bytes < plain_peak:
+        raise AssertionError("--remat did not lower peak memory")
+    del remat
     hvd.shutdown()
 
     # (e) sp on the card
@@ -1432,6 +1887,10 @@ def main():
     # (f) images: cuDNN and PyTorch ops, no kernel of the port
     log(f"(f) images {since()}")
     image_phase(gpu)
+
+    # (g) tensor, pipeline and expert parallelism
+    log(f"(g) tp, pp and ep: {MP} ranks on cuda:0, one NCCL world {since()}")
+    mp_phase(gpu, plain_losses)
 
     # (d) result
     log(f"(d) result {since()}")
@@ -1450,6 +1909,8 @@ if __name__ == "__main__":
         sys.exit(sp_worker(sys.argv[2]))
     if sys.argv[1:2] == ["--dp-worker"]:
         sys.exit(dp_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--mp-worker"]:
+        sys.exit(mp_worker(sys.argv[2]))
     if sys.argv[1:2] == ["--time-tree"]:
         sys.exit(time_tree(sys.argv[2]))
     sys.exit(main())

@@ -14,11 +14,14 @@ Typical use, one process per GPU::
                                    named_parameters=model.named_parameters())
     hvd.broadcast_parameters(model.state_dict(), root_rank=0)
 
-``hvd.init(sp=N)`` lays the world out as dp x sp; sequence-parallel
-attention (ring or Ulysses, ``horovod_tpu_torch.parallel``) runs on the sp
-groups. The port carries the data- and sequence-parallel transformer
-trainer (``horovod_tpu_torch.transformer_bench``); ROADMAP.md lists what
-is still to port.
+``hvd.init(sp=, tp=, pp=)`` lays the world out as dp x pp x sp x tp
+(``parallel/mesh.py``); ``hvd.axis_group(name)`` returns this rank's group
+of an axis. The flagship transformer runs on them: sequence-parallel
+attention (ring or Ulysses) on sp, Megatron tensor parallelism on tp, the
+GPipe pipeline on pp and MoE experts on dp
+(``horovod_tpu_torch.parallel``, ``models/transformer.py``,
+``transformer_bench``); the image trainer (``image_bench``) is data
+parallel. ROADMAP.md lists what is still to port.
 """
 
 from .common import exceptions  # noqa: F401
@@ -36,11 +39,15 @@ from .common.state import (  # noqa: F401
     is_initialized,
     local_rank,
     local_size,
+    pp_rank,
+    pp_size,
     rank,
     shutdown,
     size,
     sp_rank,
     sp_size,
+    tp_rank,
+    tp_size,
 )
 from .ops.collectives import (  # noqa: F401
     Adasum,
@@ -49,10 +56,17 @@ from .ops.collectives import (  # noqa: F401
     Min,
     ReduceOp,
     Sum,
+    allgather,
     allreduce,
     allreduce_async,
+    alltoall,
+    barrier,
     broadcast,
     broadcast_parameters,
     grouped_allreduce,
+    grouped_hierarchical_allreduce,
+    hierarchical_allgather,
+    hierarchical_allreduce,
+    reducescatter,
 )
 from .opt import DistributedOptimizer  # noqa: F401

@@ -37,7 +37,7 @@ class _GlobalState:
         self.cross_size = 0
         self.cross_rank = 0
         self.axis_sizes = None   # {"dp", "pp", "sp", "tp"} sizes
-        self.groups = None       # {"dp", "sp"}: this rank's AxisGroups
+        self.groups = None       # name -> this rank's AxisGroup
 
     def reset(self):
         self.__init__()
@@ -71,29 +71,34 @@ def resolve_device(device=None, local_rank: Optional[int] = None
     return torch.device("cuda", local_rank)
 
 
-def init(device=None, sp: int = 1):
-    """Join the world and make its process group.
+def init(device=None, sp: int = 1, tp: int = 1, pp: int = 1):
+    """Join the world and make its process groups.
 
     ``device``: where this process computes; defaults to
     ``cuda:<local_rank>``. Pass ``device="cpu"`` to run on the CPU (gloo).
-    ``sp``: the sequence-parallel axis size; the world splits into
-    dp = size / sp groups of sp consecutive ranks. Idempotent (a second
-    call must ask for the same sp). Adopts a ``torch.distributed`` group
-    the caller already made.
+    ``sp``, ``tp``, ``pp``: the sequence-, tensor- and pipeline-parallel
+    axis sizes; the world is the rank grid ``reshape(dp, pp, sp, tp)``
+    with dp = size / (sp * tp * pp) (``parallel/mesh.py``), and a group is
+    made for each axis, for the data shards (dp x sp), the stages
+    (dp x pp x sp) and the local and cross hosts. Idempotent (a second
+    call must ask for the same sizes). Adopts a ``torch.distributed``
+    group the caller already made.
     """
     from ..parallel.mesh import build_groups, factor_devices
 
+    asked = {"sp": sp, "tp": tp, "pp": pp}
     with _state.lock:
         if _state.initialized:
-            if sp != _state.axis_sizes["sp"]:
+            have = {a: _state.axis_sizes[a] for a in asked}
+            if have != asked:
                 raise ValueError(
-                    f"already initialized with sp={_state.axis_sizes['sp']}"
-                    f"; shutdown() before asking for sp={sp}")
+                    f"already initialized with {have}; shutdown() before "
+                    f"asking for {asked}")
             return
         size, rank = _config.size(), _config.rank()
-        # A bad sp raises before the world is joined.
+        # Bad axis sizes raise before the world is joined.
         factor_devices(dist.get_world_size() if dist.is_initialized()
-                       else size, tp=1, pp=1, sp=sp)
+                       else size, tp=tp, pp=pp, sp=sp)
         local_rank = _config.local_rank()
         local_size = _config.local_size(size)
         dev = resolve_device(device, local_rank)
@@ -122,7 +127,8 @@ def init(device=None, sp: int = 1):
             max(1, _state.size // max(1, local_size)))
         _state.cross_rank = _config.cross_rank(_state.rank // max(1, local_size))
         _state.axis_sizes, _state.groups = build_groups(
-            _state.size, _state.rank, sp=sp)
+            _state.size, _state.rank, sp=sp, tp=tp, pp=pp,
+            local_size=local_size)
         _state.initialized = True
 
 
@@ -177,29 +183,63 @@ def device() -> torch.device:
     return _require_init("device").device
 
 
+def _axis(name: str):
+    return _require_init(f"{name} of the mesh").groups[name]
+
+
 def sp_size() -> int:
     """Ranks along the sequence-parallel axis."""
-    return _require_init("sp_size").groups["sp"].size
+    return _axis("sp").size
 
 
 def sp_rank() -> int:
     """This rank's index along the sequence-parallel axis."""
-    return _require_init("sp_rank").groups["sp"].rank
+    return _axis("sp").rank
 
 
 def dp_size() -> int:
-    """Ranks along the data-parallel axis (size / sp)."""
-    return _require_init("dp_size").groups["dp"].size
+    """Ranks along the data-parallel axis (size / (sp * tp * pp))."""
+    return _axis("dp").size
 
 
 def dp_rank() -> int:
     """This rank's index along the data-parallel axis."""
-    return _require_init("dp_rank").groups["dp"].rank
+    return _axis("dp").rank
+
+
+def tp_size() -> int:
+    """Ranks along the tensor-parallel axis."""
+    return _axis("tp").size
+
+
+def tp_rank() -> int:
+    """This rank's index along the tensor-parallel axis."""
+    return _axis("tp").rank
+
+
+def pp_size() -> int:
+    """Ranks along the pipeline axis (the number of stages)."""
+    return _axis("pp").size
+
+
+def pp_rank() -> int:
+    """This rank's pipeline stage."""
+    return _axis("pp").rank
 
 
 def axis_group(axis: str):
-    """This rank's ``AxisGroup`` of ``axis`` ("dp" or "sp")."""
-    return _require_init(f"axis_group({axis!r})").groups[axis]
+    """This rank's ``AxisGroup`` of ``axis``: a mesh axis ("dp", "pp",
+    "sp", "tp"), "data" (dp x sp), "stages" (dp x pp x sp), or "local" /
+    "cross" (the hosts' axes; raises when the local size does not divide
+    the world)."""
+    groups = _require_init(f"axis_group({axis!r})").groups
+    if axis not in groups:
+        if axis in ("local", "cross"):
+            raise ValueError(
+                f"no {axis} group: the local size {_state.local_size} does "
+                f"not divide the world of {_state.size}")
+        raise ValueError(f"unknown axis group {axis!r}")
+    return groups[axis]
 
 
 def axis_sizes() -> dict:

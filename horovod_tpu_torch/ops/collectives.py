@@ -16,10 +16,18 @@ arithmetic; the optimizer launches one per fusion bucket from backward
 hooks and waits in ``step()``. The default op is Average, Horovod's
 user-level default.
 
-Sequence parallelism adds collectives on one axis group of
-``parallel/mesh.py`` (an ``AxisGroup``), in the roles ``lax.ppermute``,
-``lax.all_to_all`` and ``lax.all_gather`` play in the JAX package:
-``ring_exchange``, ``all_to_all`` and ``allgather_along``.
+Every collective takes ``axis``, an ``AxisGroup`` of ``parallel/mesh.py``
+(default: the world), in the role of the JAX package's ``axis_name``:
+``allreduce``, ``allgather``, ``reducescatter`` (dim 0), ``alltoall``
+(dim 0) and ``barrier``; ``hierarchical_allreduce`` and
+``hierarchical_allgather`` run on the local and cross groups.
+
+The model-parallel planes add differentiable collectives, in the roles
+``lax.ppermute``, ``lax.all_to_all``, ``lax.all_gather`` and ``lax.psum``
+play in the JAX package: ``ring_exchange`` and ``ring_shift`` (the
+pipeline's hop, whose backward is the reverse hop), ``all_to_all`` (any
+split and concat dims), ``allgather_along``, ``mean_over`` and the
+Megatron pair ``copy_to_tp`` / ``reduce_from_tp``.
 """
 
 from __future__ import annotations
@@ -29,8 +37,10 @@ from typing import List, Sequence
 import torch
 import torch.distributed as dist
 
+from ..common import state as _state
 from ..common.compression import resolve_compression
 from ..common.fusion import plan_buckets_for, resolve_bucket_cap
+from ..parallel.mesh import AxisGroup
 
 
 class ReduceOp:
@@ -71,6 +81,45 @@ def _scale_f32(tensor, factor):
     return tensor.float() * factor
 
 
+def _world() -> AxisGroup:
+    return AxisGroup(None, tuple(range(dist.get_world_size())),
+                     dist.get_rank())
+
+
+def _to_acc(tensor, prescale_factor, wire):
+    """The tensor a reduction sends: in the wire dtype when compressed
+    (prescaled in fp32 first), else in the accumulation dtype (fp32 for
+    16-bit inputs), prescaled there."""
+    if wire is not None:
+        return _scale_f32(tensor, prescale_factor).to(wire)
+    acc = tensor.float() if tensor.dtype in _LOW_PRECISION else tensor
+    return _scale(acc, prescale_factor)
+
+
+def _from_acc(out, dtype, op, n, postscale_factor, compressed):
+    """A reduction's result back in ``dtype``: averaging and postscale in
+    fp32 (compressed) or the accumulation dtype."""
+    if compressed:
+        out = out.float()
+    if op == ReduceOp.AVERAGE:
+        out = out / n
+    return _scale(out, postscale_factor).to(dtype)
+
+
+def _check_op(op):
+    if op == ReduceOp.ADASUM:
+        raise NotImplementedError("Adasum comes with a later slice of the "
+                                  "port")
+    if op not in _DIST_OP:
+        raise ValueError(f"unknown reduce op {op}")
+
+
+def _wire(tensor, compression):
+    comp = resolve_compression(compression) if compression is not None \
+        else None
+    return comp.wire_dtype(tensor.dtype) if comp is not None else None
+
+
 class PendingReduce:
     """An all-reduce in flight; ``wait()`` returns the result."""
 
@@ -85,46 +134,33 @@ class PendingReduce:
 
     def wait(self) -> torch.Tensor:
         self._work.wait()
-        out = self._acc
-        if self._compressed:
-            out = out.float()
-        if self._op == ReduceOp.AVERAGE:
-            out = out / self._n
-        return _scale(out, self._postscale).to(self._dtype)
+        return _from_acc(self._acc, self._dtype, self._op, self._n,
+                         self._postscale, self._compressed)
 
 
 def allreduce_async(tensor, op: int = ReduceOp.AVERAGE,
                     prescale_factor: float = 1.0,
                     postscale_factor: float = 1.0,
-                    compression=None) -> PendingReduce:
-    """Launch an all-reduce of ``tensor`` across the world; the input is
-    left unchanged."""
-    if op == ReduceOp.ADASUM:
-        raise NotImplementedError("Adasum comes with a later slice of the "
-                                  "port")
-    if op not in _DIST_OP:
-        raise ValueError(f"unknown reduce op {op}")
-    comp = resolve_compression(compression) if compression is not None \
-        else None
-    dtype = tensor.dtype
-    wire = comp.wire_dtype(dtype) if comp is not None else None
-    if wire is not None:
-        acc = _scale_f32(tensor, prescale_factor).to(wire)
-    else:
-        acc = tensor.float() if dtype in _LOW_PRECISION else tensor
-        acc = _scale(acc, prescale_factor)
+                    compression=None, axis=None) -> PendingReduce:
+    """Launch an all-reduce of ``tensor`` over ``axis`` (an ``AxisGroup``;
+    default the world); the input is left unchanged."""
+    _check_op(op)
+    axis = axis or _world()
+    wire = _wire(tensor, compression)
+    acc = _to_acc(tensor, prescale_factor, wire)
     if acc is tensor:
         acc = tensor.clone()
-    work = dist.all_reduce(acc, op=_DIST_OP[op], async_op=True)
-    return PendingReduce(work, acc, dtype, op, postscale_factor,
-                         wire is not None, dist.get_world_size())
+    work = dist.all_reduce(acc, op=_DIST_OP[op], group=axis.group,
+                           async_op=True)
+    return PendingReduce(work, acc, tensor.dtype, op, postscale_factor,
+                         wire is not None, axis.size)
 
 
 def allreduce(tensor, op: int = ReduceOp.AVERAGE, prescale_factor: float = 1.0,
-              postscale_factor: float = 1.0, compression=None):
-    """All-reduce ``tensor`` across the world (see ``allreduce_async``)."""
+              postscale_factor: float = 1.0, compression=None, axis=None):
+    """All-reduce ``tensor`` over ``axis`` (see ``allreduce_async``)."""
     return allreduce_async(tensor, op, prescale_factor, postscale_factor,
-                           compression).wait()
+                           compression, axis).wait()
 
 
 def fuse(flats: Sequence[torch.Tensor], indices: Sequence[int]):
@@ -145,11 +181,30 @@ def unfuse(reduced: torch.Tensor, shapes, indices: Sequence[int]):
         off += n
 
 
+def _grouped(tensors, reduce_async, bucket_cap_bytes, compression):
+    """Fuse ``tensors`` into the plan's buckets, launch ``reduce_async``
+    on each bucket's flat buffer, then wait on each and split it back."""
+    if not tensors:
+        return []
+    cap = resolve_bucket_cap(bucket_cap_bytes)
+    comp = resolve_compression(compression) if compression is not None \
+        else None
+    flats = [t.reshape(-1) for t in tensors]
+    shapes = [t.shape for t in tensors]
+    pending = [(b.indices, reduce_async(fuse(flats, b.indices), comp))
+               for b in plan_buckets_for(flats, cap, comp)]
+    out: List[torch.Tensor] = [None] * len(tensors)
+    for indices, handle in pending:
+        for i, t in unfuse(handle.wait(), shapes, indices):
+            out[i] = t
+    return out
+
+
 def grouped_allreduce(tensors: Sequence[torch.Tensor],
                       op: int = ReduceOp.AVERAGE, prescale_factor: float = 1.0,
                       postscale_factor: float = 1.0, bucket_cap_bytes=None,
-                      compression=None) -> List[torch.Tensor]:
-    """All-reduce a list of tensors as fused buckets.
+                      compression=None, axis=None) -> List[torch.Tensor]:
+    """All-reduce a list of tensors over ``axis`` as fused buckets.
 
     ``bucket_cap_bytes`` unset: one bucket per dtype. An int (or
     ``"auto"`` following ``HOROVOD_FUSION_THRESHOLD``): size-capped
@@ -158,23 +213,121 @@ def grouped_allreduce(tensors: Sequence[torch.Tensor],
     first is waited on. ``compression`` makes each bucket reduce in the
     compressed wire dtype and the plan budget that width.
     """
-    if not tensors:
-        return []
-    cap = resolve_bucket_cap(bucket_cap_bytes)
-    comp = resolve_compression(compression) if compression is not None \
-        else None
-    flats = [t.reshape(-1) for t in tensors]
-    shapes = [t.shape for t in tensors]
-    pending = [
-        (b.indices, allreduce_async(fuse(flats, b.indices), op,
-                                    prescale_factor, postscale_factor, comp))
-        for b in plan_buckets_for(flats, cap, comp)
-    ]
-    out: List[torch.Tensor] = [None] * len(tensors)
-    for indices, handle in pending:
-        for i, t in unfuse(handle.wait(), shapes, indices):
-            out[i] = t
+    return _grouped(
+        tensors, lambda flat, comp: allreduce_async(
+            flat, op, prescale_factor, postscale_factor, comp, axis),
+        bucket_cap_bytes, compression)
+
+
+class _Done:
+    """A finished reduction in the shape of ``PendingReduce``."""
+
+    def __init__(self, value):
+        self._value = value
+
+    def wait(self):
+        return self._value
+
+
+def hierarchical_allreduce(tensor, op: int = ReduceOp.AVERAGE,
+                           prescale_factor: float = 1.0,
+                           postscale_factor: float = 1.0, compression=None):
+    """All-reduce over the world in three legs: reduce-scatter on the
+    local group, all-reduce of the shards on the cross group, all-gather
+    on the local group (``ops/xla.hierarchical_allreduce``, the reference's
+    ``NCCLHierarchicalAllreduce``). The flat tensor is padded with zeros
+    to a multiple of the local size. Every leg travels at the
+    accumulation dtype (fp32 for 16-bit inputs) or, with
+    ``compression``, in the wire dtype; averaging and postscale run on
+    the result as in ``allreduce``. Sum and Average only."""
+    if op not in (ReduceOp.SUM, ReduceOp.AVERAGE):
+        _check_op(op)
+        raise ValueError(f"hierarchical allreduce supports Sum and Average, "
+                         f"got op {op}")
+    local, cross = _state.axis_group("local"), _state.axis_group("cross")
+    wire = _wire(tensor, compression)
+    acc = _to_acc(tensor, prescale_factor, wire)
+    flat = acc.reshape(-1)
+    n = flat.numel()
+    pad = (-n) % local.size
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    shard = _reduce_scatter(flat, dist.ReduceOp.SUM, local)
+    dist.all_reduce(shard, group=cross.group)
+    full = allgather_along(shard, 0, local)[:n].view(acc.shape)
+    return _from_acc(full, tensor.dtype, op, local.size * cross.size,
+                     postscale_factor, wire is not None)
+
+
+def grouped_hierarchical_allreduce(tensors: Sequence[torch.Tensor],
+                                   op: int = ReduceOp.AVERAGE,
+                                   prescale_factor: float = 1.0,
+                                   postscale_factor: float = 1.0,
+                                   bucket_cap_bytes=None, compression=None
+                                   ) -> List[torch.Tensor]:
+    """``hierarchical_allreduce`` of a list of tensors, fused into the
+    buckets ``grouped_allreduce`` plans; each bucket runs all three legs
+    before the next starts."""
+    return _grouped(
+        tensors, lambda flat, comp: _Done(hierarchical_allreduce(
+            flat, op, prescale_factor, postscale_factor, comp)),
+        bucket_cap_bytes, compression)
+
+
+def allgather(tensor, axis=None) -> torch.Tensor:
+    """Every rank's ``tensor`` (same shapes) joined along dim 0 in rank
+    order over ``axis`` (default the world)."""
+    return allgather_along(tensor, 0, axis or _world())
+
+
+def hierarchical_allgather(tensor) -> torch.Tensor:
+    """``allgather`` over the world in two legs: on the local group, then
+    the local blocks on the cross group. The cross-major layout (``rank =
+    cross * local_size + local``) makes that the world's rank order."""
+    local = allgather_along(tensor, 0, _state.axis_group("local"))
+    return allgather_along(local, 0, _state.axis_group("cross"))
+
+
+def _reduce_scatter(acc, dist_op, axis):
+    """``acc`` reduced over ``axis`` with this rank's block of dim 0 kept
+    (dim 0 split into ``axis.size`` equal blocks)."""
+    chunks = list(acc.contiguous().chunk(axis.size))
+    out = torch.empty_like(chunks[0])
+    dist.reduce_scatter(out, chunks, op=dist_op, group=axis.group)
     return out
+
+
+def reducescatter(tensor, op: int = ReduceOp.SUM, axis=None,
+                  prescale_factor: float = 1.0,
+                  postscale_factor: float = 1.0) -> torch.Tensor:
+    """Reduce ``tensor`` over ``axis`` (default the world) and keep this
+    rank's block of dim 0 (dim 0 splits into ``axis.size`` equal blocks).
+    16-bit inputs accumulate at fp32, as in ``allreduce``."""
+    _check_op(op)
+    axis = axis or _world()
+    if tensor.shape[0] % axis.size:
+        raise ValueError(f"reducescatter: dim 0 of {list(tensor.shape)} "
+                         f"does not split {axis.size} ways")
+    out = _reduce_scatter(_to_acc(tensor, prescale_factor, None),
+                          _DIST_OP[op], axis)
+    return _from_acc(out, tensor.dtype, op, axis.size, postscale_factor,
+                     False)
+
+
+def alltoall(tensor, axis=None) -> torch.Tensor:
+    """Exchange equal blocks of dim 0 over ``axis`` (default the world):
+    block i goes to rank i, and the blocks received are joined in rank
+    order."""
+    return all_to_all(tensor, 0, 0, axis or _world())
+
+
+def barrier(axis=None) -> torch.Tensor:
+    """Wait for every rank of ``axis`` (default the world); returns the
+    number of ranks that arrived, as the JAX package's psum of ones."""
+    axis = axis or _world()
+    ones = torch.ones((), dtype=torch.int32, device=_state.device())
+    dist.all_reduce(ones, group=axis.group)
+    return ones
 
 
 def broadcast(tensor, root_rank: int):
@@ -200,16 +353,16 @@ class PendingExchange:
         return self._received
 
 
-def ring_exchange(tensors: Sequence[torch.Tensor], axis, tag: int = 0
-                  ) -> PendingExchange:
+def ring_exchange(tensors: Sequence[torch.Tensor], axis, tag: int = 0,
+                  shift: int = 1) -> PendingExchange:
     """Send each tensor to the next rank of the ring ``axis`` (an
-    ``AxisGroup``: index i sends to i + 1 and receives from i - 1, modulo
-    the axis size) and receive the previous rank's tensors of the same
-    shapes and dtypes: the port's ``lax.ppermute(x, axis, fwd_perm)``.
+    ``AxisGroup``: index i sends to i + shift and receives from i - shift,
+    modulo the axis size) and receive the previous rank's tensors of the
+    same shapes and dtypes: the port's ``lax.ppermute(x, axis, fwd_perm)``.
     One ``batch_isend_irecv``; the caller computes while it is in flight.
     Tensor i travels under tag ``tag + i``."""
-    nxt = axis.global_rank(axis.rank + 1)
-    prv = axis.global_rank(axis.rank - 1)
+    nxt = axis.global_rank(axis.rank + shift)
+    prv = axis.global_rank(axis.rank - shift)
     sent = [t.contiguous() for t in tensors]
     received = [torch.empty_like(t) for t in sent]
     ops = []
@@ -258,6 +411,87 @@ def allgather_along(x: torch.Tensor, dim: int, axis) -> torch.Tensor:
     parts = [torch.empty_like(x) for _ in range(axis.size)]
     dist.all_gather(parts, x.contiguous(), group=axis.group)
     return torch.cat(parts, dim)
+
+
+class _RingShift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, *side):
+        ctx.axis, ctx.n_side = axis, len(side)
+        received = ring_exchange([x, *side], axis).wait()
+        ctx.mark_non_differentiable(*received[1:])
+        return tuple(received)
+
+    @staticmethod
+    def backward(ctx, g, *_):
+        (gx,) = ring_exchange([g], ctx.axis, shift=-1).wait()
+        return (gx, None) + (None,) * ctx.n_side
+
+
+def ring_shift(x: torch.Tensor, axis, *side: torch.Tensor):
+    """One hop of the ring ``axis``: send ``x`` (and the ``side`` tensors,
+    say segment ids, which carry no gradient) to the next rank and return
+    the previous rank's, as ``(x, *side)``. Differentiable in ``x``: the
+    backward sends the gradient one hop back (``lax.ppermute``'s
+    transpose)."""
+    return _RingShift.apply(x, axis, *side)
+
+
+class _CopyToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return allreduce(g, op=ReduceOp.SUM, axis=ctx.axis), None
+
+
+class _ReduceFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        return allreduce(x, op=ReduceOp.SUM, axis=axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_tp(x: torch.Tensor, axis) -> torch.Tensor:
+    """Megatron's entry into a tensor-parallel region: the identity
+    forward, and a sum over the tp group ``axis`` backward (each tp rank
+    holds the gradient of its shard's product only)."""
+    if axis is None or axis.size == 1:
+        return x
+    return _CopyToGroup.apply(x, axis)
+
+
+def reduce_from_tp(x: torch.Tensor, axis) -> torch.Tensor:
+    """Megatron's exit from a tensor-parallel region: the sum of the tp
+    ranks' partial outputs forward (``lax.psum(x, "tp")``), the identity
+    backward (every tp rank holds the same gradient of the sum)."""
+    if axis is None or axis.size == 1:
+        return x
+    return _ReduceFromGroup.apply(x, axis)
+
+
+class _MeanOver(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return allreduce(x, op=ReduceOp.AVERAGE, axis=axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return allreduce(g, op=ReduceOp.AVERAGE, axis=ctx.axis), None
+
+
+def mean_over(x: torch.Tensor, axis) -> torch.Tensor:
+    """``lax.pmean(x, axis)``: the mean over the group, differentiable
+    (its backward is the mean of the ranks' gradients)."""
+    if axis is None or axis.size == 1:
+        return x
+    return _MeanOver.apply(x, axis)
 
 
 @torch.no_grad()

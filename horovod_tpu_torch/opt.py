@@ -1,20 +1,40 @@
-"""DistributedOptimizer: gradients averaged across the world bucket by
-bucket while backward runs.
+"""DistributedOptimizer: gradients reduced over the ranks that hold the
+same slice of each parameter, bucket by bucket while backward runs.
 
 Counterpart of ``horovod_tpu/opt.py`` (the optax wrapper whose bucketed
 all-reduces XLA overlapped with backprop) and of the hook design of
 ``horovod_tpu/torch/optimizer.py``. It wraps any ``torch.optim``
 optimizer:
 
+- each parameter is reduced over a group of ``parallel/mesh.py``: the
+  data shards (``"data"``, dp x sp: every rank at tp = pp = 1) unless the
+  parameter names another in its ``mesh.REDUCE_ATTR`` attribute (the
+  transformer's embedding: ``"stages"``, since one pipeline stage alone
+  uses it; its experts: ``"sp"``, since the expert all-to-all already
+  summed their gradient over dp). The gradient is summed over that group
+  and, for Average, divided by the number of data shards, so every
+  placement yields the gradient of the mean loss;
 - the parameters are planned into fusion buckets by
-  ``common/fusion.plan_buckets`` in backward order (monolithic per dtype
-  unless ``bucket_cap_bytes`` or ``HOROVOD_FUSION_THRESHOLD`` sets a cap);
-- a post-accumulate-grad hook on every parameter counts the bucket's
-  gradients down, and when the last one lands the bucket's fused
-  all-reduce is launched asynchronously (``ops/collectives``), so
-  communication overlaps the rest of backward;
-- ``step()`` waits on every bucket, writes the averaged gradients back
+  ``common/fusion.plan_buckets`` in backward order, pure in group as well
+  as in dtype (monolithic per dtype unless ``bucket_cap_bytes`` or
+  ``HOROVOD_FUSION_THRESHOLD`` sets a cap);
+- a post-accumulate-grad hook on every parameter counts its gradient's
+  arrivals; when every parameter of a bucket has arrived
+  ``backward_passes_per_step`` times, the bucket's fused all-reduce is
+  launched asynchronously (``ops/collectives``), so communication
+  overlaps the rest of backward. A bucket whose group spans pipeline
+  stages waits for ``synchronize()``: its members run different stages'
+  graphs, whose hooks fire in different orders, so the plan's order is
+  the only one they share;
+- ``step()`` waits on every bucket, writes the reduced gradients back
   into ``.grad`` and runs the wrapped optimizer.
+
+With ``backward_passes_per_step = k`` the k backward passes accumulate
+into ``.grad`` (torch's sum) and that sum is what is reduced, as the
+torch binding does (``torch/optimizer.py``); the JAX package reduces the
+mean of the k gradients, so a loss scaled by 1/k gives the same update.
+Error feedback is applied when the bucket is sent, to the accumulated
+gradient, as the JAX package applies it at communication time.
 
 The hook path runs at every world size, including 1. With ``ef16``
 (fp16 with error feedback) each bucket's flat gradient is corrected by
@@ -28,14 +48,20 @@ a state whose residuals disagree with the optimizer's compression mode
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import warnings
 from typing import Dict, List
 
 import torch
 
+from .common import state as _state
 from .common.compression import (apply_error_feedback, init_residual,
                                  resolve_compression)
 from .common.fusion import plan_buckets_for, resolve_bucket_cap
 from .ops import collectives as _coll
+from .parallel.mesh import GROUPS as _MESH_GROUPS
+from .parallel.mesh import reduce_group
 
 # The optimizer-state key of the error-feedback residuals (a list of fp32
 # tensors in the wrapped parameters' order).
@@ -45,17 +71,21 @@ RESIDUAL_KEY = "error_feedback_residual"
 class _DistributedOptimizer(torch.optim.Optimizer):
     def __init__(self, params, named_parameters=None, compression="auto",
                  op=_coll.Average, bucket_cap_bytes="auto",
-                 backward_passes_per_step=1):
+                 backward_passes_per_step=1, gradient_predivide_factor=1.0,
+                 prescale_factor=1.0, postscale_factor=1.0):
         super(self.__class__, self).__init__(params)
-        if backward_passes_per_step != 1:
-            raise NotImplementedError(
-                "backward_passes_per_step > 1 comes with a later slice of "
-                "the port")
         if op not in (_coll.Average, _coll.Sum):
             raise NotImplementedError(
                 f"op {op}: the port's DistributedOptimizer reduces with "
                 f"Average or Sum; Adasum comes with a later slice")
+        if gradient_predivide_factor != 1.0 and op != _coll.Average:
+            raise ValueError("gradient_predivide_factor not supported with "
+                             "op != Average")
+        if backward_passes_per_step < 1:
+            raise ValueError(f"backward_passes_per_step must be >= 1, got "
+                             f"{backward_passes_per_step}")
         self.op = op
+        self.backward_passes_per_step = backward_passes_per_step
         self._compression = resolve_compression(compression)
         self._ef = (self._compression is not None
                     and self._compression.error_feedback)
@@ -69,15 +99,32 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                                  "model parameters are not named")
             if len({n for n, _ in named}) < len(named):
                 raise ValueError("parameter names must be unique")
-        self._buckets = plan_buckets_for(
-            self._params, resolve_bucket_cap(bucket_cap_bytes),
-            self._compression)
+        self._buckets, names = self._plan(bucket_cap_bytes)
+        self._groups = [_state.axis_group(name) for name in names]
+        n_data = _state.axis_group("data").size
+        self._scales = []
+        for group in self._groups:
+            if gradient_predivide_factor != 1.0:
+                self._scales.append((
+                    _coll.Sum, prescale_factor / gradient_predivide_factor,
+                    postscale_factor * gradient_predivide_factor / n_data))
+            elif op == _coll.Average:
+                # Average divides by the group; the mean is over the data
+                # shards, however many ranks hold a slice.
+                self._scales.append((op, prescale_factor, postscale_factor
+                                     * group.size / n_data))
+            else:
+                self._scales.append((op, prescale_factor, postscale_factor))
+        self._deferred = {b for b, name in enumerate(names)
+                          if "pp" in _MESH_GROUPS.get(name, ())}
         self._bucket_of: Dict[int, int] = {}
         for b, bucket in enumerate(self._buckets):
             for i in bucket.indices:
                 self._bucket_of[id(self._params[i])] = b
-        self._remaining = [len(b.indices) for b in self._buckets]
         self._pending: Dict[int, _coll.PendingReduce] = {}
+        self._reset_counts()
+        self._synchronized = False
+        self._should_synchronize = True
         # Bucket all-reduces launched since construction.
         self.allreduce_count = 0
         if self._ef:
@@ -85,15 +132,41 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         self._hooks = [p.register_post_accumulate_grad_hook(self._grad_ready)
                        for p in self._params]
 
+    def _plan(self, bucket_cap_bytes):
+        """Buckets pure in group and dtype, and each bucket's group name:
+        each group's parameters are planned apart, groups in the order of
+        their first parameter."""
+        cap = resolve_bucket_cap(bucket_cap_bytes)
+        by_group: Dict[str, List[int]] = {}
+        for i, p in enumerate(self._params):
+            by_group.setdefault(reduce_group(p), []).append(i)
+        buckets, names = [], []
+        for name, idxs in by_group.items():
+            for b in plan_buckets_for([self._params[i] for i in idxs], cap,
+                                      self._compression):
+                buckets.append(dataclasses.replace(
+                    b, indices=tuple(idxs[j] for j in b.indices)))
+                names.append(name)
+        return buckets, names
+
+    def _reset_counts(self):
+        k = self.backward_passes_per_step
+        self._arrivals = {id(p): k for p in self._params}
+        self._remaining = [len(b.indices) for b in self._buckets]
+
     def _grad_ready(self, p: torch.Tensor) -> None:
         b = self._bucket_of[id(p)]
-        if b in self._pending:
+        if self._arrivals[id(p)] == 0:
             raise RuntimeError(
-                "a gradient was accumulated twice before step(); "
-                "backward_passes_per_step > 1 comes with a later slice")
-        self._remaining[b] -= 1
-        if self._remaining[b] == 0:
-            self._launch(b)
+                "a gradient was computed more than backward_passes_per_step "
+                f"({self.backward_passes_per_step}) times before step() or "
+                "synchronize(); raise backward_passes_per_step to "
+                "accumulate more passes")
+        self._arrivals[id(p)] -= 1
+        if self._arrivals[id(p)] == 0:
+            self._remaining[b] -= 1
+            if self._remaining[b] == 0 and b not in self._deferred:
+                self._launch(b)
 
     def _launch(self, b: int) -> None:
         idxs = self._buckets[b].indices
@@ -108,15 +181,18 @@ class _DistributedOptimizer(torch.optim.Optimizer):
             torch._foreach_copy_(
                 [res[i] for i in idxs],
                 [r for _, r in _coll.unfuse(new_res, shapes, idxs)])
+        op, pre, post = self._scales[b]
         self._pending[b] = _coll.allreduce_async(
-            flat, op=self.op, compression=self._compression)
+            flat, op=op, prescale_factor=pre, postscale_factor=post,
+            compression=self._compression, axis=self._groups[b])
         self.allreduce_count += 1
 
     def synchronize(self) -> None:
         """Finish every bucket's all-reduce and write the result into
-        ``.grad``. Buckets whose gradients never all arrived (a parameter
-        unused this step) are launched here, with zeros for the missing
-        gradients."""
+        ``.grad``. Buckets not launched yet are launched here, in plan
+        order: those whose group spans pipeline stages, and those whose
+        gradients never all arrived (a parameter unused this step, which
+        is given a zero gradient)."""
         for b, bucket in enumerate(self._buckets):
             if b not in self._pending:
                 for i in bucket.indices:
@@ -131,10 +207,29 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                                          self._buckets[b].indices):
                     self._params[i].grad.copy_(g)
         self._pending.clear()
-        self._remaining = [len(b.indices) for b in self._buckets]
+        self._reset_counts()
+        self._synchronized = True
+
+    @contextlib.contextmanager
+    def skip_synchronize(self):
+        """Let ``step()`` skip its ``synchronize()``: for a caller that
+        synchronized by hand (say, to clip the reduced gradients) before
+        stepping."""
+        self._should_synchronize = False
+        try:
+            yield
+        finally:
+            self._should_synchronize = True
 
     def step(self, closure=None):
-        self.synchronize()
+        if self._should_synchronize:
+            if self._synchronized:
+                warnings.warn(
+                    "optimizer.step() called without wrapping it in "
+                    "optimizer.skip_synchronize() after a manual "
+                    "synchronize(); the gradients are reduced again")
+            self.synchronize()
+        self._synchronized = False
         return super(self.__class__, self).step(closure)
 
     def load_state_dict(self, state_dict):
@@ -175,14 +270,23 @@ class _DistributedOptimizer(torch.optim.Optimizer):
 def DistributedOptimizer(optimizer: torch.optim.Optimizer,
                          named_parameters=None, compression="auto",
                          op: int = _coll.Average, bucket_cap_bytes="auto",
-                         backward_passes_per_step: int = 1):
-    """Wrap ``optimizer`` so that ``step()`` applies world-averaged
-    gradients (``op=Sum`` for summed ones).
+                         backward_passes_per_step: int = 1,
+                         gradient_predivide_factor: float = 1.0,
+                         prescale_factor: float = 1.0,
+                         postscale_factor: float = 1.0):
+    """Wrap ``optimizer`` so that ``step()`` applies gradients averaged
+    over the data shards (``op=Sum`` for summed ones).
 
     ``compression``: ``Compression.none/fp16/bf16/ef16``, the name, or
     ``"auto"`` (``HOROVOD_COMPRESSION``). ``bucket_cap_bytes``: an int,
     ``None`` (one bucket per dtype) or ``"auto"``
     (``HOROVOD_FUSION_THRESHOLD``, else one bucket per dtype).
+    ``backward_passes_per_step``: backward passes accumulated into
+    ``.grad`` before their sum is reduced. ``gradient_predivide_factor``
+    f (Average only): the sum is taken of gradients divided by f and
+    multiplied by f / shards after, which moves where fp16 rounds.
+    ``prescale_factor`` / ``postscale_factor``: multiply each bucket, in
+    fp32, before and after the reduction.
 
     The result is an instance of a subclass of ``optimizer``'s class
     built over the same parameter groups (hyperparameters included).
@@ -190,4 +294,5 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
     cls = type(optimizer.__class__.__name__, (optimizer.__class__,),
                dict(_DistributedOptimizer.__dict__))
     return cls(optimizer.param_groups, named_parameters, compression, op,
-               bucket_cap_bytes, backward_passes_per_step)
+               bucket_cap_bytes, backward_passes_per_step,
+               gradient_predivide_factor, prescale_factor, postscale_factor)

@@ -3,12 +3,14 @@
 Counterpart of ``horovod_tpu/training.py`` (``cross_entropy_loss``,
 ``make_train_step``, ``init_train_state``, ``shard_batch``) and of the
 transformer's ``make_train_step``. PyTorch runs eagerly, so the step is a
-plain function; the gradient average over the world happens inside
+plain function; the gradient reduction happens inside
 ``DistributedOptimizer`` (bucket all-reduces launched from backward hooks,
-waited on in ``step()``). Under sequence parallelism every rank's
-backward already carries the gradients that other ranks' losses send back
-through the ring or all-to-all, so that world average is the transpose of
-the JAX loss's ``lax.pmean(loss, ("dp", "sp"))`` with no extra step.
+waited on in ``step()``), each parameter over the ranks that hold the same
+slice of it. Under sequence parallelism every rank's backward already
+carries the gradients that other ranks' losses send back through the ring
+or all-to-all, so the average over the data shards (dp x sp) is the
+transpose of the JAX loss's ``lax.pmean(loss, ("dp", "sp"))`` with no
+extra step. The tp and pp ranks of a data shard hold the same loss.
 
 An image model's batch norms normalize with this rank's batch and update
 their running statistics; after the update the step averages those
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .common import state as _state
 from .ops.collectives import allreduce, grouped_allreduce
 
 
@@ -37,9 +40,10 @@ def make_train_step(model: torch.nn.Module, dist_opt: torch.optim.Optimizer):
     """``step(inputs, labels, segment_ids=None) -> loss``: one forward in
     training mode, backward and distributed optimizer update on this
     rank's shard of the batch (tokens, or NHWC images). The returned loss
-    is detached and averaged over the world (every dp and sp rank), the
-    JAX step's ``pmean``. The model's floating buffers (batch-norm
-    running statistics) are averaged over the world after the update."""
+    is detached and averaged over the data shards (the dp x sp group), the
+    JAX step's ``pmean``: the same on every rank. The model's floating
+    buffers (batch-norm running statistics) are averaged over the world
+    after the update."""
     stats = [b for b in model.buffers() if b.is_floating_point()]
 
     def step(inputs, labels, segment_ids=None):
@@ -54,8 +58,9 @@ def make_train_step(model: torch.nn.Module, dist_opt: torch.optim.Optimizer):
         if stats:
             with torch.no_grad():
                 torch._foreach_copy_(stats, grouped_allreduce(stats))
-        return allreduce(loss.detach())
+        return allreduce(loss.detach(), axis=data)
 
+    data = _state.axis_group("data")
     return step
 
 

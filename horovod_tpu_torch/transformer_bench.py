@@ -3,16 +3,20 @@ GPT-2-small-class decoder, data and sequence parallel.
 
 The port of ``tools/transformer_bench.py``: the same flags and defaults
 and one JSON line with the same keys. One process per GPU. The world is
-dp x sp (``--sp``, tp = pp = 1): the global batch (default 8 per dp
-shard) splits over dp and the global sequence over sp, so every rank
-takes a ``[batch / dp, seq_len / sp]`` shard. Labels are rolled over the
-global sequence before it is sharded.
+dp x sp x tp (``--sp``, ``--tp``; pp = 1 and one microbatch, as the JAX
+tool): the global batch (default 8 per dp shard) splits over dp and the
+global sequence over sp, so every rank takes a ``[batch / dp, seq_len /
+sp]`` shard, the same on each tp rank, which holds H/tp heads and d_ff/tp
+hidden units of every layer. Labels are rolled over the global sequence
+before it is sharded. ``--remat`` recomputes each layer in the backward.
 
     python -m horovod_tpu_torch.transformer_bench          # GPT-2-small-ish
     python -m horovod_tpu_torch.transformer_bench --device cpu --d-model 64 \\
         --n-heads 4 --n-layers 2 --vocab 256 --seq-len 64 --num-iters 2
     # long context, under a launcher of 4 ranks (one per GPU):
     python -m horovod_tpu_torch.transformer_bench --sp 4 --seq-len 8192
+    # Megatron tensor parallelism over 2 ranks, layers recomputed:
+    python -m horovod_tpu_torch.transformer_bench --tp 2 --remat
 
 MFU convention (copied): model FLOPs per token = 6*N (N = matmul
 parameter count: embedding table and learned positions excluded, untied
@@ -55,7 +59,8 @@ def parse_args(argv=None):
                    help="global batch (default: 8 per dp shard)")
     p.add_argument("--sp", type=int, default=1,
                    help="sequence-parallel ranks; dp = world size / sp")
-    p.add_argument("--tp", type=int, default=1)
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel ranks (Megatron heads / hidden)")
     p.add_argument("--strategy", default="ring",
                    choices=["ring", "ulysses", "auto"])
     p.add_argument("--n-kv-heads", type=int, default=None,
@@ -67,7 +72,8 @@ def parse_args(argv=None):
     p.add_argument("--zero", action="store_true",
                    help="ZeRO-1 over dp (a later slice of the port)")
     p.add_argument("--remat", action="store_true",
-                   help="rematerialize decoder layers (a later slice)")
+                   help="rematerialize decoder layers (recompute each in "
+                        "the backward)")
     p.add_argument("--num-warmup", type=int, default=3)
     p.add_argument("--num-iters", type=int, default=20)
     p.add_argument("--device", default=None,
@@ -93,13 +99,13 @@ def _sync(device):
 def run(args) -> BenchRun:
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.models.transformer import (
-        Transformer, TransformerConfig, check_parallelism)
+        Transformer, TransformerConfig, check_parallelism, global_shapes)
     from horovod_tpu_torch.training import make_train_step
 
     check_parallelism(sp=args.sp, tp=args.tp)
     if args.zero:
         raise NotImplementedError("ZeRO comes with a later slice of the port")
-    hvd.init(device=args.device, sp=args.sp)
+    hvd.init(device=args.device, sp=args.sp, tp=args.tp)
     device = hvd.device()
     size, dp, sp = hvd.size(), hvd.dp_size(), hvd.sp_size()
     batch = args.batch_size if args.batch_size is not None else 8 * dp
@@ -111,7 +117,8 @@ def run(args) -> BenchRun:
     local, t_local = batch // dp, args.seq_len // sp
     kind = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
-    print(f"bench: dp={dp} sp={sp} on {device} ({kind}); B={batch} "
+    print(f"bench: dp={dp} sp={sp} tp={args.tp} on {device} ({kind}); "
+          f"B={batch} "
           f"T={args.seq_len}", file=sys.stderr)
 
     cfg = TransformerConfig(
@@ -122,10 +129,13 @@ def run(args) -> BenchRun:
         n_kv_heads=args.n_kv_heads, rope=args.rope,
         attention_window=args.window)
     model = Transformer(cfg, device=device, seed=0)
-    n_params = sum(p.numel() for p in model.parameters())
-    n_matmul_params = n_params - sum(
-        p.numel() for name, p in model.named_parameters()
-        if name in ("embed", "pos"))
+    # The whole model's counts (a tp rank holds a slice of each layer).
+    shapes = global_shapes(cfg)
+    count = {name: int(np.prod(shape)) for name, shape in shapes.items()
+             if name != "pos" or not cfg.rope}
+    n_params = sum(n if name in ("embed", "pos", "final_ln", "head")
+                   else n * cfg.n_layers for name, n in count.items())
+    n_matmul_params = n_params - count["embed"] - count.get("pos", 0)
     optimizer = hvd.DistributedOptimizer(
         torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=1e-4),
         named_parameters=model.named_parameters())

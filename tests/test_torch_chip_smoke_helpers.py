@@ -18,6 +18,11 @@ comparison uses: the two sides round P (dS) at the same places and differ
 only by fp32 summation order and exp, which moved the comparison by
 1.4e-5 to 3.3e-5 on the CPU, while rounding P per 64 keys instead of 512,
 or the dQ output through bf16, moves it by ~1e-3.
+
+Phase (g)'s CPU-side helpers: ``gather_dense`` must put every rank's
+shard of a dense model back exactly (and notice a missing one), and
+``expected_launches`` must equal the plain-path calls counted over one
+training step on the CPU, where remat recomputes the forward.
 """
 
 import importlib.util
@@ -156,3 +161,125 @@ def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
                           env=env, capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+# ---- (g)'s helpers ------------------------------------------------------------
+
+
+def _coords(stage=0, n_stages=1, tp=(0, 1), dp=(0, 1)):
+    return dict(stage=stage, n_stages=n_stages, tp=tp, dp=dp)
+
+
+MESH_SHARDS = {
+    "tp2": [_coords(tp=(t, 2)) for t in range(2)],
+    "pp2": [_coords(stage=s, n_stages=2) for s in range(2)],
+    "ep2": [_coords(dp=(d, 2)) for d in range(2)],
+    "tp2xpp2": [_coords(stage=s, n_stages=2, tp=(t, 2)) for s in range(2)
+                for t in range(2)],
+}
+
+
+@pytest.mark.parametrize("mesh", sorted(MESH_SHARDS))
+def test_gather_dense_puts_the_shards_back(mesh):
+    """Every rank's slice of a dense model (``params_from_jax`` of its
+    global leaves), joined by ``gather_dense``, is the dense model's
+    tensors, leaf by leaf, exactly; with one rank's slice missing it is
+    not."""
+    from horovod_tpu_torch.models import transformer as tt
+
+    cs = _chip_smoke()
+    kw = dict(cs.SMALL, d_model=32, d_ff=64, vocab=64, n_heads=4, d_head=8)
+    if mesh == "ep2":
+        kw.update(use_moe=True, n_experts=4, d_expert=16)
+    cfg = tt.TransformerConfig(**kw)
+    dense = tt.Transformer(cfg, device="cpu", seed=3)
+    want = cs.gather_dense([(dense.shard_coords(),
+                             dict(dense.named_parameters()))], cfg)
+    coords = MESH_SHARDS[mesh]
+    leaves = cs.global_leaves(dense, coords[0]["n_stages"])
+    shards = [(c, tt.params_from_jax(leaves, cfg, **c)) for c in coords]
+    got = cs.gather_dense(shards, cfg)
+    assert set(got) == set(want)
+    for leaf, w in want.items():
+        np.testing.assert_array_equal(got[leaf], w, err_msg=leaf)
+    partial = cs.gather_dense(shards[:-1], cfg)
+    assert any(not np.array_equal(partial[k], want[k]) for k in want)
+
+
+@pytest.mark.parametrize("remat, microbatches", [(False, 1), (True, 1),
+                                                 (True, 2)])
+def test_expected_launches_counts_the_remat_recompute(monkeypatch, remat,
+                                                      microbatches):
+    """On the CPU the wrappers run the plain versions: counting those
+    calls over one training step of a 3-layer model gives what
+    ``expected_launches`` says the kernels launch — under remat the
+    forward's train mode twice per layer (the backward recomputes it)."""
+    from horovod_tpu_torch.models import transformer as tt
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.training import cross_entropy_loss
+
+    cs = _chip_smoke()
+    calls = dict.fromkeys(("flash_fwd", "flash_fwd_train", "flash_bwd_dq",
+                           "flash_bwd_dkv"), 0)
+
+    def counted(fn, name_of):
+        def wrapper(*args, **kwargs):
+            calls[name_of(args, kwargs)] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    monkeypatch.setattr(fa, "flash_fwd_plain", counted(
+        fa.flash_fwd_plain, lambda a, kw: "flash_fwd_train" if (
+            kw.get("with_lse", a[9] if len(a) > 9 else False))
+        else "flash_fwd"))
+    monkeypatch.setattr(fa, "flash_bwd_dq_plain", counted(
+        fa.flash_bwd_dq_plain, lambda a, kw: "flash_bwd_dq"))
+    monkeypatch.setattr(fa, "flash_bwd_dkv_plain", counted(
+        fa.flash_bwd_dkv_plain, lambda a, kw: "flash_bwd_dkv"))
+    cfg = tt.TransformerConfig(n_layers=3, remat=remat)
+    model = tt.Transformer(cfg, device="cpu", n_microbatches=microbatches)
+    tokens = torch.zeros((2, 16), dtype=torch.long)
+    cross_entropy_loss(model(tokens), tokens).backward()
+    assert calls == cs.expected_launches(3, 1, remat=remat,
+                                         microbatches=microbatches)
+
+
+def _losses(remat, drop_last_layer=False, steps=8):
+    """A small fp32 decoder's losses over ``steps`` AdamW steps on one
+    batch; with ``drop_last_layer`` its last layer gets no gradient (what
+    a recompute cut off from the graph would give)."""
+    from horovod_tpu_torch.models import transformer as tt
+    from horovod_tpu_torch.training import cross_entropy_loss
+
+    cfg = tt.TransformerConfig(n_layers=2, remat=remat, vocab=256,
+                               d_model=64, n_heads=2, d_head=32, d_ff=128,
+                               max_seq=32, dtype=torch.float32)
+    model = tt.Transformer(cfg, device="cpu", seed=0)
+    opt = torch.optim.AdamW(model.parameters(), lr=3e-3)
+    tokens = torch.as_tensor(np.random.RandomState(0).randint(0, 256, (4, 32)))
+    labels = torch.roll(tokens, -1, 1)
+    losses = []
+    for _ in range(steps):
+        opt.zero_grad()
+        loss = cross_entropy_loss(model(tokens), labels)
+        loss.backward()
+        if drop_last_layer:
+            for p in model.layers[-1].parameters():
+                p.grad.zero_()
+        opt.step()
+        losses.append(loss.item())
+    return losses
+
+
+def test_loss_drift_holds_remat_to_the_plain_curve():
+    """chip_smoke's remat check: the remat run's losses stay within
+    ``loss_drift``'s tolerance of the plain run's, and a run whose last
+    layer got no gradient, equal at step 0, leaves it."""
+    cs = _chip_smoke()
+    plain = _losses(remat=False)
+    drift, tol = cs.loss_drift(_losses(remat=True), plain)
+    assert drift <= tol
+    broken = _losses(remat=True, drop_last_layer=True)
+    assert broken[0] == plain[0]
+    drift, tol = cs.loss_drift(broken, plain)
+    assert drift > 2 * tol

@@ -264,10 +264,6 @@ def test_unused_parameter_gets_a_zero_gradient(hvd_cpu):
 
 def test_later_slice_options_raise(hvd_cpu):
     model = _model()
-    with pytest.raises(NotImplementedError, match="backward_passes"):
-        hvd_cpu.DistributedOptimizer(torch.optim.SGD(model.parameters(),
-                                                     lr=0.1),
-                                     backward_passes_per_step=2)
     with pytest.raises(NotImplementedError, match="Adasum"):
         hvd_cpu.DistributedOptimizer(torch.optim.SGD(model.parameters(),
                                                      lr=0.1),

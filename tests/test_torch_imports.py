@@ -23,8 +23,9 @@ names = [m.name for m in pkgutil.walk_packages(horovod_tpu_torch.__path__,
 for name in names:
     importlib.import_module(name)
 for name in ("parallel", "parallel.mesh", "parallel.ring_attention",
-             "parallel.ulysses", "models.image_layers", "models.resnet",
-             "models.vgg", "models.inception", "image_bench"):
+             "parallel.ulysses", "parallel.moe", "parallel.pipeline",
+             "models.image_layers", "models.resnet", "models.vgg",
+             "models.inception", "image_bench"):
     assert "horovod_tpu_torch." + name in names, name
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib",
                                                            "horovod_tpu"))
@@ -41,7 +42,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                           timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 16, proc.stdout
+    assert n_modules >= 18, proc.stdout
 
 
 @pytest.fixture

@@ -166,21 +166,69 @@ def test_params_from_jax_round_trip_keeps_layouts():
     assert "pos" not in state
 
 
+@pytest.mark.parametrize("n_stages, tp", [(1, 2), (2, 1), (2, 2)])
+def test_params_from_jax_slices_and_join_shards_restores(n_stages, tp):
+    """Each rank's slice of an ``init_params(n_stages)`` tree (its stage's
+    layers, its tp share of the heads and hidden units) joins back into
+    the same tree; a tree of another stage count is refused."""
+    jcfg, tcfg = _configs("gqa-rope")
+    params = jax.device_get(jt.init_params(jcfg, jax.random.PRNGKey(5),
+                                           n_stages))
+    coords = [dict(stage=s, n_stages=n_stages, tp=(t, tp), dp=(0, 1))
+              for s in range(n_stages) for t in range(tp)]
+    shards = [(c, {k: v.numpy() for k, v in
+                   tt.params_from_jax(params, tcfg, **c).items()})
+              for c in coords]
+    assert shards[-1][1]["layers.0.wq"].shape == (64, 4 // tp, 16)
+    joined = tt.join_shards(shards, tcfg)
+    assert set(joined) == set(params)
+    for k, v in params.items():
+        np.testing.assert_array_equal(joined[k], np.asarray(v), err_msg=k)
+    with pytest.raises(ValueError, match="pipeline stages"):
+        tt.params_from_jax(params, tcfg, n_stages=n_stages + 1)
+
+
 @pytest.mark.parametrize("kwargs, match", [
     (dict(use_moe=True), "MoE"), (dict(remat=True), "remat")])
-def test_later_slice_configs_raise(kwargs, match):
-    cfg = tt.TransformerConfig(**kwargs)
-    with pytest.raises(NotImplementedError, match=match):
-        tt.Transformer(cfg, device="cpu")
+def test_later_slice_configs_raise(kwargs, match, monkeypatch):
+    """MoE and remat were refused until the slice that ported them; the
+    test keeps its name and now runs each configuration on one rank: loss
+    and every gradient against the JAX package's dense oracle (MoE top-2
+    with ample capacity, 4 experts; remat recomputing both layers)."""
+    monkeypatch.setenv("HVD_PALLAS_INTERPRET", "1")
+    if match == "MoE":
+        kwargs = dict(kwargs, n_experts=4, d_expert=32, moe_top_k=2,
+                      capacity_factor=8.0)
+    kw = dict(vocab=256, d_model=64, n_heads=4, d_head=16, d_ff=256,
+              n_layers=2, max_seq=T, **kwargs)
+    jcfg = jt.TransformerConfig(dtype=jnp.float32, **kw)
+    tcfg = tt.TransformerConfig(dtype=torch.float32, **kw)
+    params = jax.device_get(jt.init_params(jcfg, jax.random.PRNGKey(4), 1))
+    model = tt.Transformer(tcfg, device="cpu")
+    model.load_state_dict(tt.params_from_jax(params, tcfg))
+    tokens, labels = _data(3)
+    jloss, jgrads = jax.jit(jax.value_and_grad(
+        lambda p: jt.dense_reference_loss(jcfg, p, jnp.asarray(tokens),
+                                          jnp.asarray(labels))))(params)
+    tloss, tgrads = _torch_grads(model, tokens, labels)
+    assert tloss == pytest.approx(float(jloss), rel=1e-5)
+    _assert_grads(tgrads, jax.device_get(jgrads), tcfg.n_layers, match)
 
 
 def test_later_slice_inputs_raise():
-    """tp and pp still raise; sp and packed segment ids run (a size-1 run
-    here; tests/test_torch_ring_attention.py runs sp = 2 and 4)."""
-    for kwargs in (dict(tp=2), dict(pp=2)):
-        with pytest.raises(NotImplementedError, match="pipeline"):
-            tt.check_parallelism(**kwargs)
-    tt.check_parallelism(sp=2)
+    """tp and pp were refused until the slice that ported them; the test
+    keeps its name: both are accepted now, a model whose heads do not
+    split over tp still raises (the JAX package's message), and packed
+    segment ids run (a size-1 run here; tests/test_torch_ring_attention.py
+    runs sp = 2 and 4, tests/test_torch_model_parallel.py pp = 2)."""
+    for kwargs in (dict(tp=2), dict(pp=2), dict(tp=2, pp=2, sp=2)):
+        tt.check_parallelism(**kwargs)
+    with pytest.raises(ValueError, match="tp must be >= 1"):
+        tt.check_parallelism(tp=0)
+    with pytest.raises(ValueError, match="n_heads.*tp"):
+        tt.validate_mesh(tt.TransformerConfig(n_heads=6), tp=4)
+    with pytest.raises(ValueError, match="kv_heads.*tp"):
+        tt.validate_mesh(tt.TransformerConfig(n_heads=8, n_kv_heads=2), tp=4)
     model = tt.Transformer(tt.TransformerConfig(n_layers=1), device="cpu")
     tokens = torch.zeros((1, 8), dtype=torch.long)
     seg = torch.tensor([[0, 0, 0, 1, 1, 1, 1, 1]])
