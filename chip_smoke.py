@@ -4,7 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --time-tree DIR   # kernel times of one checkout
 
-Phases, in order (a, b, c, e, f, g, d); any failure exits nonzero:
+Phases, in order (a, b, c, e, f, g, h, d); any failure exits nonzero:
 
 (a) device and build: the card, its power limit, the torch and CUDA
     versions; every kernel of ``horovod_tpu_torch/csrc`` built with nvcc
@@ -87,6 +87,26 @@ Phases, in order (a, b, c, e, f, g, d); any failure exits nonzero:
     fell (same weights and batch). (b) holds the bf16 kernels at these
     runs' shapes (6 heads a rank, 4 rows a call).
     Step times are correctness runs (two ranks share the card).
+(h) ZeRO, checkpoints and Adasum: two ranks on cuda:0 in one NCCL world
+    as in (e) (``--zero-worker``), deterministic kernels (cuDNN's and
+    PyTorch's), TF32 off. ResNet-50 at 224 px, batch 32 a rank, bf16, SGD
+    0.01 with momentum 0.9, at ZeRO stages 1, 2 and 3 (``zero.py``), 2 + 3
+    steps each: the loss and the sha256 of the gathered parameters and
+    the batch-norm buffers equal on both ranks after every step, stage 1
+    equal to stage 2 bitwise, stage 3's losses within ``loss_drift`` of
+    stage 2's, each rank's state bytes equal to the analytic model (params
+    + masters + momentum + buffers; stage 3 / stage 1 = 0.5005 at d=2),
+    with step ms and peak memory. The stage-3 state saved
+    (``checkpoint.py``), restored into a fresh template and stepped once
+    beside the original: bitwise equal. The flagship decoder with
+    ``transformer_bench --zero`` (dp=2, batch 8 global, 2 + 3 steps): the
+    attention kernels launched as the layers and steps say, losses equal
+    on both ranks and within ``loss_drift`` of (c)'s size-1 run, the
+    optimizer state per rank about half the unsharded run's; its state
+    saved, restored and stepped: bitwise equal. Adasum: a 64x32 fp32
+    model's delta step (``DistributedOptimizer(op=Adasum)``) over NCCL
+    against ``adasum_reference`` on the CPU (rel 1e-5), then ResNet-50 with
+    ``op=Adasum`` for 2 + 3 steps, equal on both ranks after every step.
 (d) the kernel table as one JSON line, the card's name and power limit,
     and last the result line ``{"ok": true, "device": {...}}``.
 """
@@ -1680,6 +1700,347 @@ def mp_phase(gpu, slice_losses):
     return res[0]["runs"]
 
 
+# ---- (h) ZeRO, checkpoints and Adasum -----------------------------------------
+
+ZERO = 2              # ranks of phase (h), both on cuda:0
+ZERO_TIMEOUT_S = 480
+
+
+def tensor_digest(tensors):
+    """sha256 of the tensors' values (as fp32, in order)."""
+    import hashlib
+
+    import torch
+
+    flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
+    return hashlib.sha256(flat.cpu().numpy().tobytes()).hexdigest()
+
+
+def zero_image_run(stage, x, y, seed=0, warmup=2, iters=3):
+    """ResNet-50 (bf16, 1000 classes) in a ZeRO state of ``stage`` over
+    the world, SGD 0.01 with momentum 0.9: ``warmup + iters`` steps, each
+    followed by the loss and the digests of the gathered parameters and
+    the batch-norm buffers. Returns (state, step, row)."""
+    import functools
+
+    import torch
+
+    from horovod_tpu_torch import zero
+    from horovod_tpu_torch.models import resnet
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = resnet.ResNet50(num_classes=1000, dtype=torch.bfloat16,
+                            device="cuda:0", seed=seed)
+    state = zero.init_zero_train_state(
+        model, functools.partial(torch.optim.SGD, lr=0.01, momentum=0.9),
+        zero_stage=stage, bucket_cap_bytes=None, compression="none")
+    step = zero.make_zero_train_step(prefetch=1)
+    trace, times = [], []
+    for i in range(warmup + iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(state, x, y)
+        torch.cuda.synchronize()
+        if i >= warmup:
+            times.append(time.perf_counter() - t0)
+        trace.append([loss.item(),
+                      tensor_digest(zero.gather_params(state).values()),
+                      tensor_digest(state.model.buffers())])
+    return state, step, {
+        "stage": stage, "trace": trace,
+        "step_ms": 1e3 * sum(times) / len(times) if times else None,
+        "peak_bytes": torch.cuda.max_memory_allocated(),
+        "bytes": zero.state_bytes(state), "gathers": step.gathers,
+        "n_params": sum(p.numel() for p in state.model.parameters()),
+        "n_buffers": sum(b.numel() for b in state.model.buffers())}
+
+
+def shared_tmp(name):
+    """A checkpoint directory both ranks of (h) name alike (by the
+    world's rendezvous port)."""
+    return os.path.join(tempfile.gettempdir(), f"chip_smoke_ckpt_{name}_"
+                        f"{os.environ['HOROVOD_CONTROLLER_PORT']}")
+
+
+def zero_checkpoint_check(state, step, x, y, make_template):
+    """Save ``state``, restore it into ``make_template()`` and step both
+    once: (restored bitwise, next losses and digests equal)."""
+    import shutil
+
+    import torch
+
+    from horovod_tpu_torch.checkpoint import CheckpointManager
+
+    tmp = shared_tmp("resnet")
+    try:
+        mgr = CheckpointManager(tmp, max_to_keep=1)
+        mgr.save(5, state)
+        template, tstep = make_template()
+        mgr.restore(template)
+        mgr.close()
+        torch.distributed.barrier()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    restored = torch.equal(template.pshard, state.pshard)
+    state, a = step(state, x, y)
+    template, b = tstep(template, x, y)
+    from horovod_tpu_torch import zero
+
+    same = (a.item() == b.item() and tensor_digest(
+        zero.gather_params(state).values()) == tensor_digest(
+        zero.gather_params(template).values()) and tensor_digest(
+        state.model.buffers()) == tensor_digest(template.model.buffers()))
+    return {"restored_equal": restored, "next_equal": same,
+            "next_loss": a.item()}
+
+
+def zero_worker(out_path):
+    """One rank of (h) (run as ``chip_smoke.py --zero-worker``): ResNet-50
+    at ZeRO stages 1, 2 and 3 with a checkpoint of the stage-3 state, the
+    transformer's ``--zero`` with a checkpoint, and Adasum."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(REPO))
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import training, transformer_bench
+    from horovod_tpu_torch.checkpoint import CheckpointManager
+    from horovod_tpu_torch.models import resnet
+    from horovod_tpu_torch.models.transformer import Transformer
+    from horovod_tpu_torch.ops import adasum
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # Stage 1 against stage 2 and a restored state against the original
+    # are bitwise claims across runs: deterministic kernels throughout.
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    rank = int(os.environ["HOROVOD_RANK"])
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", rank=rank, world_size=ZERO, init_method=(
+            f"tcp://127.0.0.1:{os.environ['HOROVOD_CONTROLLER_PORT']}"))
+    hvd.init(device="cuda:0")
+    out = {"rank": rank}
+    b = 32
+    images = np.random.RandomState(0).rand(b * ZERO, 224, 224, 3).astype(
+        np.float32)
+    labels = np.random.RandomState(1).randint(0, 1000, b * ZERO)
+    x = torch.as_tensor(images[rank * b:(rank + 1) * b], device="cuda:0")
+    y = torch.as_tensor(labels[rank * b:(rank + 1) * b], device="cuda:0")
+    runs = []
+    for stage in (1, 2, 3):
+        state, step, row = zero_image_run(stage, x, y)
+        runs.append(row)
+        if stage == 3:
+            def template():
+                t, s, _ = zero_image_run(3, x, y, seed=1, warmup=0, iters=0)
+                return t, s
+            out["ckpt_resnet"] = zero_checkpoint_check(state, step, x, y,
+                                                       template)
+        del state, step
+    out["zero_runs"] = runs
+    hvd.shutdown()
+
+    # The transformer with its optimizer state over dp, then without.
+    torch.cuda.empty_cache()
+    fa.reset_launches()
+    args = ["--batch-size", "8", "--num-warmup", "2", "--num-iters", "3",
+            "--device", "cuda:0"]
+    bench = transformer_bench.run(transformer_bench.parse_args(
+        ["--zero"] + args))
+    out["tf_zero"] = {"losses": bench.losses, "launches": dict(fa.LAUNCHES),
+                      "result": bench.result,
+                      "peak_gib": bench.peak_mem_bytes / 2**30,
+                      "layers": bench.result["n_layers"]}
+    tokens = bench.tokens
+    labels_tf = torch.roll(tokens, -1, 1)
+    cfg = bench.model.cfg
+    tmp = shared_tmp("transformer")
+    mgr = CheckpointManager(tmp)
+    mgr.save(5, {"model": bench.model, "opt": bench.optimizer})
+    model = Transformer(cfg, device="cuda:0", seed=7)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=1e-4),
+        named_parameters=model.named_parameters(), zero_axis="dp")
+    mgr.restore({"model": model, "opt": opt})
+    restored = all(torch.equal(a, b_) for a, b_ in zip(
+        bench.model.state_dict().values(), model.state_dict().values()))
+    a = bench.step().item()
+    b2 = training.make_train_step(model, opt)(tokens, labels_tf).item()
+    out["ckpt_tf"] = {
+        "restored_equal": restored,
+        "next_equal": a == b2 and tensor_digest(
+            bench.model.parameters()) == tensor_digest(model.parameters()),
+        "next_loss": a}
+    dist.barrier()
+    shutil.rmtree(tmp, ignore_errors=True)
+    del bench, model, opt, mgr
+    hvd.shutdown()
+    torch.cuda.empty_cache()
+    plain = transformer_bench.run(transformer_bench.parse_args(
+        ["--batch-size", "8", "--num-warmup", "1", "--num-iters", "1",
+         "--device", "cuda:0"]))
+    out["tf_plain_opt_bytes"] = plain.result["opt_state_bytes"]
+    del plain
+    hvd.shutdown()
+    torch.cuda.empty_cache()
+
+    # Adasum: a small fp32 model's delta step against the NumPy oracle.
+    hvd.init(device="cuda:0")
+    g = torch.Generator().manual_seed(5)
+    w0 = torch.randn(32, 64, generator=g) * 0.1
+    xs = torch.randn(ZERO, 16, 64, generator=g)
+    ys = torch.randn(ZERO, 16, 32, generator=g)
+    model = torch.nn.Linear(64, 32, bias=False).to("cuda:0")
+    with torch.no_grad():
+        model.weight.copy_(w0)
+    opt = hvd.DistributedOptimizer(torch.optim.SGD(model.parameters(),
+                                                   lr=0.1),
+                                   op=hvd.Adasum, compression="none")
+    opt.zero_grad()
+    ((model(xs[rank].to("cuda:0")) - ys[rank].to("cuda:0")) ** 2
+     ).mean().backward()
+    opt.step()
+    deltas = []
+    for r in range(ZERO):   # each rank's local SGD delta, on the CPU
+        w = w0.clone().requires_grad_()
+        ((xs[r] @ w.T - ys[r]) ** 2).mean().backward()
+        deltas.append((-0.1 * w.grad).numpy())
+    want = w0.numpy() + adasum.adasum_reference(deltas)
+    got = model.weight.detach().cpu().numpy()
+    out["adasum_small"] = {
+        "rel": float(np.linalg.norm(got - want) / np.linalg.norm(want)),
+        "digest": tensor_digest([model.weight])}
+    del model, opt
+    # ResNet-50 with op=Adasum, 2 + 3 steps.
+    model = resnet.ResNet50(num_classes=1000, dtype=torch.bfloat16,
+                            device="cuda:0", seed=0)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9),
+        op=hvd.Adasum, compression="none")
+    step = training.make_train_step(model, opt)
+    trace, times = [], []
+    for i in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(x, y)
+        torch.cuda.synchronize()
+        if i >= 2:
+            times.append(time.perf_counter() - t0)
+        trace.append([loss.item(), tensor_digest(model.parameters()),
+                      tensor_digest(model.buffers())])
+    out["adasum_resnet"] = {"trace": trace,
+                            "step_ms": 1e3 * sum(times) / len(times)}
+    hvd.shutdown()
+    dist.destroy_process_group()
+    Path(out_path).write_text(json.dumps(out))
+    return 0
+
+
+def zero_phase(gpu, slice_losses):
+    """(h): two ranks on cuda:0 in one NCCL world. ``slice_losses``: (c)'s
+    size-1 losses of the flagship decoder, which the ``--zero`` run at
+    dp=2 on the same global batch must meet. Returns the ``--zero`` run's
+    launch counts."""
+    res = run_workers("--zero-worker", ZERO, ZERO_TIMEOUT_S)
+    r0, r1 = res
+    for rr in res:
+        for run in rr["zero_runs"]:
+            losses = [t[0] for t in run["trace"]]
+            log(f"    rank {rr['rank']} ResNet-50 ZeRO stage {run['stage']}: "
+                f"losses {[round(v, 4) for v in losses]}, step "
+                f"{run['step_ms']:.2f} ms, peak {run['peak_bytes']} bytes, "
+                f"state bytes {run['bytes']}, gathers/step {run['gathers']} "
+                f"(two ranks sharing one card: a correctness run) on {gpu}")
+            if not all(math.isfinite(v) for v in losses):
+                raise AssertionError(f"ZeRO stage {run['stage']}: non-finite "
+                                     f"loss")
+    for i, run in enumerate(r0["zero_runs"]):
+        if run["trace"] != r1["zero_runs"][i]["trace"]:
+            raise AssertionError(f"ZeRO stage {run['stage']}: the ranks' "
+                                 f"losses, parameters or buffers differ")
+    s1, s2, s3 = r0["zero_runs"]
+    if s1["trace"] != s2["trace"]:
+        raise AssertionError("ZeRO stage 1 and stage 2 differ: "
+                             f"{s1['trace']} vs {s2['trace']}")
+    log(f"    stages 1 and 2: the same losses, parameters and buffers after "
+        f"each of {len(s1['trace'])} steps (sha256), on both ranks")
+    drift, tol = loss_drift([t[0] for t in s3["trace"]],
+                            [t[0] for t in s2["trace"]])
+    log(f"    stage 3 against stage 2: largest step difference {drift:.3e} "
+        f"(tolerance {tol:.3e})")
+    if not drift <= tol:
+        raise AssertionError("ZeRO stage 3 leaves stage 2's losses")
+    P, B = s1["n_params"], s1["n_buffers"]
+    shard = (P + ZERO - 1) // ZERO * 4
+    want = {1: 4 * P + 2 * shard + 4 * B, 3: 2 * shard + 4 * B}
+    got = {run["stage"]: sum(run["bytes"].values())
+           for run in (s1, s3)}
+    ratio, want_ratio = got[3] / got[1], want[3] / want[1]
+    log(f"    state bytes a rank: stage 1 {got[1]}, stage 2 "
+        f"{sum(s2['bytes'].values())}, stage 3 {got[3]}; stage 3 / stage 1 "
+        f"{ratio:.5f} (analytic {want_ratio:.5f}, 2/(d+2) = "
+        f"{2 / (ZERO + 2):.3f})")
+    if got != want:
+        raise AssertionError(f"state bytes {got}, analytic {want}")
+    if s3["bytes"]["params"] != 0:
+        raise AssertionError("stage 3 holds parameter bytes")
+    for key in ("ckpt_resnet", "ckpt_tf"):
+        for rr in res:
+            c = rr[key]
+            if not (c["restored_equal"] and c["next_equal"]):
+                raise AssertionError(f"{key} on rank {rr['rank']}: {c}")
+        log(f"    {key}: restored bitwise and the next step equal to the "
+            f"uninterrupted one on both ranks (loss {r0[key]['next_loss']})")
+    for rr in res:
+        tf = rr["tf_zero"]
+        want_l = expected_launches(tf["layers"], 5)
+        got_l = {k: tf["launches"][k] for k in want_l}
+        log(f"    rank {rr['rank']} transformer --zero at dp={ZERO}: losses "
+            f"{[round(v, 4) for v in tf['losses']]}, step "
+            f"{tf['result']['step_ms']} ms, peak {tf['peak_gib']:.2f} GiB, "
+            f"optimizer state {tf['result']['opt_state_bytes']} bytes "
+            f"against {rr['tf_plain_opt_bytes']} unsharded, launches "
+            f"{tf['launches']} on {gpu}")
+        if got_l != want_l:
+            raise AssertionError(f"--zero launches {got_l}, expected "
+                                 f"{want_l}")
+        half = tf["result"]["opt_state_bytes"] / rr["tf_plain_opt_bytes"]
+        if not 0.45 <= half <= 0.55:
+            raise AssertionError(f"--zero optimizer state {half:.3f} of "
+                                 f"the unsharded one")
+    if r0["tf_zero"]["losses"] != r1["tf_zero"]["losses"]:
+        raise AssertionError("--zero: the ranks' losses differ")
+    drift, tol = loss_drift(r0["tf_zero"]["losses"], slice_losses)
+    log(f"    --zero against the size-1 run of (c): largest step difference "
+        f"{drift:.3e} (tolerance {tol:.3e})")
+    if not drift <= tol:
+        raise AssertionError("--zero leaves the size-1 run's losses")
+    for rr in res:
+        log(f"    rank {rr['rank']} Adasum delta step of a 64x32 fp32 "
+            f"model: normwise rel {rr['adasum_small']['rel']:.2e} against "
+            f"adasum_reference on the CPU (tolerance 1e-5)")
+        if not rr["adasum_small"]["rel"] <= 1e-5:
+            raise AssertionError("Adasum disagrees with adasum_reference")
+        ar = rr["adasum_resnet"]
+        log(f"    rank {rr['rank']} ResNet-50 op=Adasum: losses "
+            f"{[round(t[0], 4) for t in ar['trace']]}, step "
+            f"{ar['step_ms']:.2f} ms on {gpu}")
+        if not all(math.isfinite(t[0]) for t in ar["trace"]):
+            raise AssertionError("Adasum ResNet-50: non-finite loss")
+    if r0["adasum_small"]["digest"] != r1["adasum_small"]["digest"] or \
+            r0["adasum_resnet"]["trace"] != r1["adasum_resnet"]["trace"]:
+        raise AssertionError("Adasum: the ranks differ")
+    log("    Adasum: both ranks hold the same parameters and buffers after "
+        "every step")
+    return r0["tf_zero"]["launches"]
+
+
 AB_MODES = ("flash_fwd", "flash_fwd_train", "flash_bwd_dq", "flash_bwd_dkv")
 AB_RING_MODES = ("flash_fwd_state", "flash_bwd_dq_f32", "flash_bwd_dkv_f32")
 
@@ -1892,6 +2253,12 @@ def main():
     log(f"(g) tp, pp and ep: {MP} ranks on cuda:0, one NCCL world {since()}")
     mp_phase(gpu, plain_losses)
 
+    # (h) ZeRO, checkpoints and Adasum
+    log(f"(h) ZeRO, checkpoints and Adasum: {ZERO} ranks on cuda:0, one "
+        f"NCCL world {since()}")
+    zero_launches = zero_phase(gpu, plain_losses)
+    log(f"    transformer --zero launches {zero_launches}")
+
     # (d) result
     log(f"(d) result {since()}")
     for name, row in table.items():
@@ -1911,6 +2278,8 @@ if __name__ == "__main__":
         sys.exit(dp_worker(sys.argv[2]))
     if sys.argv[1:2] == ["--mp-worker"]:
         sys.exit(mp_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--zero-worker"]:
+        sys.exit(zero_worker(sys.argv[2]))
     if sys.argv[1:2] == ["--time-tree"]:
         sys.exit(time_tree(sys.argv[2]))
     sys.exit(main())

@@ -21,8 +21,14 @@ HOROVOD_CONTROLLER_ADDR = "HOROVOD_CONTROLLER_ADDR"
 HOROVOD_CONTROLLER_PORT = "HOROVOD_CONTROLLER_PORT"
 HOROVOD_FUSION_THRESHOLD = "HOROVOD_FUSION_THRESHOLD"
 HOROVOD_COMPRESSION = "HOROVOD_COMPRESSION"
+# ZeRO partitioning (zero.py): which tensors are partitioned 1/d across
+# the ranks, and how far ahead the stage-3 parameter gathers may run.
+HOROVOD_ZERO_STAGE = "HOROVOD_ZERO_STAGE"
+HOROVOD_ZERO_PREFETCH = "HOROVOD_ZERO_PREFETCH"
 
 DEFAULT_FUSION_THRESHOLD_BYTES = 64 * 1024 * 1024
+DEFAULT_ZERO_STAGE = 2
+DEFAULT_ZERO_PREFETCH = 1
 
 # On-wire gradient compression modes (common/compression.py).
 COMPRESSION_CHOICES = ("none", "fp16", "bf16", "ef16")
@@ -66,6 +72,23 @@ def parse_compression_env() -> str:
     v, _ = _get_choice_explicit(HOROVOD_COMPRESSION, COMPRESSION_CHOICES,
                                 "none")
     return v
+
+
+def zero_stage() -> int:
+    """ZeRO stage for states built with ``zero_stage="auto"``: 1 shards
+    the optimizer state and fp32 masters, 2 the gradients too (each
+    bucket reduce-scattered), 3 the parameters too (kept only as the
+    fp32 master shard, gathered just in time). Clamped to [1, 3]."""
+    return max(1, min(3, _get_int(HOROVOD_ZERO_STAGE, DEFAULT_ZERO_STAGE)))
+
+
+def zero_prefetch_env():
+    """(depth, explicit) of the stage-3 gather prefetch: how many bucket
+    gathers beyond the one being consumed may be in flight. Clamped to
+    [0, 8]."""
+    v, explicit = _get_int_explicit(HOROVOD_ZERO_PREFETCH,
+                                    DEFAULT_ZERO_PREFETCH)
+    return max(0, min(8, v)), explicit
 
 
 def rank() -> int:

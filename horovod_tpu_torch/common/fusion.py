@@ -25,6 +25,7 @@ __all__ = [
     "leaf_nbytes",
     "leaf_wire_nbytes",
     "resolve_bucket_cap",
+    "resolve_prefetch_depth",
     "describe_plan",
 ]
 
@@ -168,6 +169,22 @@ def resolve_bucket_cap(bucket_cap_bytes) -> Optional[int]:
         return v if explicit and v > 0 else None
     cap = int(bucket_cap_bytes)
     return cap if cap > 0 else None
+
+
+def resolve_prefetch_depth(depth="auto") -> int:
+    """The stage-3 gather prefetch depth as an int in [0, 8]: ``"auto"``
+    follows ``HOROVOD_ZERO_PREFETCH`` (default 1: one bucket gathered
+    ahead), an int is taken as given. Depth changes when gathers are
+    issued, never the numbers."""
+    if not isinstance(depth, str):
+        return max(0, min(8, int(depth)))
+    if depth != "auto":
+        raise ValueError(
+            f"prefetch depth must be an int or 'auto'; got {depth!r}")
+    from . import config as _config
+
+    v, _ = _config.zero_prefetch_env()
+    return v
 
 
 def describe_plan(buckets: Sequence[Bucket]) -> dict:

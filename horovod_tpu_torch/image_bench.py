@@ -18,6 +18,9 @@ the loss. On a GPU cuDNN autotunes its convolutions
     python -m horovod_tpu_torch.image_bench --model vgg16
     python -m horovod_tpu_torch.image_bench --device cpu --model resnet50 \\
         --image-size 32 --batch-size 2 --num-warmup 1 --num-iters 2
+    # ZeRO stages 1-3, each in a world of 4 ranks on the CPU:
+    python -m horovod_tpu_torch.image_bench --workload zero --device cpu \\
+        --zero-devices 4 --num-warmup 2 --num-iters 10
 
 MFU = images/s x 3 x forward FLOPs at the canonical size x (size /
 canonical)^2 over the card's dense bf16 peak, on an H100 only
@@ -65,8 +68,17 @@ MODELS = {
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser()
+    p.add_argument("--workload", default="resnet", choices=["resnet", "zero"],
+                   help="resnet: the image models' throughput; zero: the "
+                        "ZeRO stage-1/2/3 memory and throughput A/B")
+    p.add_argument("--zero-stage", type=int, default=None,
+                   choices=[1, 2, 3],
+                   help="with --workload zero: bench only this stage")
+    p.add_argument("--zero-devices", type=int, default=4,
+                   help="with --workload zero: ranks of each stage's world")
     p.add_argument("--model", default="resnet50", choices=sorted(MODELS))
-    p.add_argument("--batch-size", type=int, default=32, help="per rank")
+    p.add_argument("--batch-size", type=int, default=32,
+                   help="per rank (with --workload zero: global)")
     p.add_argument("--num-warmup", type=int, default=5)
     p.add_argument("--num-iters", type=int, default=30)
     p.add_argument("--image-size", type=int, default=None,
@@ -231,11 +243,156 @@ def run(args) -> BenchRun:
                     lambda: step(images, labels))
 
 
+# ---- ZeRO stage memory and throughput (--workload zero) --------------------
+#
+# The port of bench.py's zero workload: per stage, a world of
+# --zero-devices ranks (one process each, the launcher environment of one
+# host) trains the same MLP (hidden 1024, 4 layers, 16 classes, fp32 SGD
+# 1e-3: no optimizer moments, so stage 3 / stage 1 state bytes come to
+# 1/(d+1)) on a global batch of --batch-size rows. Each row reports rank
+# 0's state bytes read from its tensors, its peak allocated bytes (on a
+# GPU; null on the CPU, where the allocator keeps no count), the
+# analytic full-gradient transient and ring wire bytes of bench.py, and
+# the steps/s of the timed steps.
+
+ZERO_HIDDEN, ZERO_LAYERS, ZERO_CLASSES = 1024, 4, 16
+
+
+class ZeroMLP(torch.nn.Module):
+    """bench.py's zero-workload MLP: ``layers`` x (Dense(hidden), relu),
+    then Dense(16)."""
+
+    def __init__(self, hidden=ZERO_HIDDEN, layers=ZERO_LAYERS, device=None,
+                 seed=0):
+        super().__init__()
+        from .models import image_layers
+
+        self.layers = torch.nn.ModuleList(
+            image_layers.Dense(hidden, hidden, device=device)
+            for _ in range(layers))
+        self.head = image_layers.Dense(hidden, ZERO_CLASSES, device=device)
+        image_layers.reset_parameters(
+            self, torch.Generator(device=device).manual_seed(seed))
+
+    def forward(self, x):
+        for layer in self.layers:
+            x = torch.relu(layer(x))
+        return self.head(x)
+
+
+def zero_worker(args) -> dict:
+    """One rank of one stage's world; returns the stage's row."""
+    import functools
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import zero
+
+    hvd.init(device=args.device)
+    device = hvd.device()
+    d, rank = hvd.size(), hvd.rank()
+    model = ZeroMLP(device=device)
+    state = zero.init_zero_train_state(
+        model, functools.partial(torch.optim.SGD, lr=1e-3),
+        zero_stage=args.zero_stage, compression="none")
+    step = zero.make_zero_train_step()
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(args.batch_size, ZERO_HIDDEN, generator=g)
+    y = torch.randint(0, ZERO_CLASSES, (args.batch_size,), generator=g)
+    b = args.batch_size // d
+    x, y = (t[rank * b:(rank + 1) * b].to(device) for t in (x, y))
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    for _ in range(max(1, args.num_warmup)):
+        state, loss = step(state, x, y)
+    _sync(device)
+    t0 = time.perf_counter()
+    for _ in range(args.num_iters):
+        state, loss = step(state, x, y)
+    _sync(device)
+    dt = time.perf_counter() - t0
+    padded = state.pshard.numel() * d
+    ring = (d - 1) / d
+    payload = padded * 4   # fp32 wire, uncompressed
+    reduce_leg = payload * ring * (2 if args.zero_stage == 1 else 1)
+    gather_leg = payload * ring * (2 if args.zero_stage == 3 else 1)
+    return {
+        "stage": args.zero_stage,
+        "live_bytes_per_device_peak": (
+            torch.cuda.max_memory_allocated(device)
+            if device.type == "cuda" else None),
+        "state_bytes_per_device": sum(zero.state_bytes(state).values()),
+        "transient_full_grad_bytes": (payload if args.zero_stage == 1
+                                      else payload // d),
+        "wire_bytes_per_step_per_device": int(reduce_leg + gather_leg),
+        "steps_per_sec": round(args.num_iters / dt, 3),
+        "params_padded_elems": padded,
+        "loss": round(float(loss), 6),
+    }
+
+
+def zero_bench(args) -> dict:
+    """Every stage (or ``--zero-stage``) in its own world of
+    ``--zero-devices`` ranks; the result line of bench.py's zero
+    workload."""
+    import subprocess
+    import socket
+
+    stages = [args.zero_stage] if args.zero_stage else [1, 2, 3]
+    d = args.zero_devices
+    rows = []
+    for s in stages:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        cmd = [sys.executable, "-m", "horovod_tpu_torch.image_bench",
+               "--zero-worker", "--zero-stage", str(s),
+               "--batch-size", str(args.batch_size),
+               "--num-warmup", str(args.num_warmup),
+               "--num-iters", str(args.num_iters)]
+        if args.device is not None:
+            cmd += ["--device", args.device]
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True,
+                                  env=dict(
+            os.environ, HOROVOD_RANK=str(r), HOROVOD_SIZE=str(d),
+            HOROVOD_LOCAL_RANK=str(r), HOROVOD_LOCAL_SIZE=str(d),
+            HOROVOD_CONTROLLER_ADDR="127.0.0.1",
+            HOROVOD_CONTROLLER_PORT=str(port))) for r in range(d)]
+        outs = [p.communicate(timeout=600)[0] for p in procs]
+        if any(p.returncode for p in procs):
+            raise RuntimeError(f"zero bench stage {s}: ranks exited "
+                               f"{[p.returncode for p in procs]}")
+        rows.append(json.loads(outs[0].strip().splitlines()[-1]))
+    by = {row["stage"]: row for row in rows}
+    ratio = None
+    if 1 in by and 3 in by and by[1]["state_bytes_per_device"]:
+        ratio = round(by[3]["state_bytes_per_device"]
+                      / by[1]["state_bytes_per_device"], 4)
+    return {
+        "metric": "zero_stage3_vs_stage1_state_bytes",
+        "value": ratio,
+        "unit": "per-device live param+grad+state bytes, stage3/stage1",
+        "expected_ratio": round(1.0 / (d + 1), 4),
+        "world": {"devices": d, "batch_size": args.batch_size,
+                  "warmup": args.num_warmup, "iters": args.num_iters},
+        "stages": rows,
+    }
+
+
 def main(argv=None):
     import horovod_tpu_torch as hvd
 
+    argv = list(sys.argv[1:] if argv is None else argv)
+    worker = "--zero-worker" in argv
+    if worker:
+        argv.remove("--zero-worker")
+    args = parse_args(argv)
     try:
-        print(json.dumps(run(parse_args(argv)).result))
+        if worker:
+            print(json.dumps(zero_worker(args)))
+        elif args.workload == "zero":
+            print(json.dumps(zero_bench(args)))
+        else:
+            print(json.dumps(run(args).result))
     finally:
         hvd.shutdown()
     return 0

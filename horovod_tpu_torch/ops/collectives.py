@@ -28,6 +28,11 @@ play in the JAX package: ``ring_exchange`` and ``ring_shift`` (the
 pipeline's hop, whose backward is the reverse hop), ``all_to_all`` (any
 split and concat dims), ``allgather_along``, ``mean_over`` and the
 Megatron pair ``copy_to_tp`` / ``reduce_from_tp``.
+
+The ZeRO step (``zero.py``) has its two legs here: ``zero_reducescatter``
+(a padded fp32 bucket's gradient, each rank keeping its 1/d of the sum)
+and ``zero_allgather`` (a 1/d master segment back into the full bucket,
+launched asynchronously so that gathers run ahead of the compute).
 """
 
 from __future__ import annotations
@@ -107,11 +112,48 @@ def _from_acc(out, dtype, op, n, postscale_factor, compressed):
 
 
 def _check_op(op):
+    """Ops an elementwise reduction takes (Adasum is not elementwise: only
+    the all-reduces route it, to ``ops/adasum.py``)."""
     if op == ReduceOp.ADASUM:
-        raise NotImplementedError("Adasum comes with a later slice of the "
-                                  "port")
+        raise ValueError("Adasum is not elementwise: use allreduce, "
+                         "grouped_allreduce or "
+                         "grouped_hierarchical_allreduce")
     if op not in _DIST_OP:
         raise ValueError(f"unknown reduce op {op}")
+
+
+def _apply_scale(tensor, factor):
+    """Dtype-preserving scale for the per-tensor (Adasum) paths: fp32
+    math for 16-bit tensors, rounded back once."""
+    if factor == 1.0:
+        return tensor
+    if tensor.dtype in _LOW_PRECISION:
+        return _scale_f32(tensor, factor).to(tensor.dtype)
+    return _scale(tensor, factor)
+
+
+def _grouped_per_tensor(tensors, group_fn, bucket_cap_bytes):
+    """Per-tensor (non-elementwise) group reductions (Adasum) over the
+    plan's buckets: ``group_fn`` on each bucket's tensors as a list; with
+    no cap, one call over the whole list."""
+    cap = resolve_bucket_cap(bucket_cap_bytes)
+    if not tensors:
+        return []
+    if not cap:
+        return group_fn(list(tensors))
+    out = [None] * len(tensors)
+    for bucket in plan_buckets_for(tensors, cap):
+        idxs = list(bucket.indices)
+        for i, r in zip(idxs, group_fn([tensors[i] for i in idxs])):
+            out[i] = r
+    return out
+
+
+def _adasum_grouped(tensors, group_fn, prescale_factor, postscale_factor,
+                    bucket_cap_bytes):
+    pre = [_apply_scale(t, prescale_factor) for t in tensors]
+    red = _grouped_per_tensor(pre, group_fn, bucket_cap_bytes)
+    return [_apply_scale(t, postscale_factor) for t in red]
 
 
 def _wire(tensor, compression):
@@ -143,9 +185,16 @@ def allreduce_async(tensor, op: int = ReduceOp.AVERAGE,
                     postscale_factor: float = 1.0,
                     compression=None, axis=None) -> PendingReduce:
     """Launch an all-reduce of ``tensor`` over ``axis`` (an ``AxisGroup``;
-    default the world); the input is left unchanged."""
-    _check_op(op)
+    default the world); the input is left unchanged. Adasum runs
+    ``ops/adasum.adasum_allreduce`` to completion (the handle is done);
+    as in the JAX package it takes no scale factors and no compression:
+    its coefficients are per tensor, in fp32."""
     axis = axis or _world()
+    if op == ReduceOp.ADASUM:
+        from .adasum import adasum_allreduce
+
+        return _Done(adasum_allreduce(tensor, axis))
+    _check_op(op)
     wire = _wire(tensor, compression)
     acc = _to_acc(tensor, prescale_factor, wire)
     if acc is tensor:
@@ -212,7 +261,18 @@ def grouped_allreduce(tensors: Sequence[torch.Tensor],
     (``common/fusion.plan_buckets``). Every bucket is launched before the
     first is waited on. ``compression`` makes each bucket reduce in the
     compressed wire dtype and the plan budget that width.
+
+    Adasum (``ops/adasum.grouped_adasum_allreduce``) runs on each
+    bucket's tensors as a list, every tensor with its own coefficients;
+    the scale factors apply per tensor before and after, compression not
+    at all.
     """
+    if op == ReduceOp.ADASUM:
+        from .adasum import grouped_adasum_allreduce
+
+        return _adasum_grouped(
+            tensors, lambda chunk: grouped_adasum_allreduce(chunk, axis),
+            prescale_factor, postscale_factor, bucket_cap_bytes)
     return _grouped(
         tensors, lambda flat, comp: allreduce_async(
             flat, op, prescale_factor, postscale_factor, comp, axis),
@@ -267,7 +327,15 @@ def grouped_hierarchical_allreduce(tensors: Sequence[torch.Tensor],
                                    ) -> List[torch.Tensor]:
     """``hierarchical_allreduce`` of a list of tensors, fused into the
     buckets ``grouped_allreduce`` plans; each bucket runs all three legs
-    before the next starts."""
+    before the next starts. Adasum: a plain sum within the local group,
+    Adasum across the cross group, per tensor
+    (``ops/adasum.grouped_hierarchical_adasum_allreduce``)."""
+    if op == ReduceOp.ADASUM:
+        from .adasum import grouped_hierarchical_adasum_allreduce
+
+        return _adasum_grouped(tensors, grouped_hierarchical_adasum_allreduce,
+                               prescale_factor, postscale_factor,
+                               bucket_cap_bytes)
     return _grouped(
         tensors, lambda flat, comp: _Done(hierarchical_allreduce(
             flat, op, prescale_factor, postscale_factor, comp)),
@@ -312,6 +380,54 @@ def reducescatter(tensor, op: int = ReduceOp.SUM, axis=None,
                           _DIST_OP[op], axis)
     return _from_acc(out, tensor.dtype, op, axis.size, postscale_factor,
                      False)
+
+
+# The one-tensor collectives under their current names (torch 2.13 renamed
+# the ``*_into_tensor`` / ``*_tensor`` forms).
+_all_gather_single = (getattr(dist, "all_gather_single", None)
+                      or dist.all_gather_into_tensor)
+_reduce_scatter_single = (getattr(dist, "reduce_scatter_single", None)
+                          or dist.reduce_scatter_tensor)
+
+
+def zero_reducescatter(flat, axis, wire_dtype=None) -> torch.Tensor:
+    """The gradient-partitioning leg: reduce-scatter one padded fp32
+    bucket flat over ``axis`` (its length a multiple of the axis size),
+    each rank keeping its 1/d block of the sum. With ``wire_dtype``
+    (fp16/bf16 compression) the payload travels, and is summed, at the
+    16-bit dtype, and the reduced block comes back as fp32 before any
+    averaging. Callers average (``/ d``) outside, at fp32."""
+    payload = flat.to(wire_dtype) if wire_dtype is not None else flat
+    out = payload.new_empty(payload.numel() // axis.size)
+    _reduce_scatter_single(out, payload.contiguous(), group=axis.group)
+    return out.float() if wire_dtype is not None else out
+
+
+class PendingGather:
+    """An all-gather in flight; ``wait()`` returns the gathered tensor.
+    It holds the tensor being sent until then."""
+
+    def __init__(self, work, sent, out):
+        self._work, self._sent, self.out = work, sent, out
+
+    def wait(self) -> torch.Tensor:
+        if self._work is not None:
+            self._work.wait()
+            self._work = self._sent = None
+        return self.out
+
+
+def zero_allgather(seg, axis, gather_dtype=None) -> PendingGather:
+    """The parameter-assembly leg: launch the all-gather of one 1/d
+    master segment into the full padded bucket flat over ``axis``, at
+    ``gather_dtype`` (uniform-dtype models gather at the model's dtype).
+    ``wait()`` on the handle orders the caller's stream after the gather
+    (NCCL runs it on its own stream) and returns the flat."""
+    sent = (seg.detach().to(gather_dtype) if gather_dtype is not None
+            else seg.detach()).contiguous()
+    out = sent.new_empty(sent.numel() * axis.size)
+    work = _all_gather_single(out, sent, group=axis.group, async_op=True)
+    return PendingGather(work, sent, out)
 
 
 def alltoall(tensor, axis=None) -> torch.Tensor:

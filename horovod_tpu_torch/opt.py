@@ -44,6 +44,11 @@ optimizer's ``state`` under ``RESIDUAL_KEY``, one fp32 tensor per
 parameter, so ``state_dict()`` carries them; ``load_state_dict`` refuses
 a state whose residuals disagree with the optimizer's compression mode
 (the JAX package's state-owns-the-mode check).
+
+``zero_axis="dp"`` partitions the wrapped optimizer's state over that
+axis after the reduction (ZeRO-1, ``zero.ZeroOverAxis``), and
+``op=Adasum`` builds the delta flavour instead
+(``_DistributedAdasumOptimizer``).
 """
 
 from __future__ import annotations
@@ -72,15 +77,24 @@ class _DistributedOptimizer(torch.optim.Optimizer):
     def __init__(self, params, named_parameters=None, compression="auto",
                  op=_coll.Average, bucket_cap_bytes="auto",
                  backward_passes_per_step=1, gradient_predivide_factor=1.0,
-                 prescale_factor=1.0, postscale_factor=1.0):
+                 prescale_factor=1.0, postscale_factor=1.0, zero_axis=None):
+        self._zero = None
+        model_params = None
+        if zero_axis is not None:
+            from .zero import ZeroOverAxis
+
+            model_params = [p for group in params for p in group["params"]
+                            if p.requires_grad]
+            over = set(_MESH_GROUPS[zero_axis])
+            self._zero = ZeroOverAxis(
+                params, _state.axis_group(zero_axis),
+                lambda p: over <= set(_MESH_GROUPS[reduce_group(p)]))
+            params = self._zero.param_groups
         super(self.__class__, self).__init__(params)
         if op not in (_coll.Average, _coll.Sum):
-            raise NotImplementedError(
-                f"op {op}: the port's DistributedOptimizer reduces with "
-                f"Average or Sum; Adasum comes with a later slice")
-        if gradient_predivide_factor != 1.0 and op != _coll.Average:
-            raise ValueError("gradient_predivide_factor not supported with "
-                             "op != Average")
+            raise ValueError(
+                f"op {op}: the DistributedOptimizer reduces gradients with "
+                f"Average or Sum (Adasum combines deltas: op=Adasum)")
         if backward_passes_per_step < 1:
             raise ValueError(f"backward_passes_per_step must be >= 1, got "
                              f"{backward_passes_per_step}")
@@ -89,7 +103,7 @@ class _DistributedOptimizer(torch.optim.Optimizer):
         self._compression = resolve_compression(compression)
         self._ef = (self._compression is not None
                     and self._compression.error_feedback)
-        self._params: List[torch.Tensor] = [
+        self._params: List[torch.Tensor] = model_params or [
             p for group in self.param_groups for p in group["params"]
             if p.requires_grad]
         if named_parameters is not None:
@@ -230,7 +244,12 @@ class _DistributedOptimizer(torch.optim.Optimizer):
                     "synchronize(); the gradients are reduced again")
             self.synchronize()
         self._synchronized = False
-        return super(self.__class__, self).step(closure)
+        if self._zero is None:
+            return super(self.__class__, self).step(closure)
+        self._zero.load()
+        loss = super(self.__class__, self).step(closure)
+        self._zero.gather()
+        return loss
 
     def load_state_dict(self, state_dict):
         """Load a state; its error-feedback residuals must agree with this
@@ -264,7 +283,53 @@ class _DistributedOptimizer(torch.optim.Optimizer):
             raise RuntimeError(
                 "optimizer.zero_grad() was called after loss.backward() but "
                 "before optimizer.step() or optimizer.synchronize()")
+        if self._zero is not None:
+            for p in self._params:
+                if set_to_none:
+                    p.grad = None
+                elif p.grad is not None:
+                    p.grad.zero_()
         return super(self.__class__, self).zero_grad(set_to_none=set_to_none)
+
+
+class _DistributedAdasumOptimizer(torch.optim.Optimizer):
+    """The Adasum delta flavour (``horovod_tpu/torch/optimizer.py``'s, the
+    reference's ``torch/optimizer.py:197-365``): the wrapped optimizer
+    steps on this rank's own gradients, the parameter deltas are
+    combined over the world with Adasum (``allreduce_async``, op=Adasum:
+    each tensor with its own coefficients) and the combined delta is
+    added to the start-of-step parameters. With a 16-bit compression the
+    deltas travel in the wire dtype (the combination runs in fp32)."""
+
+    def __init__(self, params, compression="auto"):
+        super(self.__class__, self).__init__(params)
+        comp = resolve_compression(compression)
+        if comp is not None and comp.error_feedback:
+            raise ValueError("Adasum combines deltas, which keep no "
+                             "error-feedback residual; use fp16 or bf16")
+        self._compression = comp
+
+    def step(self, closure=None):
+        starts = {p: p.detach().clone() for group in self.param_groups
+                  for p in group["params"] if p.requires_grad}
+        loss = super(self.__class__, self).step(closure)
+        if _state.size() > 1:
+            with torch.no_grad():
+                pending = []
+                for p, start in starts.items():
+                    delta = p - start
+                    if self._compression is not None:
+                        delta, ctx = self._compression.compress(delta)
+                    else:
+                        ctx = None
+                    pending.append((p, start, ctx, _coll.allreduce_async(
+                        delta, op=_coll.Adasum)))
+                for p, start, ctx, handle in pending:
+                    delta = handle.wait()
+                    if ctx is not None:
+                        delta = self._compression.decompress(delta, ctx)
+                    p.copy_(start + delta)
+        return loss
 
 
 def DistributedOptimizer(optimizer: torch.optim.Optimizer,
@@ -273,7 +338,7 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
                          backward_passes_per_step: int = 1,
                          gradient_predivide_factor: float = 1.0,
                          prescale_factor: float = 1.0,
-                         postscale_factor: float = 1.0):
+                         postscale_factor: float = 1.0, zero_axis=None):
     """Wrap ``optimizer`` so that ``step()`` applies gradients averaged
     over the data shards (``op=Sum`` for summed ones).
 
@@ -286,13 +351,29 @@ def DistributedOptimizer(optimizer: torch.optim.Optimizer,
     f (Average only): the sum is taken of gradients divided by f and
     multiplied by f / shards after, which moves where fp16 rounds.
     ``prescale_factor`` / ``postscale_factor``: multiply each bucket, in
-    fp32, before and after the reduction.
+    fp32, before and after the reduction. ``zero_axis`` (a mesh axis,
+    say ``"dp"``): ZeRO-1 over it (``zero.ZeroOverAxis``), each rank
+    keeping the optimizer state of its 1/n slice of every parameter that
+    axis replicates, the JAX ``init_opt_state(zero_axis=...)``.
+
+    ``op=Adasum`` selects the delta flavour (``_DistributedAdasumOptimizer``):
+    no gradient reduction, the deltas combined by Adasum after the local
+    step; it takes ``compression`` (fp16/bf16) and none of the bucketing,
+    accumulation or scaling options.
 
     The result is an instance of a subclass of ``optimizer``'s class
     built over the same parameter groups (hyperparameters included).
     """
+    if gradient_predivide_factor != 1.0 and op != _coll.Average:
+        raise ValueError("gradient_predivide_factor not supported with "
+                         "op != Average")
+    if op == _coll.Adasum:
+        cls = type(optimizer.__class__.__name__, (optimizer.__class__,),
+                   dict(_DistributedAdasumOptimizer.__dict__))
+        return cls(optimizer.param_groups, compression)
     cls = type(optimizer.__class__.__name__, (optimizer.__class__,),
                dict(_DistributedOptimizer.__dict__))
     return cls(optimizer.param_groups, named_parameters, compression, op,
                bucket_cap_bytes, backward_passes_per_step,
-               gradient_predivide_factor, prescale_factor, postscale_factor)
+               gradient_predivide_factor, prescale_factor, postscale_factor,
+               zero_axis)

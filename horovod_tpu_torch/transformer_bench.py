@@ -8,7 +8,9 @@ tool): the global batch (default 8 per dp shard) splits over dp and the
 global sequence over sp, so every rank takes a ``[batch / dp, seq_len /
 sp]`` shard, the same on each tp rank, which holds H/tp heads and d_ff/tp
 hidden units of every layer. Labels are rolled over the global sequence
-before it is sharded. ``--remat`` recomputes each layer in the backward.
+before it is sharded. ``--remat`` recomputes each layer in the backward;
+``--zero`` partitions the optimizer state over dp (ZeRO-1, the
+``DistributedOptimizer``'s ``zero_axis``).
 
     python -m horovod_tpu_torch.transformer_bench          # GPT-2-small-ish
     python -m horovod_tpu_torch.transformer_bench --device cpu --d-model 64 \\
@@ -17,6 +19,8 @@ before it is sharded. ``--remat`` recomputes each layer in the backward.
     python -m horovod_tpu_torch.transformer_bench --sp 4 --seq-len 8192
     # Megatron tensor parallelism over 2 ranks, layers recomputed:
     python -m horovod_tpu_torch.transformer_bench --tp 2 --remat
+    # ZeRO-1 over dp (optimizer state 1/dp a rank), with tp:
+    python -m horovod_tpu_torch.transformer_bench --zero --tp 2
 
 MFU convention (copied): model FLOPs per token = 6*N (N = matmul
 parameter count: embedding table and learned positions excluded, untied
@@ -70,7 +74,8 @@ def parse_args(argv=None):
     p.add_argument("--window", type=int, default=None,
                    help="sliding-window attention width")
     p.add_argument("--zero", action="store_true",
-                   help="ZeRO-1 over dp (a later slice of the port)")
+                   help="ZeRO-1 over dp: each dp rank keeps the optimizer "
+                        "state of its 1/dp slice of every parameter")
     p.add_argument("--remat", action="store_true",
                    help="rematerialize decoder layers (recompute each in "
                         "the backward)")
@@ -89,6 +94,7 @@ class BenchRun(NamedTuple):
     tokens: torch.Tensor
     allreduce_count: int  # bucket all-reduces the optimizer launched
     step: Callable[[], torch.Tensor]  # one more step on the same batch
+    optimizer: torch.optim.Optimizer  # the DistributedOptimizer it steps
 
 
 def _sync(device):
@@ -103,8 +109,6 @@ def run(args) -> BenchRun:
     from horovod_tpu_torch.training import make_train_step
 
     check_parallelism(sp=args.sp, tp=args.tp)
-    if args.zero:
-        raise NotImplementedError("ZeRO comes with a later slice of the port")
     hvd.init(device=args.device, sp=args.sp, tp=args.tp)
     device = hvd.device()
     size, dp, sp = hvd.size(), hvd.dp_size(), hvd.sp_size()
@@ -138,7 +142,8 @@ def run(args) -> BenchRun:
     n_matmul_params = n_params - count["embed"] - count.get("pos", 0)
     optimizer = hvd.DistributedOptimizer(
         torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=1e-4),
-        named_parameters=model.named_parameters())
+        named_parameters=model.named_parameters(),
+        zero_axis="dp" if args.zero else None)
     step = make_train_step(model, optimizer)
 
     rng = np.random.RandomState(0)
@@ -183,6 +188,11 @@ def run(args) -> BenchRun:
         "sp_strategy": args.strategy,
         "window": args.window,
         "zero": bool(args.zero),
+        # This rank's optimizer-state bytes after the last step.
+        "opt_state_bytes": sum(
+            v.numel() * v.element_size() for st in optimizer.state.values()
+            if isinstance(st, dict) for v in st.values()
+            if torch.is_tensor(v)),
         "loss": round(losses[-1], 4),  # world average
         "step_ms": round(1e3 * dt / args.num_iters, 2),
     }
@@ -190,7 +200,8 @@ def run(args) -> BenchRun:
     if peak:
         result["mfu"] = round(tok_per_s * flops_per_token / (size * peak), 4)
     return BenchRun(result, losses, peak_mem, model, tokens,
-                    optimizer.allreduce_count, lambda: step(tokens, labels))
+                    optimizer.allreduce_count, lambda: step(tokens, labels),
+                    optimizer)
 
 
 def main(argv=None):

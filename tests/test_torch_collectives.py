@@ -264,10 +264,19 @@ def test_unused_parameter_gets_a_zero_gradient(hvd_cpu):
 
 def test_later_slice_options_raise(hvd_cpu):
     model = _model()
-    with pytest.raises(NotImplementedError, match="Adasum"):
-        hvd_cpu.DistributedOptimizer(torch.optim.SGD(model.parameters(),
-                                                     lr=0.1),
-                                     op=hvd_cpu.Adasum)
+    # op=Adasum is the delta optimizer now; the options it cannot take
+    # still raise.
+    with pytest.raises(ValueError, match="gradient_predivide_factor"):
+        hvd_cpu.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.1), op=hvd_cpu.Adasum,
+            gradient_predivide_factor=2.0)
+    with pytest.raises(ValueError, match="error-feedback"):
+        hvd_cpu.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.1), op=hvd_cpu.Adasum,
+            compression="ef16")
+    with pytest.raises(ValueError, match="op=Adasum"):
+        hvd_cpu.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.1), op=hvd_cpu.Max)
     with pytest.raises(ValueError, match="not named"):
         hvd_cpu.DistributedOptimizer(
             torch.optim.SGD(model.parameters(), lr=0.1),

@@ -25,7 +25,8 @@ for name in names:
 for name in ("parallel", "parallel.mesh", "parallel.ring_attention",
              "parallel.ulysses", "parallel.moe", "parallel.pipeline",
              "models.image_layers", "models.resnet", "models.vgg",
-             "models.inception", "image_bench"):
+             "models.inception", "image_bench", "zero", "checkpoint",
+             "ops.adasum"):
     assert "horovod_tpu_torch." + name in names, name
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib",
                                                            "horovod_tpu"))
