@@ -4,11 +4,12 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --time-tree DIR   # kernel times of one checkout
 
-Phases, in order (a, b, c, e, f, g, h, d); any failure exits nonzero:
+Phases, in order (a, b, c, e, f, g, h, i, d); any failure exits nonzero:
 
 (a) device and build: the card, its power limit, the torch and CUDA
     versions; every kernel of ``horovod_tpu_torch/csrc`` built with nvcc
-    for sm_90a into ``build/horovod_tpu_torch/``, with each kernel's
+    for sm_90a into ``build/horovod_tpu_torch/`` (the native core of
+    ``csrc/hvd`` with g++ beside them), with each kernel's
     registers and spill bytes (``-Xptxas -v``) and HGMMA instructions
     (``cuobjdump -sass``) logged, and the forward's key tile in the
     library held equal to ``FWD_KEY_TILE``.
@@ -107,6 +108,26 @@ Phases, in order (a, b, c, e, f, g, h, d); any failure exits nonzero:
     model's delta step (``DistributedOptimizer(op=Adasum)``) over NCCL
     against ``adasum_reference`` on the CPU (rel 1e-5), then ResNet-50 with
     ``op=Adasum`` for 2 + 3 steps, equal on both ranks after every step.
+(i) the negotiated eager plane: two ranks on cuda:0 in one NCCL world as
+    in (e) (``--eager-worker``), ``hvd.init`` with the native core live
+    (its controller on the base port + 1; direct mode fails the phase).
+    Every op and dtype of the CPU tests through the named plane against
+    analytic values, a refused duplicate name, poll before and after
+    completion, join (rank 1 leaves after 2 of 5 named allreduces; rank
+    0's last 3 are its own values), barrier and broadcast_object. Then
+    ResNet-50 as in (f) (224 px, batch 32 a rank, bf16, each rank its own
+    batch), 3 steps: every gradient submitted by
+    ``hvd.allreduce_async(g, name=f"grad.{param}", op=Sum)`` from its
+    post-accumulate hook (161 tensors, 25,557,032 fp32 elements), then
+    every handle synchronized; each step bitwise equal to
+    ``ops.collectives.grouped_allreduce(op=Sum)`` of the same gradients,
+    at least two fused responses a step and cache hits on the worker in
+    steps 2 and 3, with the responses, the native enqueue-to-negotiated
+    and negotiated-to-executed p50/p99 and the wall ms from the first
+    submit to the last synchronize. Last, rank 1's ResNet-50 from another
+    seed takes rank 0's parameters by named broadcasts
+    (``bcast.param.{i}``): bitwise equal after. No kernel of the port runs
+    here (host C++ and NCCL).
 (d) the kernel table as one JSON line, the card's name and power limit,
     and last the result line ``{"ok": true, "device": {...}}``.
 """
@@ -116,7 +137,6 @@ import math
 import os
 import re
 import shutil
-import socket
 import subprocess
 import sys
 import tempfile
@@ -904,6 +924,7 @@ def small_sp_check(strategy, ref):
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch.models.transformer import (Transformer,
                                                       TransformerConfig)
+    from horovod_tpu_torch.ops import collectives
     from horovod_tpu_torch.training import cross_entropy_loss
 
     kw, state, tokens, labels, seg, ref_loss, ref_grads = ref
@@ -917,10 +938,10 @@ def small_sp_check(strategy, ref):
                                     seg[:, cols].to(dev)),
                               labels[:, cols].to(dev))
     loss.backward()
-    loss = hvd.allreduce(loss.detach()).item()
+    loss = collectives.allreduce(loss.detach()).item()
     worst = 0.0
     for name, p in model.named_parameters():
-        grad = hvd.allreduce(p.grad).cpu()
+        grad = collectives.allreduce(p.grad).cpu()
         want = ref_grads[name]
         worst = max(worst, (grad - want).abs().max().item()
                     / max(1e-6, want.abs().max().item()))
@@ -971,7 +992,8 @@ def sp_worker(out_path):
 
 def run_workers(flag, n, timeout_s, inputs=None):
     """``n`` processes of this script (``flag``: ``--sp-worker``,
-    ``--dp-worker`` or ``--mp-worker``), ranks of one NCCL world on
+    ``--dp-worker``, ``--mp-worker``, ``--zero-worker`` or
+    ``--eager-worker``), ranks of one NCCL world on
     cuda:0, each with its own ``NCCL_HOSTID`` and sockets over ``lo``;
     ``inputs`` (any object) is saved beside their results as
     ``inputs.pt``. Their logs are printed and each rank's JSON result
@@ -979,10 +1001,10 @@ def run_workers(flag, n, timeout_s, inputs=None):
     phase."""
     import torch
 
+    from horovod_tpu_torch.common.config import free_port_pair
+
     torch.cuda.empty_cache()   # leave the card to the workers
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
+    port = free_port_pair()
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_workers_"))
     if inputs is not None:
         torch.save(inputs, tmp / "inputs.pt")
@@ -1466,6 +1488,7 @@ def collectives_check(rank):
     import torch
 
     import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.ops import collectives
 
     xs = [torch.randn(8, 3, generator=torch.Generator().manual_seed(100 + r))
           for r in range(MP)]
@@ -1478,9 +1501,10 @@ def collectives_check(rank):
             "alltoall": torch.cat([xs[0][rows], xs[1][rows]]),
             "barrier": torch.tensor(MP)}
     hvd.init(device="cuda:0")
-    got = {"allgather": hvd.allgather(x),
-           "reducescatter": hvd.reducescatter(x, op=hvd.Sum),
-           "alltoall": hvd.alltoall(x), "barrier": hvd.barrier()}
+    got = {"allgather": collectives.allgather(x),
+           "reducescatter": collectives.reducescatter(x, op=hvd.Sum),
+           "alltoall": collectives.alltoall(x),
+           "barrier": collectives.barrier()}
     hvd.shutdown()
     env = {k: os.environ[k] for k in ("HOROVOD_LOCAL_SIZE",
                                       "HOROVOD_LOCAL_RANK")}
@@ -2041,6 +2065,301 @@ def zero_phase(gpu, slice_losses):
     return r0["tf_zero"]["launches"]
 
 
+# ---- (i) the negotiated eager plane ----------------------------------------
+
+EAGER = 2             # ranks of phase (i), both on cuda:0
+EAGER_TIMEOUT_S = 300
+EAGER_STEPS = 3
+# ResNet-50 at 1000 classes: its parameters, each one named gradient.
+RESNET50_TENSORS, RESNET50_ELEMENTS = 161, 25_557_032
+
+
+def eager_small_checks(rank):
+    """Every op and dtype of the CPU tests (``tests/torch_eager_cases.py``)
+    on the card through the named plane, against analytic values at the
+    world's size; a refused duplicate name; poll before and after
+    completion; join; barrier and broadcast_object. Returns the checks'
+    names."""
+    import numpy as np
+    import torch
+
+    import horovod_tpu_torch as hvd
+
+    dev, n = hvd.device(), hvd.size()
+    done = []
+
+    def check(name, got, want):
+        got = got.cpu() if isinstance(got, torch.Tensor) else \
+            torch.as_tensor(got)
+        want = torch.as_tensor(want).to("cpu", got.dtype)
+        if got.shape != want.shape or not torch.equal(got, want):
+            raise AssertionError(f"(i) {name} on rank {rank}: {got} != "
+                                 f"{want}")
+        done.append(name)
+
+    base = torch.arange(6)
+    total = n * base + n * (n - 1) // 2          # the sum of base + r
+    for dt in (torch.float32, torch.float16, torch.bfloat16, torch.float64,
+               torch.int32, torch.int64, torch.int16, torch.uint16,
+               torch.int8, torch.uint8):
+        x = (base + rank).to(dev, dt)
+        check(f"allreduce-sum-{dt}", hvd.allreduce(x, op=hvd.Sum,
+                                                   name=f"sum.{dt}"), total)
+    x = base.float().to(dev) + rank
+    check("allreduce-average", hvd.allreduce(x), base.float() + (n - 1) / 2)
+    check("allreduce-min", hvd.allreduce(x, op=hvd.Min), base)
+    check("allreduce-max", hvd.allreduce(x, op=hvd.Max), base + n - 1)
+    check("allreduce-pre-postscale",
+          hvd.allreduce(x, op=hvd.Sum, prescale_factor=2.0,
+                        postscale_factor=0.25), total / 2)
+    # bf16 accumulates in fp32 and rounds once.
+    bf = [torch.full((8,), 1 + 2 ** -7, dtype=torch.bfloat16) * (r + 1)
+          for r in range(n)]
+    check("allreduce-bf16", hvd.allreduce(bf[rank].to(dev), op=hvd.Sum),
+          sum(t.float() for t in bf).bfloat16())
+    outs = hvd.grouped_allreduce(
+        [x, base.reshape(2, 3).float().to(dev) * 2,
+         base.int().to(dev) + rank], op=hvd.Sum)
+    check("grouped-f32", outs[0], total.float())
+    check("grouped-f32-2d", outs[1], (2 * n * base).reshape(2, 3).float())
+    check("grouped-int32", outs[2], total.int())
+    check("allgather", hvd.allgather(x.reshape(2, 3)),
+          torch.cat([(base.float() + r).reshape(2, 3) for r in range(n)]))
+    check("allgather-ragged", hvd.allgather(
+        torch.full((rank + 1, 3), float(rank), device=dev)),
+        torch.cat([torch.full((r + 1, 3), float(r)) for r in range(n)]))
+    h = hvd.allgather_async(np.full((2 if rank % 2 else 1,), rank,
+                                    np.float32), name="ragged.async")
+    check("allgather-ragged-async-numpy", hvd.synchronize(h),
+          np.concatenate([np.full((2 if r % 2 else 1,), r, np.float32)
+                          for r in range(n)]))
+    for root in range(n):
+        check(f"broadcast-root{root}", hvd.broadcast(x, root),
+              base.float() + root)
+    check("broadcast-int64", hvd.broadcast(
+        torch.full((3,), 10 ** 12 + rank, dtype=torch.int64, device=dev),
+        n - 1), torch.full((3,), 10 ** 12 + n - 1, dtype=torch.int64))
+    rs = torch.arange(6.0 * n).reshape(2 * n, 3)
+    check("reducescatter", hvd.reducescatter(rs.to(dev) + rank, op=hvd.Sum),
+          (n * rs + n * (n - 1) / 2)[2 * rank:2 * rank + 2])
+    a2a = torch.arange(float(n)) + 100 * rank
+    check("alltoall", hvd.alltoall(a2a.to(dev)),
+          torch.tensor([rank + 100.0 * r for r in range(n)]))
+    first = hvd.allreduce_async(x, name="dup")
+    try:
+        hvd.allreduce_async(x, name="dup")
+        raise AssertionError("(i) a duplicate name was not refused")
+    except hvd.DuplicateTensorNameError:
+        done.append("duplicate-name-refused")
+    hvd.synchronize(first)
+    big = torch.ones(1 << 22, device=dev) * (rank + 1)
+    h = hvd.allreduce_async(big, name="poll", op=hvd.Sum)
+    before = hvd.poll(h)
+    deadline = time.time() + 60
+    while not hvd.poll(h):
+        if time.time() > deadline:
+            raise AssertionError("(i) poll never turned true")
+        time.sleep(0.001)
+    check("poll-then-synchronize", hvd.synchronize(h)[:4],
+          torch.full((4,), n * (n + 1) / 2))
+    done.append(f"poll-before-completion={before}")
+    # Every rank but 0 leaves after 2 of 5 named allreduces; rank 0's last
+    # 3 get their zeros.
+    for i in range(5):
+        if rank > 0 and i == 2:
+            break
+        got = hvd.allreduce(torch.full((4,), float(rank + 1), device=dev),
+                            op=hvd.Sum, name=f"join.{i}")
+        check(f"join-step{i}", got,
+              torch.full((4,), n * (n + 1) / 2 if i < 2 else 1.0))
+    if rank == 0:
+        time.sleep(0.2)
+    check("join-last-rank", torch.tensor(hvd.join()), torch.tensor(0))
+    hvd.barrier()
+    done.append("barrier")
+    obj = hvd.broadcast_object({"from": rank, "list": [1, 2.5]}, root_rank=1)
+    if obj != {"from": 1, "list": [1, 2.5]}:
+        raise AssertionError(f"(i) broadcast_object gave {obj}")
+    done.append("broadcast_object")
+    return done
+
+
+def eager_resnet(rank, eng):
+    """ResNet-50 (f)'s workload, each rank its own batch: every gradient
+    submitted by name from its post-accumulate hook as it is made, then
+    every handle synchronized; each step held to
+    ``ops.collectives.grouped_allreduce(op=Sum)`` of the same gradients,
+    bitwise (a sum of two is exact in either order)."""
+    import numpy as np
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import training
+    from horovod_tpu_torch.common import metrics
+    from horovod_tpu_torch.models import resnet
+    from horovod_tpu_torch.ops import collectives
+
+    core = eng.native_core
+    dev = hvd.device()
+    model = resnet.ResNet50(num_classes=1000, dtype=torch.bfloat16,
+                            device=dev, seed=0)
+    rng = np.random.RandomState(rank)
+    x = torch.as_tensor(rng.rand(32, 224, 224, 3).astype(np.float32),
+                        device=dev)
+    y = torch.as_tensor(rng.randint(0, 1000, 32), device=dev)
+    params = list(model.named_parameters())
+    handles, submits = {}, []
+
+    def hook(name):
+        def submit(p):
+            submits.append(time.perf_counter())
+            handles[name] = hvd.allreduce_async(p.grad, name=f"grad.{name}",
+                                                op=hvd.Sum)
+        return submit
+
+    for name, p in params:
+        p.register_post_accumulate_grad_hook(hook(name))
+    steps = []
+    for step in range(EAGER_STEPS):
+        model.zero_grad(set_to_none=True)
+        handles.clear()
+        submits.clear()
+        n_resp, hits = len(eng.response_sizes), core.cache_hits()
+        loss = training.cross_entropy_loss(model(x), y)
+        loss.backward()
+        reduced = {n: hvd.synchronize(h) for n, h in handles.items()}
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - submits[0])
+        grads = [p.grad for _, p in params]
+        want = collectives.grouped_allreduce(grads, op=hvd.Sum)
+        equal = all(torch.equal(reduced[n], w)
+                    for (n, _), w in zip(params, want))
+        diff = max(float((reduced[n] - w).norm() / w.norm().clamp_min(1e-30))
+                   for (n, _), w in zip(params, want))
+        sizes = [n for _, n in list(eng.response_sizes)[n_resp:]]
+        steps.append({"loss": loss.item(), "tensors": len(handles),
+                      "elements": sum(g.numel() for g in grads),
+                      "responses": len(sizes), "tensors_per_response": sizes,
+                      "cache_hits": core.cache_hits() - hits,
+                      "submit_span_ms": 1e3 * (submits[-1] - submits[0]),
+                      "wall_ms": wall_ms, "bitwise_equal": equal,
+                      "rel_diff": diff})
+    hist = metrics.snapshot(drain=False)["native"]["histograms"]
+    lat = {k: metrics.percentiles(hist[k], (50, 99))
+           for k in ("enq_to_neg_allreduce_us", "neg_to_done_allreduce_us")}
+    return {"steps": steps, "latency_us": lat}
+
+
+def eager_broadcast_params(rank):
+    """Rank 1 starts from another seed; rank 0's ResNet-50 parameters
+    reach it by named eager broadcasts (``bcast.param.{i}``)."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models import resnet
+
+    model = resnet.ResNet50(num_classes=1000, dtype=torch.bfloat16,
+                            device=hvd.device(), seed=rank)
+    params = list(model.parameters())
+    before = tensor_digest(params)
+    t0 = time.perf_counter()
+    hs = [hvd.broadcast_async(p.data, 0, name=f"bcast.param.{i}")
+          for i, p in enumerate(params)]
+    with torch.no_grad():
+        for p, h in zip(params, hs):
+            p.copy_(hvd.synchronize(h))
+    torch.cuda.synchronize()
+    return {"before": before, "after": tensor_digest(params),
+            "ms": 1e3 * (time.perf_counter() - t0)}
+
+
+def eager_worker(out_path):
+    """One rank of (i) (run as ``chip_smoke.py --eager-worker``): the
+    named plane's small checks, ResNet-50's gradients through it, and the
+    parameters by named broadcasts."""
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.common.state import global_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    hvd.init(device="cuda:0")   # both ranks share the card
+    eng = global_state().engine
+    if eng.native_core is None:
+        raise AssertionError("(i) the eager plane runs in direct mode")
+    rank = hvd.rank()
+    out = {"rank": rank, "native": True,
+           "small": eager_small_checks(rank),
+           "resnet": eager_resnet(rank, eng),
+           "bcast": eager_broadcast_params(rank),
+           "stall_report": hvd.stall_report()}
+    hvd.shutdown()
+    Path(out_path).write_text(json.dumps(out))
+    return 0
+
+
+def eager_phase(gpu):
+    """(i): two ranks on cuda:0 in one NCCL world, the native core on the
+    base port + 1."""
+    t0 = time.perf_counter()
+    res = run_workers("--eager-worker", EAGER, EAGER_TIMEOUT_S)
+    for r in res:
+        log(f"    rank {r['rank']}: native core live; {len(r['small'])} "
+            f"small checks passed: {', '.join(r['small'])}")
+        for i, st in enumerate(r["resnet"]["steps"]):
+            log(f"    rank {r['rank']} ResNet-50 step {i}: loss "
+                f"{st['loss']:.4f}, {st['tensors']} named gradients "
+                f"({st['elements']} fp32 elements) in {st['responses']} "
+                f"responses {st['tensors_per_response']}, cache hits "
+                f"{st['cache_hits']}, first to last submit "
+                f"{st['submit_span_ms']:.2f} ms, first submit to last "
+                f"synchronize {st['wall_ms']:.2f} ms, bitwise equal to "
+                f"grouped_allreduce {st['bitwise_equal']} (normwise "
+                f"difference {st['rel_diff']:.2e}) on {gpu}")
+            if (st["tensors"], st["elements"]) != (RESNET50_TENSORS,
+                                                   RESNET50_ELEMENTS):
+                raise AssertionError(f"(i) step {i}: {st['tensors']} "
+                                     f"tensors, {st['elements']} elements")
+            if not st["bitwise_equal"]:
+                raise AssertionError(f"(i) step {i} on rank {r['rank']}: the "
+                                     f"named plane differs from "
+                                     f"grouped_allreduce")
+            if not st["responses"] >= 2 or \
+                    sum(st["tensors_per_response"]) != RESNET50_TENSORS:
+                raise AssertionError(f"(i) step {i}: responses "
+                                     f"{st['tensors_per_response']}")
+            # A worker sends a repeated tensor as a cache id; the
+            # coordinator (rank 0) sends no request frame.
+            if i > 0 and r["rank"] > 0 and not st["cache_hits"] > 0:
+                raise AssertionError(f"(i) step {i}: no response cache hit "
+                                     f"on rank {r['rank']}")
+        lat = r["resnet"]["latency_us"]
+        log(f"    rank {r['rank']} native allreduce latency over "
+            f"{EAGER_STEPS} steps (log2 buckets, us): enqueue to negotiated "
+            f"{lat['enq_to_neg_allreduce_us']}, negotiated to executed "
+            f"{lat['neg_to_done_allreduce_us']}")
+        b = r["bcast"]
+        log(f"    rank {r['rank']} parameters by {RESNET50_TENSORS} named "
+            f"broadcasts from rank 0 in {b['ms']:.2f} ms: sha256 "
+            f"{b['before'][:12]} -> {b['after'][:12]}")
+        if r["stall_report"]:
+            log(f"    rank {r['rank']} stall report: {r['stall_report']}")
+    r0 = res[0]
+    for r in res[1:]:
+        if r["bcast"]["after"] != r0["bcast"]["before"] or \
+                r["bcast"]["before"] == r0["bcast"]["before"]:
+            raise AssertionError(f"(i) the named broadcasts did not give "
+                                 f"rank {r['rank']} rank 0's parameters")
+        if [s["loss"] for s in r0["resnet"]["steps"]] == \
+                [s["loss"] for s in r["resnet"]["steps"]]:
+            raise AssertionError("(i) the ranks' batches were not their own")
+    if r0["bcast"]["after"] != r0["bcast"]["before"]:
+        raise AssertionError("(i) rank 0's parameters changed")
+    log(f"    (i) took {time.perf_counter() - t0:.1f} s")
+
+
 AB_MODES = ("flash_fwd", "flash_fwd_train", "flash_bwd_dq", "flash_bwd_dkv")
 AB_RING_MODES = ("flash_fwd_state", "flash_bwd_dq_f32", "flash_bwd_dkv_f32")
 
@@ -2100,8 +2419,11 @@ def main():
         log("chip_smoke: no CUDA device")
         return 2
     sys.path.insert(0, str(REPO))
+    from concurrent.futures import ThreadPoolExecutor
+
     import horovod_tpu_torch as hvd
     from horovod_tpu_torch import transformer_bench
+    from horovod_tpu_torch.common import native
     from horovod_tpu_torch.ops import _build
     from horovod_tpu_torch.ops import flash_attention as fa
 
@@ -2118,9 +2440,13 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    libs = _build.build_all(verbose=True)
+    # The native core (g++, host C++) builds beside the kernels (nvcc).
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        core = pool.submit(native.build)
+        libs = _build.build_all(verbose=True)
+        core = core.result()
     log(f"    built {', '.join(str(p.relative_to(REPO)) for p in libs.values())}"
-        f" in {time.perf_counter() - t0:.1f} s")
+        f" and {core.relative_to(REPO)} in {time.perf_counter() - t0:.1f} s")
     for name, path in libs.items():
         kernel_report(name, path)
     lib = _build.load("flash_attention")
@@ -2259,6 +2585,12 @@ def main():
     zero_launches = zero_phase(gpu, plain_losses)
     log(f"    transformer --zero launches {zero_launches}")
 
+    # (i) the negotiated eager plane: host C++ and NCCL, no kernel of the
+    # port
+    log(f"(i) the eager plane: {EAGER} ranks on cuda:0, one NCCL world "
+        f"{since()}")
+    eager_phase(gpu)
+
     # (d) result
     log(f"(d) result {since()}")
     for name, row in table.items():
@@ -2280,6 +2612,8 @@ if __name__ == "__main__":
         sys.exit(mp_worker(sys.argv[2]))
     if sys.argv[1:2] == ["--zero-worker"]:
         sys.exit(zero_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--eager-worker"]:
+        sys.exit(eager_worker(sys.argv[2]))
     if sys.argv[1:2] == ["--time-tree"]:
         sys.exit(time_tree(sys.argv[2]))
     sys.exit(main())

@@ -1,5 +1,5 @@
 """Exception types of the port (the port's own copy of the JAX package's
-``common/exceptions.py`` types that this slice raises)."""
+``common/exceptions.py`` types that the port raises)."""
 
 
 class HorovodTpuError(Exception):
@@ -15,3 +15,13 @@ class NotInitializedError(HorovodTpuError):
             "first" + (f" (required by {name})" if name else "")
         )
         super().__init__(msg)
+
+
+class HorovodInternalError(HorovodTpuError):
+    """A collective failed: the native core refused or aborted it, or its
+    execution raised. Raised at ``synchronize``."""
+
+
+class DuplicateTensorNameError(HorovodTpuError):
+    """A tensor name was submitted again before its first submission
+    completed (the tensor queue's duplicate-name rejection)."""

@@ -8,7 +8,10 @@ CROSS_*`` and ``HOROVOD_CONTROLLER_ADDR/PORT`` for the rendezvous), and
 the collectives run on one ``torch.distributed`` process group: NCCL when
 the device is a GPU, gloo when the caller asks for the CPU. Without a
 launcher the world has size 1, and the group is still made, so the
-collective path is the same at every size.
+collective path is the same at every size. ``init`` also starts the
+eager engine (``ops/eager.py``: the native core's negotiation and an
+executor on a process group of its own) after the groups are made;
+``shutdown`` stops it before any group is destroyed.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ class _GlobalState:
         self.cross_rank = 0
         self.axis_sizes = None   # {"dp", "pp", "sp", "tp"} sizes
         self.groups = None       # name -> this rank's AxisGroup
+        self.engine = None       # the eager engine (ops/eager.py)
 
     def reset(self):
         self.__init__()
@@ -84,6 +88,7 @@ def init(device=None, sp: int = 1, tp: int = 1, pp: int = 1):
     call must ask for the same sizes). Adopts a ``torch.distributed``
     group the caller already made.
     """
+    from ..ops.eager import EagerEngine
     from ..parallel.mesh import build_groups, factor_devices
 
     asked = {"sp": sp, "tp": tp, "pp": pp}
@@ -129,18 +134,29 @@ def init(device=None, sp: int = 1, tp: int = 1, pp: int = 1):
         _state.axis_sizes, _state.groups = build_groups(
             _state.size, _state.rank, sp=sp, tp=tp, pp=pp,
             local_size=local_size)
+        try:
+            _state.engine = EagerEngine(_state)
+        except BaseException:
+            if owns and dist.is_initialized():
+                dist.destroy_process_group()
+            _state.reset()
+            raise
         _state.initialized = True
 
 
 def shutdown():
-    """Tear down the runtime; destroys the process group if ``init`` made
+    """Tear down the runtime: stops the eager engine (its native core,
+    then its executor), then destroys the process group if ``init`` made
     it."""
     with _state.lock:
         if not _state.initialized:
             return
-        if _state.owns_group and dist.is_initialized():
-            dist.destroy_process_group()
-        _state.reset()
+        try:
+            _state.engine.shutdown()
+        finally:
+            if _state.owns_group and dist.is_initialized():
+                dist.destroy_process_group()
+            _state.reset()
 
 
 def is_initialized() -> bool:

@@ -1,0 +1,387 @@
+// Native host-tensor collectives over a TCP ring + pairwise peer links.
+//
+// This is the "Gloo role" of the reference (ops/gloo_operations.cc, CPU
+// collectives without MPI): bandwidth-optimal chunked ring allreduce
+// (reduce-scatter + allgather), ring allgather, and pipeline broadcast over
+// persistent neighbor sockets. 16-bit types accumulate in float32 (the
+// role of the reference's AVX fp16 paths, adasum.h:426-546). Adasum runs as
+// true vector-halving distance-doubling (VHDD) over lazily-established
+// direct peer links — reference numerics and O(count) per-rank wire
+// traffic (adasum.h:194-336 FusedAllreduce), with per-tensor dot/norm
+// boundaries inside fused buffers (adasum.h:338-398
+// FusedPairwiseReduceWithComm) and deterministic results on every rank
+// (scalar reductions run on a fixed binomial tree, so all ranks apply
+// bitwise-identical coefficients).
+
+#ifndef HVD_RING_OPS_H_
+#define HVD_RING_OPS_H_
+
+#include <atomic>
+#include <map>
+#include <memory>
+#include <string>
+#include <thread>
+#include <vector>
+
+#include <functional>
+
+#include "common.h"
+#include "op_manager.h"
+#include "shm_transport.h"
+#include "socket.h"
+#include "stripe_transport.h"
+#include "thread_annotations.h"
+
+namespace hvd {
+
+class Ring {
+ public:
+  // Out-of-line (ring_ops.cc): the transport members are unique_ptrs to
+  // types incomplete in this header (nested TcpPeerBackend).
+  Ring();
+  ~Ring();
+  // Establish neighbor connections. `endpoints[rank] = (host, port)`;
+  // `listener` must already be listening on endpoints[rank].second.
+  Status Connect(int rank, const std::vector<std::pair<std::string, int>>&
+                               endpoints,
+                 Listener* listener);
+  // Install the host topology: `cross_ranks[r]` is the host group of rank
+  // r (the controller exchanges each rank's cross_rank at world join).
+  // Enables the split local/cross traffic counters and the two-level
+  // hierarchical paths; without it every send is accounted cross-host
+  // (the conservative pre-topology behavior: one process per host).
+  void SetTopology(const std::vector<int>& cross_ranks);
+  // Build the transport registry (op_manager.h). Intra-host legs: the
+  // shm backend (created when `use_shm`, from HOROVOD_SHM) ahead of the
+  // TCP PeerLink fallback; `slot_bytes` sizes the shm ring-buffer slots
+  // (derived from the fusion cap / env); `allow_fallthrough` = false
+  // (HOROVOD_SHM_FALLBACK=0) turns shm failures into hard collective
+  // errors instead of a silent TCP leg; `shm_wait_timeout_ms` bounds
+  // the shm data-plane waits (liveness-derived when heartbeats are
+  // armed — see operations.cc). Cross-host leader legs: the striped
+  // multi-socket backend (stripe_transport.h) when `stripes` > 1
+  // (HOROVOD_STRIPES), chunked at `chunk_bytes` (HOROVOD_CHUNK_BYTES,
+  // clamped), with `stripe_fallthrough` = false
+  // (HOROVOD_STRIPE_FALLBACK=0) making a stripe connect failure a hard
+  // error; with `stripes` <= 1 the cross legs keep the direct
+  // single-socket path with zero registry overhead.
+  // Call after Connect + SetTopology; without it the hierarchical legs
+  // use direct TCP PeerLink frames (pre-registry behavior).
+  void ConfigureTransports(bool use_shm, long long slot_bytes,
+                           bool allow_fallthrough,
+                           long long shm_wait_timeout_ms = 120000,
+                           int stripes = 1, long long chunk_bytes = 256 << 10,
+                           bool stripe_fallthrough = true);
+  // Variable-length control frames over the intra-host LOCAL_CTRL leg
+  // (docs/control-plane.md): a 4-byte little-endian length then the
+  // payload, each moved through the transport registry (shm first, TCP
+  // PeerLink fallthrough — lock-step, like every LOCAL leg). The
+  // hierarchical controller's member<->leader hops ride these so a
+  // cache-hit negotiation cycle costs zero socket syscalls when shm is
+  // on. Both return false on a hard transport failure (dead peer).
+  bool CtrlSendFrame(int peer, const std::string& payload);
+  bool CtrlRecvFrame(int peer, std::string* payload);
+
+  // Frame-synced stripe-count apply (autotuner categorical dimension):
+  // close the stripe connections, forget the CROSS-leg agreements, and
+  // install the new count. Every rank calls this at the same response
+  // boundary (RunLoopOnce), so both sides of every leader pair
+  // renegotiate their cross transport in lock-step.
+  void ApplyStripeCount(int stripes);
+
+  Status Allreduce(void* data, void* output, int64_t count, DataType dtype,
+                   ReduceOp op, double prescale, double postscale);
+  Status Allgather(const void* data, void* output, int64_t count,
+                   DataType dtype);  // equal-count per rank
+  // Ragged allgather: counts[r] elements contributed by rank r, laid out
+  // back-to-back in `output` by rank (MPI_Allgatherv displacement
+  // semantics, reference ops/mpi_operations.cc:140-175).
+  Status Allgatherv(const void* data, void* output,
+                    const std::vector<int64_t>& counts, DataType dtype);
+  // Two-level (local-leader) variants — the host-plane analog of the
+  // reference's hierarchical NCCL/MPI paths (nccl_operations.cc:164-357,
+  // mpi_operations.cc:177-328): intra-host reduce/gather to a per-host
+  // leader over loopback links, a cross-host exchange among leaders only,
+  // then intra-host broadcast/scatter. Fall back to the flat paths when
+  // no topology is installed or it degenerates (one host, or one rank per
+  // host). Results are the same reduction, routed differently — for
+  // exactly-representable inputs they are byte-identical to the flat
+  // ring (asserted by the hierarchical host tests).
+  Status HierAllreduce(void* data, void* output, int64_t count,
+                       DataType dtype, ReduceOp op, double prescale,
+                       double postscale);
+  Status HierAllgatherv(const void* data, void* output,
+                        const std::vector<int64_t>& counts, DataType dtype);
+  Status Broadcast(void* data, int64_t count, DataType dtype, int root);
+  // Adasum over a fused buffer with per-tensor boundaries:
+  // ``tensor_counts[i]`` elements belong to tensor i, and the Adasum
+  // combination (dot/norm coefficients) is applied per tensor — fusing
+  // never changes the math (reference adasum_gpu_operations.cc:208-232
+  // tensor_counts contract).
+  Status AdasumAllreduce(void* data, void* output,
+                         const std::vector<int64_t>& tensor_counts,
+                         DataType dtype, double prescale = 1.0,
+                         double postscale = 1.0);
+
+  int rank() const { return rank_; }
+  int size() const { return size_; }
+  // Total payload bytes this rank has put on the wire (frames + scalar
+  // messages). Exposed so tests can assert traffic complexity (VHDD must
+  // be O(count) per rank, not O(count * size)).
+  long long bytes_sent() const { return bytes_sent_.load(); }
+  // Split traffic accounting: bytes sent to peers in the SAME host group
+  // (loopback/intra-host links) vs a DIFFERENT group (the scarce
+  // cross-host budget). local + cross == bytes_sent once a topology is
+  // installed; without one every byte is accounted cross.
+  long long local_bytes_sent() const { return local_bytes_sent_.load(); }
+  long long cross_bytes_sent() const { return cross_bytes_sent_.load(); }
+  // Payload bytes moved over the shared-memory transport (the zero-
+  // socket-syscall intra-host legs; shm_transport.h). Counted separately
+  // from local_bytes_sent (which stays TCP-only) so the proof surface is
+  // direct: with shm active, local TCP bytes collapse to ~0 while
+  // shm_bytes carries the entire local leg. bytes_sent() includes them.
+  long long shm_bytes_sent() const {
+    return shm_ ? shm_->bytes_sent() : 0;
+  }
+  // True when this rank's shm transport is plausibly carrying traffic:
+  // segment live AND not every peer attach failed (a rank riding the
+  // TCP fallback for every leg must not report shm as its transport
+  // choice) — what bench.py records.
+  bool shm_active() const { return shm_ != nullptr && shm_->Active(); }
+  // Payload bytes that rode the striped cross-host transport (a subset
+  // of cross_bytes_sent — striping changes the carrier, never the
+  // accounting: stripe piece headers stay off every counter, so
+  // cross_bytes is byte-identical to the single-socket path).
+  long long stripe_bytes_sent() const {
+    return stripe_ ? stripe_->bytes_sent() : 0;
+  }
+  // The stripe count in ACTIVE use: K once at least one leader pair
+  // carries striped traffic, 0 when striping is off or every pair fell
+  // back to single-socket TCP (the transport-choice surface
+  // hvd.ring_traffic() / bench.py record).
+  int stripe_count() const {
+    return stripe_ ? stripe_->active_stripes() : 0;
+  }
+  // Wall-clock nanoseconds this rank spent inside cross-host leader-leg
+  // exchanges (CrossSendRecv: duplex send+recv+pipelined accumulate,
+  // whichever backend carried it). The leg-local timing bench.py's
+  // --cross-leg A/B compares — end-to-end iteration time on an
+  // oversubscribed box is dominated by fusion copies and idle members'
+  // yield-spins, which the leg never touches.
+  long long cross_leg_ns() const { return cross_ns_.load(); }
+
+  // World-epoch fencing (docs/self-healing.md): the controller hands the
+  // coordinator-stamped incarnation down before Connect; every data-plane
+  // hello (ring neighbor, vhdd peer link, stripe dial) carries it and
+  // every accept loop rejects a mismatch — a frame from a torn-down
+  // world's rank must never be adopted into this one.
+  void set_epoch(long long e) { epoch_ = e; }
+  long long epoch() const { return epoch_; }
+  // Self-healing counters (hvd_metrics_snapshot keys of the same names):
+  // links redialed in place after a mid-collective cut, in-flight chunks
+  // suppressed at resume because the peer had them before the cut, and
+  // hellos/resumes rejected for carrying a stale world epoch.
+  long long link_reconnects() const { return link_reconnects_.load(); }
+  long long resume_chunks_discarded() const {
+    return resume_chunks_discarded_.load();
+  }
+  long long stale_epoch_rejected() const {
+    return stale_epoch_rejected_.load();
+  }
+
+ private:
+  // Full-duplex step: send on `sock` while receiving from `recv_sock`,
+  // using one persistent sender thread (no per-step thread spawn on the
+  // hot path). Ring steps pass (next_, prev_); VHDD passes the same peer
+  // socket for both directions. `send_peer` is the destination rank, for
+  // the local/cross traffic split.
+  bool SendRecvDuplex(Socket* send_sock, int send_peer, const void* sbuf,
+                      size_t sbytes, Socket* recv_sock, void* rbuf,
+                      size_t rbytes);
+  // SendRecvDuplex with the per-leg outcomes split out, so the healing
+  // path can tell "my frame left but theirs never arrived" from a dead
+  // link in both directions and replay only what is actually pending.
+  void DuplexSplit(Socket* send_sock, int send_peer, const void* sbuf,
+                   size_t sbytes, Socket* recv_sock, void* rbuf,
+                   size_t rbytes, bool* send_ok_out, bool* recv_ok_out);
+  bool SendRecvStep(const void* sbuf, size_t sbytes, void* rbuf,
+                    size_t rbytes);
+  // Full-duplex CROSS-leg step through the transport registry: send
+  // `sbuf` to leader `next` while receiving `rbuf` from leader `prev`,
+  // each direction on its negotiated backend (striped multi-socket or
+  // single-socket TCP, mixed pairs allowed). The send drains on the
+  // sender thread while this thread receives; with the striped backend
+  // the receive polls across the stripe fds and fires `on_piece`
+  // (byte offset, length — disjoint spans, any completion order) as
+  // each pipeline chunk completes, so the caller can accumulate chunk i
+  // while chunk i+1 is still in flight — the streaming the Patarasuk &
+  // Yuan ring needs to be bandwidth-optimal in practice. Falls back to
+  // the direct PeerLink duplex (then one whole-buffer `on_piece`) when
+  // the cross registry is off. Results are byte-identical across every
+  // path: transport changes, chunk math never does.
+  bool CrossSendRecv(int next, const void* sbuf, size_t sbytes, int prev,
+                     void* rbuf, size_t rbytes,
+                     const std::function<void(size_t, size_t)>& on_piece =
+                         nullptr);
+  // Accept-loop pump for the striped backend: accept from the shared
+  // data listener — stashing stray "vhdd" hellos exactly like
+  // PeerLink's loop — until every stripe `peer` dialed is adopted.
+  bool PumpStripeAccepts(int peer);
+  // Shared stray-hello stash for every accept loop (PumpStripeAccepts,
+  // Connect's answer loop, PeerLink's accept loop): true when `hello`
+  // was a stripe dial — the socket has been adopted into the stripe
+  // backend (or dropped if malformed/backend absent) and the caller
+  // must `continue`; false leaves `s` untouched for the caller.
+  bool MaybeAdoptStripeHello(const std::string& hello, Socket& s);
+  // Parse a "vhdd <rank> [<epoch>]" data hello. True when it IS a peer
+  // hello (rank in *peer); *stale set when it carries a world epoch that
+  // is not ours — the caller must drop the socket and count it, never
+  // stash it. A missing epoch field is tolerated (pre-epoch dialers).
+  bool ParsePeerHello(const std::string& hello, int* peer, bool* stale);
+  // Bounded in-place recovery for one cross duplex step that lost a leg
+  // (docs/self-healing.md): under HOROVOD_LINK_RETRY_*, redial the dead
+  // link(s), exchange epoch+seq resume frames, reconcile which of the
+  // two in-flight frames actually crossed before the cut, and replay
+  // exactly the pending ones. base_send/base_recv are the step's frame
+  // indices (the seq counters on entry). False = retries exhausted or
+  // the peer is more than one frame adrift — the caller raises exactly
+  // the pre-healing error into the evict/elastic path.
+  bool HealCrossStep(int next, const void* sbuf, size_t sbytes, int prev,
+                     void* rbuf, size_t rbytes, long long base_send,
+                     long long base_recv);
+  // One link redial + resume handshake: drop the dead peers_ entry,
+  // re-establish under PeerLink's deterministic dial rule (bounded by
+  // `deadline_ms`, an absolute steady-clock ms), exchange resume frames
+  // (dialer speaks first), fence the peer's epoch. On success the fresh
+  // socket is back in peers_ and the peer's counters are returned.
+  bool HealPeerLink(int peer, long long deadline_ms,
+                    long long* peer_send_seq, long long* peer_recv_seq);
+  // Error propagation for a leader failing mid-collective: a 0-byte
+  // frame on each member's LOCAL_BCAST channel fails their size-checked
+  // phase-3 receive immediately, so the host errors together instead of
+  // members wedging until liveness eviction.
+  void AbortLocalWaiters();
+  void SenderLoop();
+  bool CountedSendFrame(Socket& sock, int peer, const std::string& payload);
+  void AddSent(int peer, size_t nbytes);
+  bool IsCrossHost(int peer) const;
+  // Latency-optimal small-payload allreduce over `ranks` (sorted global
+  // ranks containing rank_): binomial-tree reduce to ranks[0] +
+  // binomial broadcast back over direct peer links. 2*(|ranks|-1) total
+  // process wakeups on the critical path instead of the chunked ring's
+  // |ranks| wakeups per step x 2*(|ranks|-1) steps — the ring is
+  // bandwidth-optimal but latency-hostile for tiny tensors (the cached
+  // negotiation fast path's payload is a few bytes).
+  Status TreeAllreduce(void* buf, int64_t count, DataType dtype,
+                       ReduceOp op, const std::vector<int>& ranks);
+  // Bandwidth-optimal chunked ring allreduce over an arbitrary sorted
+  // rank subset (the cross-host leader leg) via direct peer links.
+  Status SubRingAllreduce(void* buf, int64_t count, DataType dtype,
+                          ReduceOp op, const std::vector<int>& ranks);
+
+  // Direct link to an arbitrary peer, established lazily on first use
+  // (lower rank dials, higher rank accepts with hello routing — accepts
+  // arriving out of order are stashed by rank). nullptr on failure.
+  Socket* PeerLink(int peer);
+
+  // Intra-host point-to-point transfer through the transport registry
+  // (shm first, TCP fallback). Falls back to a direct TCP PeerLink
+  // frame when ConfigureTransports was never called (standalone rings
+  // in tests).
+  bool LocalSend(TransportLeg leg, int peer, const void* buf,
+                 size_t nbytes);
+  bool LocalRecv(TransportLeg leg, int peer, void* buf, size_t nbytes);
+
+  // Per-tensor pairwise Adasum combine: a (mine) and b (partner's) are
+  // fragments laid out per `counts` in `work_dt` storage (fp32, or the
+  // caller's 16-bit float — then fp32 math with per-level rounding);
+  // scalars are reduced over the 2*level-rank block on a fixed binomial
+  // tree so every rank applies identical coefficients. `is_left` = this
+  // rank kept the low half.
+  Status PairwiseCombine(char* a, const char* b,
+                         const std::vector<int64_t>& counts, int level,
+                         bool is_left, DataType work_dt);
+  Status ScalarTreeAllreduce(std::vector<double>& vals, int span);
+
+  int rank_ = 0;
+  int size_ = 1;
+  Socket next_;
+  Socket prev_;
+
+  std::vector<std::pair<std::string, int>> endpoints_;
+  Listener* listener_ = nullptr;
+  std::map<int, Socket> peers_;
+
+  // Host topology (SetTopology): per-rank host group, my group's member
+  // ranks (sorted; front() is the local leader), and each group's leader
+  // in group order (groups ordered by cross_rank ascending).
+  std::vector<int> cross_ranks_;
+  std::vector<int> group_;
+  std::vector<std::vector<int>> groups_;
+  std::vector<int> leaders_;
+  int group_idx_ = -1;  // my group's index into leaders_/groups_
+
+  std::atomic<long long> bytes_sent_{0};
+  std::atomic<long long> local_bytes_sent_{0};
+  std::atomic<long long> cross_bytes_sent_{0};
+  std::atomic<long long> cross_ns_{0};
+  std::atomic<long long> link_reconnects_{0};
+  std::atomic<long long> resume_chunks_discarded_{0};
+  std::atomic<long long> stale_epoch_rejected_{0};
+
+  // Self-healing state, all confined to the posting (background) thread
+  // like peers_ itself. The seq maps count frames fully moved per peer
+  // on the healed cross-duplex path — what the resume handshake
+  // reconciles; lock-step duplex bounds the possible divergence to one
+  // frame per direction. cross_drop_at_/cross_duplex_n_ are the
+  // HVD_FAULT_CROSS_DROP seam (fire a link cut before the n-th cross
+  // duplex); stale_hello_fired_ the one-shot HVD_TEST_STALE_HELLO seam.
+  long long epoch_ = 0;
+  std::map<int, long long> cross_send_seq_;
+  std::map<int, long long> cross_recv_seq_;
+  long long cross_drop_at_ = -1;
+  long long cross_duplex_n_ = 0;
+  bool stale_hello_fired_ = false;
+
+  // Transport registry (ConfigureTransports). The TCP adapter wraps
+  // PeerLink/CountedSendFrame so the fallback keeps the split
+  // local/cross accounting; the shm and stripe backends count their own
+  // bytes. `cross_registry_` gates the CROSS legs: with striping off
+  // they keep the direct PeerLink duplex, zero negotiation overhead.
+  class TcpPeerBackend;
+  std::unique_ptr<TcpPeerBackend> tcp_backend_;
+  std::unique_ptr<ShmTransport> shm_;
+  std::unique_ptr<StripeTransport> stripe_;
+  std::unique_ptr<OperationManager> op_mgr_;
+  int shm_backend_id_ = -1;
+  int stripe_backend_id_ = -1;
+  bool cross_registry_ = false;
+
+  // One-slot send mailbox between the posting (background) thread and
+  // the persistent sender thread. Every field of the handoff is
+  // GUARDED_BY(send_mu_): the posting side fills the slot under the
+  // lock and notifies; the sender snapshots it under the lock, drains
+  // the send unlocked, then reports completion under the lock. The
+  // pointed-to payload/socket stay valid until send_done_ — the lock
+  // acquisition chain is the happens-before that makes the unlocked
+  // send safe.
+  std::thread sender_;
+  Mutex send_mu_;
+  CondVar send_cv_;
+  enum class SendKind { kTcpFrame, kStripe };
+  // socket for the pending send
+  SendKind send_kind_ GUARDED_BY(send_mu_) = SendKind::kTcpFrame;
+  Socket* send_sock_ GUARDED_BY(send_mu_) = nullptr;
+  // destination rank of the pending send
+  int send_peer_ GUARDED_BY(send_mu_) = -1;
+  // pending send request (one at a time)
+  const void* send_buf_ GUARDED_BY(send_mu_) = nullptr;
+  size_t send_bytes_ GUARDED_BY(send_mu_) = 0;
+  bool send_done_ GUARDED_BY(send_mu_) = true;
+  bool send_ok_ GUARDED_BY(send_mu_) = true;
+  bool sender_exit_ GUARDED_BY(send_mu_) = false;
+};
+
+}  // namespace hvd
+
+#endif  // HVD_RING_OPS_H_

@@ -1,0 +1,155 @@
+// Striped multi-socket cross-host transport (the leader-leg fast path).
+//
+// One TCP flow cannot fill a fat NIC: a single congestion window (and a
+// single kernel/NIC queue pairing) caps per-flow throughput well below
+// link rate, so the standard fix — K parallel connections per peer with
+// the payload round-robined across them — is what every >1 GB/s data
+// mover ships. This backend applies it to the only wire bytes left after
+// the shm transport (docs/shm-transport.md) moved the intra-host legs off
+// sockets: the cross-host leader legs of the two-level collectives
+// (docs/hierarchical.md).
+//
+// Wire shape (docs/cross-transport.md): each logical message splits into
+// pieces of at most HOROVOD_CHUNK_BYTES; piece seq rides a fixed 12-byte
+// header (message.h kStripeMagic/EncodeStripeHdr) and stripe seq % K, so
+// reassembly is order-proof — the receiver places each piece by its
+// deterministic span regardless of cross-stripe arrival order. Sends are
+// scatter-gather (one sendmsg per piece: header iovec + payload-slice
+// iovec, zero staging copies); receives poll() across the K stripe fds
+// and make incremental non-blocking progress per stripe, firing an
+// optional per-piece callback the moment a piece completes — the hook
+// the pipelined ring steps use to overlap accumulation with the pieces
+// still in flight.
+//
+// Registered behind OperationManager (op_manager.h) ahead of the
+// single-socket TCP backend for the CROSS legs; a connect failure at
+// Prepare falls through to plain TCP in lock-step (before any payload or
+// control frame names this backend), and HOROVOD_STRIPE_FALLBACK=0 turns
+// that into a hard error instead. Connection establishment is lazy and
+// per ORDERED pair: the sender dials K sockets (hello "stripe <rank>
+// <idx>" on the receiver's data listener — backlog absorbs the dials, so
+// no accept need be pending), and the receiver adopts them when the
+// control frame announces the choice.
+
+// Thread posture: pair state is background-cycle-thread confined except
+// the established sockets, which the sender thread uses after the
+// send-mailbox handoff (Ring::send_mu_ is the happens-before); the
+// observability counters (bytes_sent_/pairs_live_/stripes_) are
+// std::atomic for lock-free getters — the GUARDED_BY vs atomic rule of
+// thread_annotations.h, atomic side.
+//
+#ifndef HVD_STRIPE_TRANSPORT_H_
+#define HVD_STRIPE_TRANSPORT_H_
+
+#include <atomic>
+#include <functional>
+#include <map>
+#include <string>
+#include <utility>
+#include <vector>
+
+#include "op_manager.h"
+#include "socket.h"
+
+namespace hvd {
+
+class StripeTransport : public TransportBackend {
+ public:
+  // Fired as each received piece completes: (byte offset, byte length)
+  // within the destination buffer. Pieces cover disjoint spans, so the
+  // caller may consume them in any completion order.
+  using PieceFn = std::function<void(size_t off, size_t len)>;
+  // Pump the owner's accept loop until every stripe dialed by `peer`
+  // has been adopted (via Adopt) or the pump fails. Injected because
+  // accepts funnel through the Ring's shared data listener, whose
+  // stray-hello stashing the Ring owns.
+  using AcceptPump = std::function<bool(int peer)>;
+
+  // Hard ceiling on K: RecvPieces polls across a fixed 64-entry fd set,
+  // and every producer of a stripe count (env parse, tuner hint, wire
+  // sync) must clamp to this so no stripe can land beyond the poll set.
+  static constexpr int kMaxStripes = 32;
+
+  StripeTransport() = default;
+  ~StripeTransport() override = default;
+  StripeTransport(const StripeTransport&) = delete;
+  StripeTransport& operator=(const StripeTransport&) = delete;
+
+  // `endpoints[r]` = rank r's data-plane (host, listener port) — where
+  // stripe dials go. `stripes` <= 1 leaves the backend disabled (the
+  // single-socket path needs no registry hop).
+  // `epoch` is the world incarnation stamped into every stripe dial
+  // hello ("stripe <rank> <idx> <epoch>") so the receiver's accept loop
+  // can fence dials from a torn-down world (docs/self-healing.md).
+  void Init(int rank,
+            const std::vector<std::pair<std::string, int>>& endpoints,
+            int stripes, long long chunk_bytes, bool allow_fallthrough,
+            AcceptPump pump, long long epoch = 0);
+
+  const char* Name() const override { return "stripe"; }
+  bool Enabled() const override { return stripes_.load() > 1; }
+  bool FallthroughAllowed() const override { return allow_fallthrough_; }
+  // Sender side: dial K connections to `peer` (forced to fail under
+  // HVD_STRIPE_FORCE_CONNECT_FAIL — the ring.stripe.connect seam's
+  // native half). false = the negotiation moves down the priority list.
+  bool Prepare(int peer) override;
+  // Receiver side: adopt the K connections `peer` dialed (stashed by
+  // the accept loops or pumped now).
+  bool PrepareRecv(int peer) override;
+  int Send(int peer, const void* buf, size_t nbytes) override;
+  int Recv(int peer, void* buf, size_t nbytes) override;
+  // Recv with the per-piece completion hook (the pipelined ring step's
+  // entry point); data lands in `buf` at each piece's span.
+  int RecvPieces(int peer, void* buf, size_t nbytes, const PieceFn& fn);
+
+  // Accept-loop handoff: a stripe hello ("stripe <peer> <idx>") arrived
+  // on the shared listener; store the socket for PrepareRecv.
+  void Adopt(int peer, int idx, Socket s);
+  bool HasAllStripes(int peer) const;
+
+  // Frame-synced stripe-count apply (autotuner): close every pair's
+  // connections and install the new K. The caller (Ring) resets the
+  // CROSS legs' agreements at the same response boundary on every rank,
+  // so both sides of each pair renegotiate in lock-step.
+  void SetStripes(int k);
+  int stripes() const { return stripes_.load(); }
+
+  // Observability (atomics: polled by monitor threads through shutdown
+  // — the getter-race class). `active_stripes` reports K once at
+  // least one pair actually carries striped traffic, else 0 — the
+  // transport-choice surface bench.py records must not claim striping
+  // when every pair fell back.
+  long long bytes_sent() const { return bytes_sent_.load(); }
+  int active_stripes() const {
+    return pairs_live_.load() > 0 ? stripes_.load() : 0;
+  }
+
+ private:
+  struct Pair {
+    std::vector<Socket> socks;  // exactly `stripes` once established
+    uint32_t next_seq = 0;      // running piece sequence, one direction
+    bool live = false;          // counted in pairs_live_ (recv side)
+  };
+
+  int rank_ = -1;
+  long long epoch_ = 0;
+  std::vector<std::pair<std::string, int>> endpoints_;
+  std::atomic<int> stripes_{1};
+  long long chunk_bytes_ = 256 << 10;
+  bool allow_fallthrough_ = true;
+  AcceptPump pump_;
+  // Ordered-pair state: `send_pairs_` toward peers this rank dialed,
+  // `recv_pairs_` from peers whose dials this rank adopted. Touched
+  // only under the background thread's control flow (negotiation and
+  // receive) except the established sockets, which the sender thread
+  // uses after a happens-before handoff (the send-job mutex).
+  std::map<int, Pair> send_pairs_;
+  std::map<int, Pair> recv_pairs_;
+
+  std::atomic<long long> bytes_sent_{0};
+  std::atomic<int> pairs_live_{0};
+};
+
+}  // namespace hvd
+
+#endif  // HVD_STRIPE_TRANSPORT_H_

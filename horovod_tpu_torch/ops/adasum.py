@@ -162,11 +162,17 @@ def _local_gather(block, local, pad):
     return full[:full.numel() - pad] if pad else full
 
 
-def hierarchical_adasum_allreduce(tensor: torch.Tensor) -> torch.Tensor:
+def _world_hosts():
+    return _state.axis_group("local"), _state.axis_group("cross")
+
+
+def hierarchical_adasum_allreduce(tensor: torch.Tensor, hosts=None
+                                  ) -> torch.Tensor:
     """Plain sum over the local group, Adasum across the cross group (a
     power-of-two size) with each scalar summed over the local group,
-    then a local all-gather."""
-    local, cross = _state.axis_group("local"), _state.axis_group("cross")
+    then a local all-gather. ``hosts``: the (local, cross) pair of
+    ``AxisGroup``s to run on (default the world's)."""
+    local, cross = hosts or _world_hosts()
     _check(cross.size, "hierarchical Adasum (cross size)")
     a, pad = _local_scatter(tensor.reshape(-1).float(), local)
     level = 1
@@ -181,13 +187,14 @@ def hierarchical_adasum_allreduce(tensor: torch.Tensor) -> torch.Tensor:
     return _local_gather(a, local, pad).view(tensor.shape).to(tensor.dtype)
 
 
-def grouped_hierarchical_adasum_allreduce(tensors: Sequence[torch.Tensor]
-                                          ) -> List[torch.Tensor]:
+def grouped_hierarchical_adasum_allreduce(tensors: Sequence[torch.Tensor],
+                                          hosts=None) -> List[torch.Tensor]:
     """``hierarchical_adasum_allreduce`` of a list on its fused flat, with
     per-tensor coefficients: each local rank's block keeps the segment
     lengths of the tensors it covers (the padding is a segment of its
-    own), and the scalars are summed over the local group."""
-    local, cross = _state.axis_group("local"), _state.axis_group("cross")
+    own), and the scalars are summed over the local group. ``hosts`` as
+    in ``hierarchical_adasum_allreduce``."""
+    local, cross = hosts or _world_hosts()
     _check(cross.size, "hierarchical Adasum (cross size)")
     if not tensors:
         return []

@@ -291,7 +291,8 @@ class _Done:
 
 def hierarchical_allreduce(tensor, op: int = ReduceOp.AVERAGE,
                            prescale_factor: float = 1.0,
-                           postscale_factor: float = 1.0, compression=None):
+                           postscale_factor: float = 1.0, compression=None,
+                           hosts=None):
     """All-reduce over the world in three legs: reduce-scatter on the
     local group, all-reduce of the shards on the cross group, all-gather
     on the local group (``ops/xla.hierarchical_allreduce``, the reference's
@@ -299,12 +300,14 @@ def hierarchical_allreduce(tensor, op: int = ReduceOp.AVERAGE,
     to a multiple of the local size. Every leg travels at the
     accumulation dtype (fp32 for 16-bit inputs) or, with
     ``compression``, in the wire dtype; averaging and postscale run on
-    the result as in ``allreduce``. Sum and Average only."""
+    the result as in ``allreduce``. Sum and Average only. ``hosts``: the
+    (local, cross) pair of ``AxisGroup``s to run on (default the
+    world's)."""
     if op not in (ReduceOp.SUM, ReduceOp.AVERAGE):
         _check_op(op)
         raise ValueError(f"hierarchical allreduce supports Sum and Average, "
                          f"got op {op}")
-    local, cross = _state.axis_group("local"), _state.axis_group("cross")
+    local, cross = hosts or host_groups()
     wire = _wire(tensor, compression)
     acc = _to_acc(tensor, prescale_factor, wire)
     flat = acc.reshape(-1)
@@ -323,22 +326,24 @@ def grouped_hierarchical_allreduce(tensors: Sequence[torch.Tensor],
                                    op: int = ReduceOp.AVERAGE,
                                    prescale_factor: float = 1.0,
                                    postscale_factor: float = 1.0,
-                                   bucket_cap_bytes=None, compression=None
-                                   ) -> List[torch.Tensor]:
+                                   bucket_cap_bytes=None, compression=None,
+                                   hosts=None) -> List[torch.Tensor]:
     """``hierarchical_allreduce`` of a list of tensors, fused into the
     buckets ``grouped_allreduce`` plans; each bucket runs all three legs
     before the next starts. Adasum: a plain sum within the local group,
     Adasum across the cross group, per tensor
-    (``ops/adasum.grouped_hierarchical_adasum_allreduce``)."""
+    (``ops/adasum.grouped_hierarchical_adasum_allreduce``). ``hosts`` as
+    in ``hierarchical_allreduce``."""
     if op == ReduceOp.ADASUM:
         from .adasum import grouped_hierarchical_adasum_allreduce
 
-        return _adasum_grouped(tensors, grouped_hierarchical_adasum_allreduce,
-                               prescale_factor, postscale_factor,
-                               bucket_cap_bytes)
+        return _adasum_grouped(
+            tensors,
+            lambda chunk: grouped_hierarchical_adasum_allreduce(chunk, hosts),
+            prescale_factor, postscale_factor, bucket_cap_bytes)
     return _grouped(
         tensors, lambda flat, comp: _Done(hierarchical_allreduce(
-            flat, op, prescale_factor, postscale_factor, comp)),
+            flat, op, prescale_factor, postscale_factor, comp, hosts)),
         bucket_cap_bytes, compression)
 
 
@@ -348,12 +353,18 @@ def allgather(tensor, axis=None) -> torch.Tensor:
     return allgather_along(tensor, 0, axis or _world())
 
 
-def hierarchical_allgather(tensor) -> torch.Tensor:
+def hierarchical_allgather(tensor, hosts=None) -> torch.Tensor:
     """``allgather`` over the world in two legs: on the local group, then
     the local blocks on the cross group. The cross-major layout (``rank =
-    cross * local_size + local``) makes that the world's rank order."""
-    local = allgather_along(tensor, 0, _state.axis_group("local"))
-    return allgather_along(local, 0, _state.axis_group("cross"))
+    cross * local_size + local``) makes that the world's rank order.
+    ``hosts`` as in ``hierarchical_allreduce``."""
+    local, cross = hosts or host_groups()
+    return allgather_along(allgather_along(tensor, 0, local), 0, cross)
+
+
+def host_groups():
+    """The world's (local, cross) ``AxisGroup``s."""
+    return _state.axis_group("local"), _state.axis_group("cross")
 
 
 def _reduce_scatter(acc, dist_op, axis):

@@ -51,21 +51,20 @@ LR, STEPS = 0.1, 2
 
 WORKER = torch_worlds.WORLD_PRELUDE + r"""
 import horovod_tpu_torch as hvd
-from horovod_tpu_torch.ops import adasum
+from horovod_tpu_torch.ops import adasum, collectives
 
 hvd.init(device="cpu")
 t = lambda k: torch.from_numpy(inp[k])
 v = t(f"v{rank}")
 res["flat"] = adasum.adasum_allreduce(v).numpy()
 res["flat-bf16"] = adasum.adasum_allreduce(v.bfloat16()).float().numpy()
-res["op-flat"] = hvd.allreduce(v, op=hvd.Adasum).numpy()
+res["op-flat"] = collectives.allreduce(v, op=hvd.Adasum).numpy()
 group = [t(f"g{rank}_{i}") for i in range(spec["n_group"])]
 for i, o in enumerate(adasum.grouped_adasum_allreduce(group)):
     res[f"grouped/{i}"] = o.numpy()
-for i, o in enumerate(hvd.grouped_allreduce(group, op=hvd.Adasum,
-                                            bucket_cap_bytes=64,
-                                            prescale_factor=0.5,
-                                            postscale_factor=3.0)):
+for i, o in enumerate(collectives.grouped_allreduce(
+        group, op=hvd.Adasum, bucket_cap_bytes=64, prescale_factor=0.5,
+        postscale_factor=3.0)):
     res[f"op-grouped/{i}"] = o.numpy()
 res["hier"] = adasum.hierarchical_adasum_allreduce(v).numpy()
 hgroup = [t(f"h{rank}_{i}") for i in range(spec["n_hgroup"])]

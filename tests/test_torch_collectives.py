@@ -24,7 +24,7 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from horovod_tpu.ops import xla
 from horovod_tpu_torch.ops import collectives as coll
 
-from proc_harness import free_port
+from torch_worlds import free_port_pair
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPES = [(5, 3), (7,), (4, 4)]
@@ -53,6 +53,7 @@ import json, sys
 import numpy as np
 import torch
 import horovod_tpu_torch as hvd
+from horovod_tpu_torch.ops import collectives
 
 cases = json.loads(sys.argv[1])
 inputs = np.load(sys.argv[2])
@@ -62,7 +63,7 @@ res = {}
 for ci, c in enumerate(cases):
     ts = [torch.from_numpy(inputs[f"r{r}_{i}"]).to(getattr(torch, c["dtype"]))
           for i in range(len(inputs.files) // 2)]
-    outs = hvd.grouped_allreduce(
+    outs = collectives.grouped_allreduce(
         ts, op=c["op"], prescale_factor=c["pre"], postscale_factor=c["post"],
         bucket_cap_bytes=c["cap"], compression=c["comp"])
     for i, o in enumerate(outs):
@@ -70,7 +71,8 @@ for ci, c in enumerate(cases):
         res[f"c{ci}_{i}"] = o.double().numpy()
     assert all(torch.equal(t, torch.from_numpy(inputs[f"r{r}_{i}"]).to(
         t.dtype)) for i, t in enumerate(ts)), "input modified"
-res["bcast"] = hvd.broadcast(torch.full((3,), float(r)), root_rank=1).numpy()
+res["bcast"] = collectives.broadcast(torch.full((3,), float(r)),
+                                    root_rank=1).numpy()
 model = torch.nn.Linear(3, 2)
 with torch.no_grad():
     for p in model.parameters():
@@ -78,7 +80,7 @@ with torch.no_grad():
 hvd.broadcast_parameters(model.state_dict(), root_rank=0)
 res["bparams"] = torch.cat([p.detach().reshape(-1)
                             for p in model.parameters()]).numpy()
-res["single"] = hvd.allreduce(torch.tensor([r + 1.0])).numpy()
+res["single"] = collectives.allreduce(torch.tensor([r + 1.0])).numpy()
 lin = torch.nn.Linear(4, 3)
 with torch.no_grad():
     for p in lin.parameters():
@@ -109,7 +111,7 @@ def world(tmp_path_factory):
     inputs = tmp / "inputs.npz"
     np.savez(inputs, **_inputs())
     outs = [tmp / f"rank{r}.npz" for r in range(2)]
-    port = free_port()
+    port = free_port_pair()
     procs = []
     for r in range(2):
         env = dict(os.environ, HOROVOD_RANK=str(r), HOROVOD_SIZE="2",

@@ -68,7 +68,7 @@ from horovod_tpu_torch.opt import RESIDUAL_KEY
 from horovod_tpu_torch.training import (init_train_state, make_train_step,
                                         shard_batch)
 
-from proc_harness import free_port
+from torch_worlds import free_port_pair
 from test_torch_image_models import _fill
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -242,7 +242,7 @@ def world(tmp_path_factory):
     (tmp / "spec.json").write_text(json.dumps(
         {"modes": MODES, "kw": KW, "steps": STEPS, "bucket_cap": 65536}))
     outs = [tmp / f"rank{r}.npz" for r in range(2)]
-    port = free_port()
+    port = free_port_pair()
     procs = []
     for r in range(2):
         env = dict(os.environ, HOROVOD_RANK=str(r), HOROVOD_SIZE="2",

@@ -26,7 +26,8 @@ for name in ("parallel", "parallel.mesh", "parallel.ring_attention",
              "parallel.ulysses", "parallel.moe", "parallel.pipeline",
              "models.image_layers", "models.resnet", "models.vgg",
              "models.inception", "image_bench", "zero", "checkpoint",
-             "ops.adasum"):
+             "ops.adasum", "ops.eager", "common.native", "common.metrics",
+             "common.logging"):
     assert "horovod_tpu_torch." + name in names, name
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib",
                                                            "horovod_tpu"))

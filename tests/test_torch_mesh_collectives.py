@@ -63,6 +63,7 @@ _JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 
 WORKER4 = torch_worlds.WORLD_PRELUDE + r"""
 import horovod_tpu_torch as hvd
+from horovod_tpu_torch.ops import collectives
 
 hvd.init(device="cpu")
 res["topo"] = np.array([hvd.rank(), hvd.local_rank(), hvd.local_size(),
@@ -70,11 +71,11 @@ res["topo"] = np.array([hvd.rank(), hvd.local_rank(), hvd.local_size(),
 res["local"] = np.array(hvd.axis_group("local").ranks)
 res["cross"] = np.array(hvd.axis_group("cross").ranks)
 x = torch.from_numpy(inp[f"x{rank}"])
-res["allgather"] = hvd.allgather(x).numpy()
-res["reducescatter-sum"] = hvd.reducescatter(x, op=hvd.Sum).numpy()
-res["reducescatter-avg"] = hvd.reducescatter(x, op=hvd.Average).numpy()
-res["alltoall"] = hvd.alltoall(x).numpy()
-res["barrier"] = hvd.barrier().numpy()
+res["allgather"] = collectives.allgather(x).numpy()
+res["reducescatter-sum"] = collectives.reducescatter(x, op=hvd.Sum).numpy()
+res["reducescatter-avg"] = collectives.reducescatter(x, op=hvd.Average).numpy()
+res["alltoall"] = collectives.alltoall(x).numpy()
+res["barrier"] = collectives.barrier().numpy()
 res["hier-allgather"] = hvd.hierarchical_allgather(x).numpy()
 for n, c in spec["hier"].items():
     t = torch.from_numpy(inp[f"h{rank}"]).to(getattr(torch, c["dtype"]))

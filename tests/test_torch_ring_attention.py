@@ -50,7 +50,7 @@ from horovod_tpu_torch.ops import flash_attention as fa
 from horovod_tpu_torch.parallel import mesh as tmesh
 from horovod_tpu_torch.parallel import ulysses as tul
 
-from proc_harness import free_port
+from torch_worlds import free_port_pair
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -296,7 +296,7 @@ def _launch(size, tmp):
     np.savez(tmp / "inputs.npz", **inputs)
     (tmp / "spec.json").write_text(json.dumps(_spec(size)))
     outs = [tmp / f"rank{r}.npz" for r in range(size)]
-    port = free_port()
+    port = free_port_pair()
     procs = []
     for r in range(size):
         env = dict(os.environ, HOROVOD_RANK=str(r), HOROVOD_SIZE=str(size),

@@ -2,7 +2,8 @@
 
 ``launch`` starts ``size`` processes of ``python -c worker spec inputs
 out_0 .. out_{size-1}`` with the launcher environment of one host
-(``HOROVOD_RANK/SIZE/LOCAL_*``, a free controller port); each rank writes
+(``HOROVOD_RANK/SIZE/LOCAL_*``, a free controller port whose successor,
+the native controller's port, is free too); each rank writes
 its results to ``out_<rank>`` as an ``.npz``. ``results`` waits for every
 rank (killing them all past the timeout) and returns each rank's results.
 A worker that sets ``dist.init_process_group`` itself (``WORLD_PRELUDE``)
@@ -16,7 +17,7 @@ import sys
 
 import numpy as np
 
-from proc_harness import free_port
+from horovod_tpu_torch.common.config import free_port_pair
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -77,7 +78,7 @@ def launch(worker: str, size: int, tmp, spec: dict, inputs: dict,
     np.savez(tmp / "inputs.npz", **inputs)
     (tmp / "spec.json").write_text(json.dumps(spec))
     outs = [tmp / f"rank{r}.npz" for r in range(size)]
-    port = free_port()
+    port = free_port_pair()
     procs = []
     for r in range(size):
         renv = dict(os.environ, HOROVOD_RANK=str(r), HOROVOD_SIZE=str(size),
