@@ -4,7 +4,8 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --time-tree DIR   # kernel times of one checkout
 
-Phases, in order (a, b, c, e, f, g, h, i, d); any failure exits nonzero:
+Phases, in order (a, b, c, e, f, g, h, i, j, d); any failure exits
+nonzero:
 
 (a) device and build: the card, its power limit, the torch and CUDA
     versions; every kernel of ``horovod_tpu_torch/csrc`` built with nvcc
@@ -128,6 +129,34 @@ Phases, in order (a, b, c, e, f, g, h, i, d); any failure exits nonzero:
     seed takes rank 0's parameters by named broadcasts
     (``bcast.param.{i}``): bitwise equal after. No kernel of the port runs
     here (host C++ and NCCL).
+(j) the runtime planes around the native core. First a host world without
+    ``hvd.init`` (``--host-worker``): four processes as two hosts of two,
+    the shm transport and the hierarchical allreduce armed, staging
+    (``HOROVOD_HOST_VIA_XLA=1``, threshold 1 KiB) on cuda:0. On the ring:
+    allreduce, allgather and broadcast of CPU tensors in fp32, bf16, fp16,
+    int32 and int64 against analytic values; ``ring_traffic()`` shows local
+    and shm bytes. Staged through NCCL: ResNet-50's gradient bytes in one
+    fp32 tensor (timed, and timed again on the ring by ``ring_only``;
+    within 1e-6 of the ring's result and of an fp64 sum), bf16, fp16,
+    int32 and Average equal to the ring's, a broadcast and a ragged
+    allgather; int64, fp64 and the tensors under 1 KiB stay on the ring:
+    rank 0's timeline shows ``NCCL_*`` for the staged tensors and nothing
+    for the others. Then two ranks of the eager plane
+    (``--planes-worker``, one NCCL world for two ``hvd.init``): (i)'s
+    ResNet-50 workload for 6 steps with ``HOROVOD_TIMELINE`` on rank 0,
+    ``HOROVOD_AUTOTUNE=1`` (a short schedule, so the tuner pins within
+    the phase) and ``HOROVOD_METRICS_EXPORT``: every step bitwise equal to
+    ``grouped_allreduce``, every gradient's ``NEGOTIATE_ALLREDUCE`` then
+    ``NCCL_ALLREDUCE`` in the trace, a response's time split p50/p99
+    (enqueue to negotiated, negotiated to the executor's start, the NCCL
+    activity), the pinned point and the responses a step; the Prometheus
+    textfile parses and holds those counters. Then ``HOROVOD_FAULT_SPEC``
+    fires ``xla.exec`` on rank 1 at its third response and ``zero.gather``
+    at its second stage-3 step of a small model: the call raises
+    ``HorovodInternalError`` on both ranks, those before and after
+    complete. Last ``image_bench`` at dp=2 with ``--fault-spec``: the
+    ring fields are there and not negative. No kernel of the port runs
+    here.
 (d) the kernel table as one JSON line, the card's name and power limit,
     and last the result line ``{"ok": true, "device": {...}}``.
 """
@@ -585,13 +614,13 @@ def sdpa_times(q, k, v, do, causal, mask=None):
     return fwd, bwd
 
 
-def sdpa_state_ms(q, k, v):
-    """PyTorch's fused non-causal attention forward that also returns the
-    lse (``_scaled_dot_product_flash_attention``) on the same [B, H, T, D]
-    views: one call that computes a K/V block's state in normalized form
-    ((O, lse) rather than (acc, m, l)), a yardstick the port never calls.
-    Logs how far its O and lse are from the plain state's acc / l and
-    m + log l. Returns its ms."""
+def sdpa_state_ms(q, k, v, causal=False):
+    """PyTorch's fused attention forward that also returns the lse
+    (``_scaled_dot_product_flash_attention``, causal or not) on the same
+    [B, H, T, D] views: one call that computes a K/V block's state in
+    normalized form ((O, lse) rather than (acc, m, l)), a yardstick the
+    port never calls. Logs how far its O and lse are from the plain
+    state's acc / l and m + log l. Returns its ms."""
     import torch
 
     from horovod_tpu_torch.ops import flash_attention as fa
@@ -600,12 +629,13 @@ def sdpa_state_ms(q, k, v):
 
     def call():
         return torch.ops.aten._scaled_dot_product_flash_attention(
-            qt, kt, vt, 0.0, False)[:2]
+            qt, kt, vt, 0.0, causal)[:2]
 
     ms = time_ms(call)
     o, lse = call()
-    acc, m, l = fa.flash_fwd_state_plain(q, k, v, causal=False)
-    log(f"  library (_scaled_dot_product_flash_attention, (O, lse), "
+    acc, m, l = fa.flash_fwd_state_plain(q, k, v, causal=causal)
+    log(f"  library (_scaled_dot_product_flash_attention"
+        f"{', causal' if causal else ''}, (O, lse), "
         f"yardstick): {ms:.4f} ms; against the plain state: O rel_err "
         f"{rel_err(o.transpose(1, 2), acc / l.transpose(1, 2)[..., None]):.3e}"
         f", lse rel_err {rel_err(lse, m + torch.log(l)):.3e}")
@@ -722,12 +752,13 @@ def ring_inputs():
 
 
 def ring_case():
-    """The ring's block kernels on ``ring_inputs()``: the state mode and
-    the fp32 dQ in the past, diagonal and future blocks; the fp32 dK/dV in
-    the past and diagonal blocks; the backward with the global lse and
-    delta. In the future block every tile is culled, and the state must be
-    exactly empty and dQ exactly 0. Returns the state and fp32 rows (timed
-    at the past block, where every pair is visible)."""
+    """The ring's block kernels on ``ring_inputs()``: the state mode, the
+    fp32 dQ and the fp32 dK/dV in the past, diagonal and future blocks;
+    the backward with the global lse and delta. In the future block every
+    tile is culled, and the state must be exactly empty and dQ, dK and dV
+    exactly 0. Returns the state and fp32 rows (timed at the past block,
+    where every pair is visible; the library is timed at the past and
+    diagonal blocks)."""
     import torch
 
     from horovod_tpu_torch.ops import flash_attention as fa
@@ -737,9 +768,9 @@ def ring_case():
     table = {}
     for name, (k, v, q_off, k_off) in blocks.items():
         kw = dict(causal=True, q_off=q_off, k_off=k_off, window=None)
-        names = ["flash_fwd_state", "flash_bwd_dq_f32"]
-        if name != "future":
-            names += ["flash_bwd_dkv_f32"]
+        # The ring's backward launches dK/dV on every block, the future
+        # one too (rank 0's second step at sp=2).
+        names = ["flash_fwd_state", "flash_bwd_dq_f32", "flash_bwd_dkv_f32"]
         log(f"case ring-{name}: B={B} Tq=Tk={T} H={H} D={D} {dt} causal "
             f"q_off={q_off} k_off={k_off}, q/k/v views of one [B,T,3,H,D], "
             f"global lse/delta")
@@ -753,19 +784,26 @@ def ring_case():
                 raise AssertionError("future block: state is not the empty "
                                      "state (acc 0, m -1e30, l 0)")
             (dq_k,) = calls["flash_bwd_dq_f32"][0]()
-            if not torch.all(dq_k == 0):
-                raise AssertionError("future block: fp32 dQ is not exactly 0")
-            log("  future block: state empty and fp32 dQ exactly 0")
+            dk_k, dv_k = calls["flash_bwd_dkv_f32"][0]()
+            if not (torch.all(dq_k == 0) and torch.all(dk_k == 0)
+                    and torch.all(dv_k == 0)):
+                raise AssertionError("future block: fp32 dQ, dK or dV is "
+                                     "not exactly 0")
+            log("  future block: state empty and fp32 dQ, dK and dV exactly "
+                "0; no library call computes a block with no visible pair")
         if name == "past":
             refuse(dropped_tile_faults(*args, kw, names), refs, dt,
                    "last tile dropped")
         library = {}
-        if name == "past":
-            # Same work, block-local normalization: the non-causal fused
-            # attention over this block, whose (O, lse) is the block's
-            # state normalized (acc = O * l, m + log l = lse).
-            _, bwd = sdpa_times(q, k, v, do, causal=False)
-            library = {"flash_fwd_state": sdpa_state_ms(q, k, v),
+        if name != "future":
+            # Same work, block-local normalization: the fused attention
+            # over this block (non-causal in the past block, causal in the
+            # diagonal one), whose (O, lse) is the block's state normalized
+            # (acc = O * l, m + log l = lse).
+            causal_block = name == "diagonal"
+            _, bwd = sdpa_times(q, k, v, do, causal=causal_block)
+            library = {"flash_fwd_state": sdpa_state_ms(q, k, v,
+                                                        causal_block),
                        "flash_bwd_dq_f32": bwd, "flash_bwd_dkv_f32": bwd}
         pairs = B * H * visible_pairs(T, T, True, q_off, k_off)
         rows = time_rows(calls, (B, T, T, H, D), dt, pairs, library, errs)
@@ -990,15 +1028,17 @@ def sp_worker(out_path):
     return 0
 
 
-def run_workers(flag, n, timeout_s, inputs=None):
+def run_workers(flag, n, timeout_s, inputs=None, local_size=None,
+                env=None):
     """``n`` processes of this script (``flag``: ``--sp-worker``,
-    ``--dp-worker``, ``--mp-worker``, ``--zero-worker`` or
-    ``--eager-worker``), ranks of one NCCL world on
-    cuda:0, each with its own ``NCCL_HOSTID`` and sockets over ``lo``;
-    ``inputs`` (any object) is saved beside their results as
-    ``inputs.pt``. Their logs are printed and each rank's JSON result
-    returned. Any worker that fails or outlives ``timeout_s`` fails the
-    phase."""
+    ``--dp-worker``, ``--mp-worker``, ``--zero-worker``,
+    ``--eager-worker``, ``--host-worker`` or ``--planes-worker``), ranks
+    of one NCCL world on cuda:0, each with its own ``NCCL_HOSTID`` and
+    sockets over ``lo``; ``local_size`` ranks to a host (default all,
+    cross-major), ``env`` added to their environment. ``inputs`` (any
+    object) is saved beside their results as ``inputs.pt``. Their logs are
+    printed and each rank's JSON result returned. Any worker that fails or
+    outlives ``timeout_s`` fails the phase."""
     import torch
 
     from horovod_tpu_torch.common.config import free_port_pair
@@ -1009,17 +1049,20 @@ def run_workers(flag, n, timeout_s, inputs=None):
     if inputs is not None:
         torch.save(inputs, tmp / "inputs.pt")
     procs = []
+    local_size = local_size or n
     for r in range(n):
-        env = dict(os.environ, HOROVOD_RANK=str(r), HOROVOD_SIZE=str(n),
-                   HOROVOD_LOCAL_RANK=str(r), HOROVOD_LOCAL_SIZE=str(n),
-                   HOROVOD_CONTROLLER_ADDR="127.0.0.1",
-                   HOROVOD_CONTROLLER_PORT=str(port),
-                   NCCL_HOSTID=f"chip-smoke-rank{r}",
-                   NCCL_IB_DISABLE="1", NCCL_SOCKET_IFNAME="lo")
+        renv = dict(os.environ, **(env or {}), HOROVOD_RANK=str(r),
+                    HOROVOD_SIZE=str(n),
+                    HOROVOD_LOCAL_RANK=str(r % local_size),
+                    HOROVOD_LOCAL_SIZE=str(local_size),
+                    HOROVOD_CONTROLLER_ADDR="127.0.0.1",
+                    HOROVOD_CONTROLLER_PORT=str(port),
+                    NCCL_HOSTID=f"chip-smoke-rank{r}",
+                    NCCL_IB_DISABLE="1", NCCL_SOCKET_IFNAME="lo")
         with open(tmp / f"log{r}.txt", "w") as logf:
             procs.append(subprocess.Popen(
                 [sys.executable, str(Path(__file__).resolve()), flag,
-                 str(tmp / f"rank{r}.json")], env=env,
+                 str(tmp / f"rank{r}.json")], env=renv,
                 stdout=logf, stderr=subprocess.STDOUT))
     t0 = time.perf_counter()
     try:
@@ -2184,12 +2227,13 @@ def eager_small_checks(rank):
     return done
 
 
-def eager_resnet(rank, eng):
+def eager_resnet(rank, eng, steps=EAGER_STEPS, after_step=None):
     """ResNet-50 (f)'s workload, each rank its own batch: every gradient
     submitted by name from its post-accumulate hook as it is made, then
     every handle synchronized; each step held to
     ``ops.collectives.grouped_allreduce(op=Sum)`` of the same gradients,
-    bitwise (a sum of two is exact in either order)."""
+    bitwise (a sum of two is exact in either order). ``after_step()``, when
+    given, adds its dict to each step's record."""
     import numpy as np
     import torch
 
@@ -2219,8 +2263,8 @@ def eager_resnet(rank, eng):
 
     for name, p in params:
         p.register_post_accumulate_grad_hook(hook(name))
-    steps = []
-    for step in range(EAGER_STEPS):
+    records = []
+    for _ in range(steps):
         model.zero_grad(set_to_none=True)
         handles.clear()
         submits.clear()
@@ -2237,17 +2281,18 @@ def eager_resnet(rank, eng):
         diff = max(float((reduced[n] - w).norm() / w.norm().clamp_min(1e-30))
                    for (n, _), w in zip(params, want))
         sizes = [n for _, n in list(eng.response_sizes)[n_resp:]]
-        steps.append({"loss": loss.item(), "tensors": len(handles),
-                      "elements": sum(g.numel() for g in grads),
-                      "responses": len(sizes), "tensors_per_response": sizes,
-                      "cache_hits": core.cache_hits() - hits,
-                      "submit_span_ms": 1e3 * (submits[-1] - submits[0]),
-                      "wall_ms": wall_ms, "bitwise_equal": equal,
-                      "rel_diff": diff})
+        records.append({
+            "loss": loss.item(), "tensors": len(handles),
+            "elements": sum(g.numel() for g in grads),
+            "responses": len(sizes), "tensors_per_response": sizes,
+            "cache_hits": core.cache_hits() - hits,
+            "submit_span_ms": 1e3 * (submits[-1] - submits[0]),
+            "wall_ms": wall_ms, "bitwise_equal": equal, "rel_diff": diff,
+            **(after_step() if after_step else {})})
     hist = metrics.snapshot(drain=False)["native"]["histograms"]
     lat = {k: metrics.percentiles(hist[k], (50, 99))
            for k in ("enq_to_neg_allreduce_us", "neg_to_done_allreduce_us")}
-    return {"steps": steps, "latency_us": lat}
+    return {"steps": records, "latency_us": lat}
 
 
 def eager_broadcast_params(rank):
@@ -2358,6 +2403,508 @@ def eager_phase(gpu):
     if r0["bcast"]["after"] != r0["bcast"]["before"]:
         raise AssertionError("(i) rank 0's parameters changed")
     log(f"    (i) took {time.perf_counter() - t0:.1f} s")
+
+
+# ---- (j) the runtime planes --------------------------------------------------
+
+HOST_RANKS, HOST_LOCAL = 4, 2   # (j)'s host world: two hosts of two ranks
+HOST_TIMEOUT_S = 240
+PLANES = 2                      # ranks of (j)'s eager part, both on cuda:0
+PLANES_TIMEOUT_S = 300
+STAGE_THRESHOLD = 1024          # HOROVOD_HOST_VIA_XLA_THRESHOLD in (j)
+PLANES_STEPS = 6                # ResNet-50 steps under the tuner
+# The tuner's schedule in (j): one warm-up sample, then 4 scored ones of 40
+# responses each; ResNet-50 gives ~70-150 responses a step, so the tuner
+# pins in step 1 or 2 and the later steps run at the pinned point.
+AUTOTUNE_ENV = {"HOROVOD_AUTOTUNE": "1",
+                "HOROVOD_AUTOTUNE_WARMUP_SAMPLES": "1",
+                "HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE": "40",
+                "HOROVOD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES": "4"}
+XLA_EXEC_FAULT = "xla.exec:rank=1:step=2:kind=raise"
+ZERO_GATHER_FAULT = "zero.gather:rank=1:step=1:kind=raise"
+BENCH_FAULT = "xla.exec:kind=delay_ms:ms=1"
+
+
+def host_op(w, op, x, name, root=-1, reduce_op=1):
+    """One blocking host-world collective of the CPU tensor ``x`` (Sum by
+    default); returns the output tensor."""
+    import torch
+
+    from horovod_tpu_torch.common import host_world, native
+
+    shape = ((w.size * x.shape[0],) + tuple(x.shape[1:])
+             if op == native.OP_ALLGATHER else tuple(x.shape))
+    out = torch.empty(shape, dtype=x.dtype)
+    h = w.enqueue(name, op, reduce_op, host_world.dtype_code(x.dtype),
+                  tuple(x.shape), x.data_ptr(), out.data_ptr(),
+                  root_rank=root)
+    r, err = w.wait(h)
+    if r != 1:
+        raise AssertionError(f"(j) host {name} failed: {err}")
+    return out
+
+
+def host_checks(w, rank, size):
+    """Check 1: allreduce, allgather and broadcast of CPU tensors in every
+    dtype on the ring (32 KiB of fp32 a tensor: past the tree threshold),
+    against analytic values."""
+    import torch
+
+    from horovod_tpu_torch.common import native
+
+    done = []
+    base = torch.arange(8192) % 7
+    for dt in (torch.float32, torch.bfloat16, torch.float16, torch.int32,
+               torch.int64):
+        x = (base + rank).to(dt)
+        checks = {
+            "allreduce": (host_op(w, native.OP_ALLREDUCE, x, f"host.sum.{dt}"),
+                          size * base + size * (size - 1) // 2),
+            "allgather": (host_op(w, native.OP_ALLGATHER, x,
+                                  f"host.gather.{dt}"),
+                          torch.cat([base + r for r in range(size)])),
+            "broadcast": (host_op(w, native.OP_BROADCAST, x,
+                                  f"host.bcast.{dt}", root=size - 1),
+                          base + size - 1)}
+        for op, (got, want) in checks.items():
+            if not torch.equal(got, want.to(dt)):
+                raise AssertionError(f"(j) host {op} {dt} on rank {rank}")
+            done.append(f"{op}-{dt}")
+    return done
+
+
+def staging_checks(w, rank, size):
+    """Check 2: with staging on (threshold 1 KiB), ResNet-50's gradient
+    bytes in one fp32 tensor staged and on the ring (``ring_only``), timed;
+    16-bit, int32 and Average staged against the ring; int64 and fp64 on
+    the ring by the core's guard; a staged broadcast and ragged
+    allgather."""
+    import numpy as np
+    import torch
+
+    from horovod_tpu_torch.common import native
+
+    AR = native.OP_ALLREDUCE
+    gens = [torch.Generator().manual_seed(r) for r in range(size)]
+    xs = [torch.randn(RESNET50_ELEMENTS, generator=g) for g in gens]
+    want = sum(x.double() for x in xs)
+    big = xs[rank]
+    staged_ms, ring_ms = [], []
+    for i in range(3):
+        t0 = time.perf_counter()
+        staged = host_op(w, AR, big, f"stage.big.{i}")
+        staged_ms.append(1e3 * (time.perf_counter() - t0))
+    small = torch.arange(16.0) + rank          # 64 bytes: under 1 KiB
+    n = 1 << 16
+    ints = (torch.arange(n) % 5 + rank).to(torch.int32)
+    halves = (torch.arange(n) % 9 + rank) * 0.5
+    staged_more = {
+        "bf16": host_op(w, AR, halves.bfloat16(), "stage.bf16"),
+        "fp16": host_op(w, AR, halves.half(), "stage.fp16"),
+        "int32": host_op(w, AR, ints, "stage.int32"),
+        "avg": host_op(w, AR, halves, "stage.avg", reduce_op=0),
+        "small": host_op(w, AR, small, "under.small")}
+    with w.ring_only():
+        for i in range(3):
+            t0 = time.perf_counter()
+            ring = host_op(w, AR, big, f"ring.big.{i}")
+            ring_ms.append(1e3 * (time.perf_counter() - t0))
+        ring_more = {
+            "bf16": host_op(w, AR, halves.bfloat16(), "ring.bf16"),
+            "fp16": host_op(w, AR, halves.half(), "ring.fp16"),
+            "int32": host_op(w, AR, ints, "ring.int32"),
+            "avg": host_op(w, AR, halves, "ring.avg", reduce_op=0),
+            "small": host_op(w, AR, small, "ring.small")}
+    rel_ring = float((staged - ring).norm() / ring.norm())
+    rel_exact = float((staged.double() - want).norm() / want.norm())
+    if not (rel_ring <= 1e-6 and rel_exact <= 1e-6):
+        raise AssertionError(f"(j) staged fp32 off: {rel_ring:.3e} from the "
+                             f"ring, {rel_exact:.3e} from fp64")
+    for k, got in staged_more.items():
+        if not torch.equal(got, ring_more[k]):
+            raise AssertionError(f"(j) staged {k} differs from the ring")
+    i64 = torch.arange(n, dtype=torch.int64) + (1 << 40) * (rank + 1)
+    got = host_op(w, AR, i64, "ring.int64")
+    if not torch.equal(got, size * torch.arange(n, dtype=torch.int64)
+                       + (1 << 40) * size * (size + 1) // 2):
+        raise AssertionError("(j) int64 allreduce")
+    f64 = torch.arange(n, dtype=torch.float64) / 4 + rank
+    got = host_op(w, AR, f64, "ring.fp64")
+    if not torch.equal(got, size * (torch.arange(n, dtype=torch.float64)
+                                    / 4) + size * (size - 1) / 2):
+        raise AssertionError("(j) fp64 allreduce")
+    b = host_op(w, native.OP_BROADCAST, halves + 100 * rank, "stage.bcast",
+                root=1)
+    if not torch.equal(b, (torch.arange(n) % 9 + 1) * 0.5 + 100):
+        raise AssertionError("(j) staged broadcast")
+    rows = np.full(((rank + 1) * 300, 2), rank, np.float32)
+    g, dims = w.allgatherv_np(rows, "stage.gather")
+    if dims.tolist() != [(r + 1) * 300 for r in range(size)] or not \
+            np.array_equal(g, np.concatenate(
+                [np.full(((r + 1) * 300, 2), r, np.float32)
+                 for r in range(size)])):
+        raise AssertionError("(j) staged ragged allgather")
+    return {"staged_ms": staged_ms, "ring_ms": ring_ms,
+            "rel_ring": rel_ring, "rel_fp64": rel_exact,
+            "staged": list(w.staging.staged)}
+
+
+def trace_names(path):
+    """(tensor name -> [events in file order]) of a Chrome trace."""
+    events = json.loads(Path(path).read_text())
+    tids = {e["tid"]: e["args"]["name"] for e in events if e["ph"] == "M"}
+    per = {}
+    for e in events:
+        if e["ph"] in ("B", "E", "i") and e.get("tid") in tids:
+            per.setdefault(tids[e["tid"]], []).append(e)
+    return events, per
+
+
+def response_split(per, prefix, steps, ranks):
+    """From rank 0's trace of the eager plane: every tensor named
+    ``prefix...`` has, each step, a ``NEGOTIATE_ALLREDUCE`` span followed by
+    an ``NCCL_ALLREDUCE`` one. Per tensor and step: enqueue (the
+    negotiation's start) to negotiated (the last rank's submission tick,
+    ``RANK_READY[r]``), negotiated to the executor's start (the
+    negotiation's end), and the NCCL activity (to the completion event);
+    returns their p50/p99 in ms and the count."""
+    import numpy as np
+
+    parts = {"enqueue_to_negotiated": [], "negotiated_to_start": [],
+             "activity": []}
+    tensors = 0
+    for name, evs in per.items():
+        if not name.startswith(prefix):
+            continue
+        tensors += 1
+
+        def ts(ph, act):
+            return sorted(e["ts"] for e in evs
+                          if e["ph"] == ph and e["name"] == act)
+
+        nb, ne = ts("B", "NEGOTIATE_ALLREDUCE"), ts("E", "NEGOTIATE_ALLREDUCE")
+        cb, ce = ts("B", "NCCL_ALLREDUCE"), ts("E", "NCCL_ALLREDUCE")
+        ticks = sorted(e["ts"] for e in evs if e["ph"] == "i"
+                       and e["name"].startswith("RANK_READY"))
+        if not len(nb) == len(ne) == len(cb) == len(ce) == steps:
+            raise AssertionError(
+                f"(j) {name}: {len(nb)}/{len(ne)} NEGOTIATE_ALLREDUCE and "
+                f"{len(cb)}/{len(ce)} NCCL_ALLREDUCE begin/end events, "
+                f"expected {steps}")
+        prev = float("-inf")
+        for k in range(steps):
+            mine = [t for t in ticks if prev < t <= ne[k]]
+            if len(mine) != ranks or not nb[k] <= ne[k] <= cb[k] <= ce[k]:
+                raise AssertionError(f"(j) {name} step {k}: ticks {mine}, "
+                                     f"spans {nb[k], ne[k], cb[k], ce[k]}")
+            parts["enqueue_to_negotiated"].append(max(mine) - nb[k])
+            parts["negotiated_to_start"].append(ne[k] - max(mine))
+            parts["activity"].append(ce[k] - cb[k])
+            prev = ne[k]
+    return {"tensors": tensors, "samples": len(parts["activity"]),
+            **{k: {"p50_ms": float(np.percentile(v, 50)) / 1e3,
+                   "p99_ms": float(np.percentile(v, 99)) / 1e3}
+               for k, v in parts.items()}}
+
+
+def parse_prometheus(text):
+    """{series: value} of a Prometheus textfile; raises on a line that is
+    neither a ``# TYPE`` comment nor ``name[{labels}] number``."""
+    series = {}
+    for line in text.splitlines():
+        if line.startswith("#"):
+            if not re.fullmatch(r"# TYPE \w+ (counter|gauge|histogram)",
+                                line):
+                raise AssertionError(f"(j) bad Prometheus line {line!r}")
+            continue
+        m = re.fullmatch(r'(\w+(?:\{le="[^"]+"\})?) (\S+)', line)
+        try:
+            series[m.group(1)] = float(m.group(2))
+        except (AttributeError, ValueError):
+            raise AssertionError(f"(j) bad Prometheus line {line!r}") \
+                from None
+    return series
+
+
+def host_worker(out_path):
+    """One rank of (j)'s host world (run as ``chip_smoke.py
+    --host-worker``; two hosts of two ranks, no ``hvd.init``, the shm
+    transport and the hierarchical allreduce armed, staging on cuda:0):
+    checks 1 and 2."""
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.common import host_world
+
+    rank = int(os.environ["HOROVOD_RANK"])
+    timeline = Path(out_path).parent / "host_timeline.json"
+    if rank == 0:
+        os.environ["HOROVOD_TIMELINE"] = str(timeline)
+    torch.cuda.set_device(0)
+    w = host_world.world()
+    t0 = time.perf_counter()
+    w.init(device="cuda:0")      # every rank stages on the one card
+    init_s = time.perf_counter() - t0
+    if w.staging is None:
+        raise AssertionError("(j) staging did not activate")
+    with w.ring_only():
+        host = host_checks(w, rank, w.size)
+    traffic = hvd.ring_traffic()
+    staging = staging_checks(w, rank, w.size)
+    w.shutdown()
+    out = {"rank": rank, "init_s": init_s, "host": host, "traffic": traffic,
+           "staging": staging}
+    if rank == 0:
+        _, per = trace_names(timeline)
+        out["activities"] = {n: sorted({e["name"] for e in evs})
+                             for n, evs in per.items()}
+    Path(out_path).write_text(json.dumps(out))
+    return 0
+
+
+def fault_checks(rank):
+    """Check 4: ``xla.exec`` fired on rank 1 at its third response, then
+    ``zero.gather`` on rank 1 at its second stage-3 step of a small model:
+    the faulted call raises ``HorovodInternalError`` on every rank (ms to
+    the raise), the calls before and after it complete."""
+    import functools
+
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import zero
+    from horovod_tpu_torch.common import faults
+    from horovod_tpu_torch.image_bench import ZeroMLP
+
+    dev = hvd.device()
+
+    def armed(spec, calls):
+        hvd.barrier()
+        os.environ["HOROVOD_FAULT_SPEC"] = spec
+        faults.refresh()
+        seen = []
+        for i, call in enumerate(calls):
+            t0 = time.perf_counter()
+            try:
+                call(i)
+                what = "ok"
+            except hvd.HorovodInternalError as e:
+                what = f"raised: {e}"
+            seen.append({"call": i, "outcome": what,
+                         "ms": 1e3 * (time.perf_counter() - t0)})
+        hvd.barrier()
+        os.environ.pop("HOROVOD_FAULT_SPEC")
+        faults.refresh()
+        return seen
+
+    def allreduce(i):
+        got = hvd.allreduce(torch.full((1024,), rank + 1.0, device=dev),
+                            name=f"fault.{i}", op=hvd.Sum)
+        if not torch.equal(got.cpu(), torch.full((1024,), 3.0)):
+            raise AssertionError(f"(j) fault.{i} = {got[:4]}")
+
+    model = ZeroMLP(hidden=64, layers=2, device=dev)
+    state = zero.init_zero_train_state(
+        model, functools.partial(torch.optim.SGD, lr=0.1), zero_stage=3,
+        compression="none")
+    step = zero.make_zero_train_step()
+    g = torch.Generator().manual_seed(rank)
+    x = torch.randn(8, 64, generator=g).to(dev)
+    y = torch.randint(0, 16, (8,), generator=g).to(dev)
+
+    def zero_step(i):
+        _, loss = step(state, x, y)
+        if not math.isfinite(float(loss)):
+            raise AssertionError("(j) zero step loss")
+
+    return {"xla.exec": armed(XLA_EXEC_FAULT, [allreduce] * 4),
+            "zero.gather": armed(ZERO_GATHER_FAULT, [zero_step] * 3)}
+
+
+def planes_worker(out_path):
+    """One rank of (j)'s eager part (run as ``chip_smoke.py
+    --planes-worker``): checks 3 and 5 with the timeline on rank 0, the
+    tuner and the metrics pump, then checks 4 and 6 in a second
+    ``hvd.init`` of the same NCCL world."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(REPO))
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import image_bench
+    from horovod_tpu_torch.common import faults
+    from horovod_tpu_torch.common.state import global_state
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    fa.reset_launches()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = int(os.environ["HOROVOD_RANK"])
+    tmp = Path(out_path).parent
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", rank=rank, world_size=PLANES, init_method=(
+            f"tcp://127.0.0.1:{os.environ['HOROVOD_CONTROLLER_PORT']}"))
+    runtime = dict(AUTOTUNE_ENV,
+                   HOROVOD_METRICS_EXPORT=str(tmp / f"metrics{rank}.prom"),
+                   HOROVOD_METRICS_INTERVAL_MS="500")
+    if rank == 0:
+        runtime["HOROVOD_TIMELINE"] = str(tmp / "eager_timeline.json")
+    os.environ.update(runtime)
+    hvd.init(device="cuda:0")
+    st = global_state()
+    eng = st.engine
+
+    def tuner_state():
+        tuner = st.autotuner
+        return {"tuning": tuner.active if tuner else None,
+                "samples": tuner.samples_taken if tuner else None,
+                "params": list(eng.native_core.get_parameters())}
+
+    resnet = eager_resnet(rank, eng, PLANES_STEPS, after_step=tuner_state)
+    pinned = list(st.autotuner.current) if st.autotuner else None
+    hvd.shutdown()
+    for k in runtime:
+        os.environ.pop(k)
+    out = {"rank": rank, "resnet": resnet, "pinned": pinned,
+           "prometheus": parse_prometheus(
+               (tmp / f"metrics{rank}.prom").read_text())}
+    if rank == 0:
+        _, per = trace_names(tmp / "eager_timeline.json")
+        out["split"] = response_split(per, "grad.", PLANES_STEPS, PLANES)
+    hvd.init(device="cuda:0")
+    out["faults"] = fault_checks(rank)
+    bench = image_bench.run(image_bench.parse_args([
+        "--num-warmup", "1", "--num-iters", "2", "--device", "cuda:0",
+        "--fault-spec", BENCH_FAULT]))
+    os.environ.pop("HOROVOD_FAULT_SPEC")
+    faults.refresh()
+    out["bench"] = {k: bench.result.get(k) for k in (
+        "ring_local_bytes", "ring_cross_bytes", "ring_shm_bytes",
+        "local_transport", "host_hierarchical", "fault_spec", "step_ms",
+        "loss")}
+    out["bench"]["metrics_keys"] = sorted(bench.result.get("metrics") or {})
+    out["launches"] = dict(fa.LAUNCHES)
+    hvd.shutdown()
+    dist.destroy_process_group()
+    Path(out_path).write_text(json.dumps(out))
+    return 0
+
+
+def planes_phase(gpu):
+    """(j): the host world (4 ranks as two hosts of two) with staging, then
+    the eager plane's runtime planes (2 ranks), all on cuda:0."""
+    t0 = time.perf_counter()
+    res = run_workers("--host-worker", HOST_RANKS, HOST_TIMEOUT_S,
+                      local_size=HOST_LOCAL, env={
+                          "HOROVOD_SHM": "1",
+                          "HOROVOD_HIERARCHICAL_ALLREDUCE": "1",
+                          "HOROVOD_HOST_VIA_XLA": "1",
+                          "HOROVOD_HOST_VIA_XLA_THRESHOLD":
+                              str(STAGE_THRESHOLD)})
+    for r in res:
+        t, s = r["traffic"], r["staging"]
+        log(f"    host rank {r['rank']}: world and staging up in "
+            f"{r['init_s']:.2f} s; {len(r['host'])} ring checks passed; "
+            f"ring traffic local {t['local_bytes']} B, cross "
+            f"{t['cross_bytes']} B, shm {t['shm_bytes']} B (shm armed "
+            f"{t['shm']}, hierarchical allreduce "
+            f"{t['hierarchical_allreduce']})")
+        log(f"    host rank {r['rank']}: {RESNET50_ELEMENTS} fp32 "
+            f"({4 * RESNET50_ELEMENTS / 1e6:.1f} MB) allreduce of "
+            f"{HOST_RANKS} ranks staged through NCCL "
+            f"{[round(x, 2) for x in s['staged_ms']]} ms, on the ring "
+            f"{[round(x, 2) for x in s['ring_ms']]} ms; staged against "
+            f"ring {s['rel_ring']:.2e}, against fp64 {s['rel_fp64']:.2e} "
+            f"(limit 1e-6); staged responses {s['staged']} on {gpu}")
+        if not t["shm"] or not t["shm_bytes"] > 0:
+            raise AssertionError(f"(j) rank {r['rank']}: no shm bytes with "
+                                 f"shm armed: {t}")
+    if not sum(r["traffic"]["local_bytes"] for r in res) > 0:
+        raise AssertionError("(j) no local ring bytes")
+    acts = res[0]["activities"]
+    staged = {"stage.big.0", "stage.big.1", "stage.big.2", "stage.bf16",
+              "stage.fp16", "stage.int32", "stage.avg"}
+    ring = {"ring.big.0", "ring.big.1", "ring.big.2", "ring.int64",
+            "ring.fp64", "under.small", "ring.small", "ring.bf16",
+            "ring.fp16", "ring.int32", "ring.avg"}
+    for name in staged:
+        if "NCCL_ALLREDUCE" not in acts.get(name, ()):
+            raise AssertionError(f"(j) {name} not staged: {acts.get(name)}")
+    for name, want in (("stage.bcast", "NCCL_BCAST"),
+                       ("stage.gather", "NCCL_ALLGATHER")):
+        if want not in acts.get(name, ()):
+            raise AssertionError(f"(j) {name}: {acts.get(name)}")
+    for name in ring:
+        if acts.get(name):
+            raise AssertionError(f"(j) {name} was staged: {acts[name]}")
+    log(f"    rank 0's timeline: {len(acts)} staged tensors, "
+        f"{sorted(acts)}; none of {sorted(ring)}")
+
+    res = run_workers("--planes-worker", PLANES, PLANES_TIMEOUT_S)
+    for r in res:
+        for i, st in enumerate(r["resnet"]["steps"]):
+            log(f"    rank {r['rank']} ResNet-50 step {i}: "
+                f"{st['responses']} responses, first submit to last "
+                f"synchronize {st['wall_ms']:.2f} ms, bitwise equal "
+                f"{st['bitwise_equal']}, tuner "
+                f"{'tuning' if st['tuning'] else 'pinned'} after "
+                f"{st['samples']} samples, cycle/fusion "
+                f"{st['params']} on {gpu}")
+            if not st["bitwise_equal"] or (st["tensors"], st["elements"]) \
+                    != (RESNET50_TENSORS, RESNET50_ELEMENTS):
+                raise AssertionError(f"(j) step {i} on rank {r['rank']}")
+        prom = r["prometheus"]
+        counts = {k: prom.get(k) for k in (
+            "hvd_cycles", "hvd_cache_hits",
+            "hvd_enq_to_neg_allreduce_us_count")}
+        log(f"    rank {r['rank']} Prometheus textfile: {len(prom)} series "
+            f"parsed, {counts}")
+        if not (prom.get("hvd_cycles", 0) > 0 and
+                prom.get("hvd_enq_to_neg_allreduce_us_count", 0)
+                >= RESNET50_TENSORS * PLANES_STEPS):
+            raise AssertionError(f"(j) metrics pump on rank {r['rank']}")
+        for point, seen in r["faults"].items():
+            log(f"    rank {r['rank']} {point}: {seen}")
+            raised = [c["call"] for c in seen if c["outcome"] != "ok"]
+            if raised != [2 if point == "xla.exec" else 1]:
+                raise AssertionError(f"(j) {point} on rank {r['rank']}: "
+                                     f"{seen}")
+            if not max(c["ms"] for c in seen) < 60e3:
+                raise AssertionError(f"(j) {point} beyond the stall bound")
+        b = r["bench"]
+        log(f"    rank {r['rank']} image_bench --fault-spec {BENCH_FAULT!r}"
+            f": {b}")
+        if b["fault_spec"] != BENCH_FAULT or b["local_transport"] not in (
+                "tcp", "shm") or not all(
+                b[k] >= 0 for k in ("ring_local_bytes", "ring_cross_bytes",
+                                    "ring_shm_bytes")) or \
+                set(b["host_hierarchical"]) != {"allreduce", "allgather",
+                                                "tuned"}:
+            raise AssertionError(f"(j) image_bench fields: {b}")
+    for r in res:
+        if any(r["launches"].values()):
+            raise AssertionError(f"(j) attention kernels launched: "
+                                 f"{r['launches']}")
+    log(f"    attention kernel launches in (j): {res[0]['launches']}")
+    r0 = res[0]
+    steps = r0["resnet"]["steps"]
+    pin = next((i for i, st in enumerate(steps) if not st["tuning"]), None)
+    if r0["pinned"] is None or pin is None:
+        raise AssertionError(f"(j) the tuner did not pin: {steps[-1]}")
+    log(f"    tuner pinned fusion {r0['pinned'][0]:.2f} MB, cycle "
+        f"{r0['pinned'][1]:.2f} ms during step {pin}; responses a step "
+        f"{[st['responses'] for st in steps]}")
+    sp = r0["split"]
+    log(f"    a response's time from rank 0's trace ({sp['tensors']} "
+        f"gradients x {PLANES_STEPS} steps = {sp['samples']}), p50/p99 ms: "
+        f"enqueue to negotiated {sp['enqueue_to_negotiated']}, negotiated "
+        f"to the executor's start {sp['negotiated_to_start']}, the NCCL "
+        f"activity {sp['activity']}")
+    if sp["tensors"] != RESNET50_TENSORS:
+        raise AssertionError(f"(j) {sp['tensors']} gradients in the trace")
+    log(f"    (j) took {time.perf_counter() - t0:.1f} s")
 
 
 AB_MODES = ("flash_fwd", "flash_fwd_train", "flash_bwd_dq", "flash_bwd_dkv")
@@ -2591,6 +3138,13 @@ def main():
         f"{since()}")
     eager_phase(gpu)
 
+    # (j) the runtime planes: host C++, NCCL and the host, no kernel of the
+    # port
+    log(f"(j) the runtime planes: a host world of {HOST_RANKS} ranks with "
+        f"staging, then {PLANES} ranks of the eager plane, all on cuda:0 "
+        f"{since()}")
+    planes_phase(gpu)
+
     # (d) result
     log(f"(d) result {since()}")
     for name, row in table.items():
@@ -2614,6 +3168,10 @@ if __name__ == "__main__":
         sys.exit(zero_worker(sys.argv[2]))
     if sys.argv[1:2] == ["--eager-worker"]:
         sys.exit(eager_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--host-worker"]:
+        sys.exit(host_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--planes-worker"]:
+        sys.exit(planes_worker(sys.argv[2]))
     if sys.argv[1:2] == ["--time-tree"]:
         sys.exit(time_tree(sys.argv[2]))
     sys.exit(main())

@@ -28,7 +28,12 @@ kin return an int handle for ``poll``/``synchronize``; the native core
 negotiates each named tensor across the ranks and fuses what arrives
 together (``ops/eager.py``). ``join``, ``barrier``, ``stall_report``,
 ``liveness_report``, ``metrics`` and ``ring_traffic`` read or drive that
-core. The direct collectives on a group (``allgather(x, axis=...)``,
+core. ``HOROVOD_TIMELINE``, ``HOROVOD_AUTOTUNE``,
+``HOROVOD_METRICS_EXPORT`` and ``HOROVOD_FAULT_SPEC`` arm the runtime
+planes around it (``common/{timeline,parameter_manager,metrics,faults}``).
+CPU tensors of a process-rank world without ``hvd.init`` go through
+``common/host_world.world()`` on the core's TCP ring, large ones through
+NCCL with ``HOROVOD_HOST_VIA_XLA=1`` (``common/host_staging.py``). The direct collectives on a group (``allgather(x, axis=...)``,
 ``grouped_allreduce(..., bucket_cap_bytes=...)``, the differentiable
 ones) live in ``horovod_tpu_torch.ops.collectives``, the counterpart of
 ``hvd.xla``.
@@ -202,9 +207,18 @@ def stall_report() -> str:
     """Drain the native stall inspector's warnings: the tensors some
     ranks submitted and others did not, past the warning time. Always a
     ``str``: empty when nothing stalled, before ``init`` or in direct
-    mode."""
+    mode. A non-empty report is also recorded as a ``STALL_WARNING``
+    instant in the open timeline."""
     core = _native_core()
-    return core.stall_report() if core is not None else ""
+    if core is None:
+        return ""
+    report = core.stall_report()
+    st = _global_state()
+    if report and st.initialized and st.timeline is not None:
+        from .common import timeline as _timeline
+
+        st.timeline.instant(_timeline.STALL_WARNING, {"report": report})
+    return report
 
 
 def liveness_report() -> str:
@@ -218,7 +232,10 @@ def liveness_report() -> str:
 def metrics() -> dict:
     """The unified metrics snapshot: ``{"python": {...}, "native": {...}
     | None}`` (counters, the log2 latency histograms, straggler state);
-    ``native`` is None before init and in direct mode."""
+    ``native`` is None before init and in direct mode. Reading drains the
+    pending straggler events into ``native["straggler"]["events"]`` and
+    mirrors them as ``STRAGGLER_WARNING`` instants in the open
+    timeline."""
     from .common import metrics as _metrics
 
     return _metrics.snapshot()

@@ -41,6 +41,8 @@ from typing import Any, List, Optional
 import torch
 import torch.distributed as dist
 
+from .common import faults as _faults
+
 _STATE_DICT = "__state_dict__"
 
 
@@ -123,6 +125,8 @@ class CheckpointManager:
         ``wait=False`` the file is written in the background (call
         ``wait_until_finished()``, or the next ``save``, before relying on
         it). Every rank calls it."""
+        # Chaos seam: a checkpoint write that dies, stalls or fails.
+        _faults.point("checkpoint.write")
         self.wait_until_finished()
         rank, size = _world()
         payload = {"rank": rank, "world_size": size, "step": int(step),

@@ -173,16 +173,22 @@ def resolve_bucket_cap(bucket_cap_bytes) -> Optional[int]:
 
 def resolve_prefetch_depth(depth="auto") -> int:
     """The stage-3 gather prefetch depth as an int in [0, 8]: ``"auto"``
-    follows ``HOROVOD_ZERO_PREFETCH`` (default 1: one bucket gathered
-    ahead), an int is taken as given. Depth changes when gathers are
-    issued, never the numbers."""
+    follows the live config when the depth is explicit there (env-set, or
+    pinned by the autotuner), else ``HOROVOD_ZERO_PREFETCH`` (default 1:
+    one bucket gathered ahead); an int is taken as given. Depth changes
+    when gathers are issued, never the numbers."""
     if not isinstance(depth, str):
         return max(0, min(8, int(depth)))
     if depth != "auto":
         raise ValueError(
             f"prefetch depth must be an int or 'auto'; got {depth!r}")
     from . import config as _config
+    from .state import global_state
 
+    st = global_state()
+    if (st.initialized and st.config is not None
+            and st.config.zero_prefetch_explicit):
+        return max(0, min(8, int(st.config.zero_prefetch)))
     v, _ = _config.zero_prefetch_env()
     return v
 

@@ -37,6 +37,8 @@ from dataclasses import dataclass, field
 from pathlib import Path
 from typing import List, Optional, Tuple
 
+import torch
+
 from . import config as _config
 from . import logging as _log
 
@@ -144,6 +146,20 @@ DTYPE_CODES = {
     "bool": 9,
     "bfloat16": 10,
 }
+
+# The torch dtype of each code, and back.
+TORCH_DTYPES = {
+    "uint8": torch.uint8, "int8": torch.int8, "uint16": torch.uint16,
+    "int16": torch.int16, "int32": torch.int32, "int64": torch.int64,
+    "float16": torch.float16, "float32": torch.float32,
+    "float64": torch.float64, "bool": torch.bool,
+    "bfloat16": torch.bfloat16,
+}
+TORCH_DTYPE_CODES = {TORCH_DTYPES[n]: c for n, c in DTYPE_CODES.items()}
+TORCH_FROM_CODE = {c: TORCH_DTYPES[n] for n, c in DTYPE_CODES.items()}
+# Dtypes neither NCCL nor gloo carries travel as int32: exact for every
+# op the executors run (a sum wraps to the same 16 bits either way).
+WIRE_DTYPES = {torch.int16: torch.int32, torch.uint16: torch.int32}
 
 OP_ALLREDUCE = 0
 OP_ALLGATHER = 1

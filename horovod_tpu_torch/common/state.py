@@ -10,8 +10,10 @@ the device is a GPU, gloo when the caller asks for the CPU. Without a
 launcher the world has size 1, and the group is still made, so the
 collective path is the same at every size. ``init`` also starts the
 eager engine (``ops/eager.py``: the native core's negotiation and an
-executor on a process group of its own) after the groups are made;
-``shutdown`` stops it before any group is destroyed.
+executor on a process group of its own) after the groups are made, the
+timeline on a rank whose ``HOROVOD_TIMELINE`` names a file, and the
+autotuner (``HOROVOD_AUTOTUNE``) on rank 0; ``shutdown`` stops them before
+any group is destroyed.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import torch
 import torch.distributed as dist
 
 from . import config as _config
+from . import logging as _log
 from .exceptions import NotInitializedError
 
 
@@ -42,6 +45,8 @@ class _GlobalState:
         self.axis_sizes = None   # {"dp", "pp", "sp", "tp"} sizes
         self.groups = None       # name -> this rank's AxisGroup
         self.engine = None       # the eager engine (ops/eager.py)
+        self.timeline = None     # common/timeline.Timeline when written
+        self.autotuner = None    # common/parameter_manager (rank 0)
 
     def reset(self):
         self.__init__()
@@ -141,19 +146,101 @@ def init(device=None, sp: int = 1, tp: int = 1, pp: int = 1):
                 dist.destroy_process_group()
             _state.reset()
             raise
+        if _state.config.timeline_filename:
+            from .timeline import Timeline
+
+            _state.timeline = Timeline(
+                _state.config.timeline_filename,
+                mark_cycles=_state.config.timeline_mark_cycles)
+        if _state.config.autotune:
+            _state.autotuner = _make_autotuner(_state.engine.native_core)
         _state.initialized = True
 
 
+def _make_autotuner(core):
+    """The parameter manager, on rank 0 only: its (cycle ms, fusion
+    bytes) point rides the response frames to every rank. In a world of
+    more than one process the Python-side publishes stay off (the bucket
+    cap of ``fusion.resolve_bucket_cap("auto")``, the compression mode and
+    the ZeRO prefetch depth): they would change rank 0's config alone, and
+    ranks whose bucket plans differ issue mismatched NCCL calls. Set
+    ``HOROVOD_FUSION_THRESHOLD`` / ``HOROVOD_COMPRESSION`` /
+    ``HOROVOD_ZERO_PREFETCH`` alike on every rank to govern those."""
+    if core is None:
+        _log.warning("HOROVOD_AUTOTUNE requested but the native core is "
+                     "off (direct mode has no cycle or fusion to tune); "
+                     "autotuning disabled")
+        return None
+    if _state.rank != 0:
+        _log.debug("autotune: the tuner runs on rank 0; this rank applies "
+                   "the parameters the response frames carry")
+        return None
+    from .parameter_manager import ParameterManager
+
+    cfg = _state.config
+    one_process = _state.size == 1
+
+    def publish_cap(nbytes: int) -> None:
+        cfg.fusion_threshold_bytes = int(nbytes)
+        cfg.fusion_threshold_explicit = True
+
+    def publish_compression(mode: str) -> None:
+        cfg.compression = mode
+        cfg.compression_explicit = True
+
+    def publish_prefetch(depth: int) -> None:
+        cfg.zero_prefetch = int(depth)
+        cfg.zero_prefetch_explicit = True
+
+    # Compression is explored only when the user asked for a mode: the
+    # grid then answers whether that mode pays on this model.
+    comp_candidates = ()
+    if one_process and cfg.compression_explicit and \
+            cfg.compression != "none":
+        comp_candidates = ("none", cfg.compression)
+    stripe_candidates = ()
+    if _config.stripes() > 1:
+        stripe_candidates = (1, _config.stripes())
+    prefetch_candidates = ()
+    if one_process and _config.zero_stage() == 3:
+        prefetch_candidates = (0, 1, 2)
+    if not one_process:
+        _log.debug("autotune: bucket-cap/compression/prefetch publish off "
+                   "in a world of more than one process")
+    groups = _state.groups or {}
+    return ParameterManager(
+        core, warmup_samples=cfg.autotune_warmup_samples,
+        steps_per_sample=cfg.autotune_steps_per_sample,
+        max_samples=cfg.autotune_bayes_opt_max_samples,
+        gp_noise=cfg.autotune_gaussian_process_noise,
+        log_file=cfg.autotune_log,
+        initial_cycle_ms=cfg.cycle_time_ms,
+        initial_fusion_bytes=cfg.fusion_threshold_bytes,
+        # The hierarchical grid only when the hierarchy spans hosts.
+        tune_hierarchical=("local" in groups and "cross" in groups
+                           and _state.cross_size > 1),
+        bucket_cap_setter=publish_cap if one_process else None,
+        compression_setter=(publish_compression if comp_candidates
+                            else None),
+        compression_candidates=comp_candidates,
+        stripe_candidates=stripe_candidates,
+        zero_prefetch_setter=(publish_prefetch if prefetch_candidates
+                              else None),
+        zero_prefetch_candidates=prefetch_candidates)
+
+
 def shutdown():
-    """Tear down the runtime: stops the eager engine (its native core,
-    then its executor), then destroys the process group if ``init`` made
-    it."""
+    """Tear down the runtime: stops the eager engine (its metrics pump,
+    its native core, then its executor), closes the timeline, then
+    destroys the process group if ``init`` made it."""
     with _state.lock:
         if not _state.initialized:
             return
         try:
             _state.engine.shutdown()
         finally:
+            if _state.timeline is not None:
+                _state.timeline.close()
             if _state.owns_group and dist.is_initialized():
                 dist.destroy_process_group()
             _state.reset()

@@ -99,7 +99,25 @@ def parse_args(argv=None):
                         "HOROVOD_COMPRESSION, else none")
     p.add_argument("--device", default=None,
                    help="default cuda:<local rank>; 'cpu' to run on the CPU")
+    p.add_argument("--fault-spec", default=None,
+                   help="HOROVOD_FAULT_SPEC for this run (e.g. "
+                        "'xla.exec:kind=delay_ms:ms=5'); recorded in the "
+                        "JSON line, so a fault-injected number is never "
+                        "taken for a clean one")
     return p.parse_args(argv)
+
+
+def arm_fault_spec(spec) -> None:
+    """Arm ``--fault-spec`` in this process (and in the workers it
+    starts): set ``HOROVOD_FAULT_SPEC`` and re-read it."""
+    if not spec:
+        return
+    from .common import config as _config
+    from .common import faults
+
+    _config.parse_fault_spec(spec)     # a malformed spec raises here
+    os.environ[_config.HOROVOD_FAULT_SPEC] = spec
+    faults.refresh()
 
 
 class BenchRun(NamedTuple):
@@ -142,6 +160,7 @@ def run(args) -> BenchRun:
     if args.image_size is None:
         args.image_size = MODELS[args.model]["size"]
     args.num_iters = max(1, args.num_iters)
+    arm_fault_spec(args.fault_spec)
     hvd.init(device=args.device)
     device = hvd.device()
     size, rank = hvd.size(), hvd.rank()
@@ -231,6 +250,21 @@ def run(args) -> BenchRun:
         train_flops = (3 * spec["fwd_flops"]
                        * (args.image_size / spec["size"]) ** 2)
         result["mfu"] = round(per_chip * train_flops / peak, 4)
+    # The host data plane's traffic and dispatch (bench.py's fields), read
+    # after the timed loop: zeros and False when no native core runs.
+    traffic = hvd.ring_traffic()
+    result["ring_local_bytes"] = traffic["local_bytes"]
+    result["ring_cross_bytes"] = traffic["cross_bytes"]
+    result["ring_shm_bytes"] = traffic["shm_bytes"]
+    result["local_transport"] = "shm" if traffic["shm"] else "tcp"
+    result["host_hierarchical"] = {
+        "allreduce": traffic["hierarchical_allreduce"],
+        "allgather": traffic["hierarchical_allgather"],
+        "tuned": traffic["tuned"],
+    }
+    result["metrics"] = hvd.metrics()
+    if args.fault_spec:
+        result["fault_spec"] = args.fault_spec
     if step_times:
         # Per-step rates and a 95% CI (mean +- 1.96 std / sqrt(n)).
         rates = [1.0 / t for t in step_times]
@@ -344,6 +378,7 @@ def zero_bench(args) -> dict:
         with socket.socket() as sock:
             sock.bind(("127.0.0.1", 0))
             port = sock.getsockname()[1]
+        # --fault-spec reaches the workers through HOROVOD_FAULT_SPEC.
         cmd = [sys.executable, "-m", "horovod_tpu_torch.image_bench",
                "--zero-worker", "--zero-stage", str(s),
                "--batch-size", str(args.batch_size),
@@ -387,6 +422,8 @@ def main(argv=None):
         argv.remove("--zero-worker")
     args = parse_args(argv)
     try:
+        if worker or args.workload == "zero":
+            arm_fault_spec(args.fault_spec)
         if worker:
             print(json.dumps(zero_worker(args)))
         elif args.workload == "zero":

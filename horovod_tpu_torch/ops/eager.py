@@ -30,6 +30,17 @@ The port's counterpart of ``horovod_tpu/ops/eager.py``. Two planes:
 Handles are the native handle table's ints (negative ones are direct).
 A failed response raises ``HorovodInternalError`` at ``synchronize``.
 
+The runtime planes hook in as in the JAX package's engine: a named
+submission opens its ``NEGOTIATE_<KIND>`` span in the timeline, the
+executor closes it and opens the execution activity (``NCCL_<KIND>`` on
+the card, ``GLOO_<KIND>`` on the CPU; on the card it closes when the
+response's completion event has passed, read by a finalizer thread, as
+Horovod's GPU timeline does) and records the coordinator's per-rank
+ticks; the ``xla.exec`` fault point (the reference's name, so one
+``HOROVOD_FAULT_SPEC`` drives both) fires at the top of each response;
+the autotuner is fed each response's application bytes (before
+compression); the metrics pump runs while the engine does.
+
 Direct mode: with ``HOROVOD_NATIVE=0`` every collective runs at once on
 the caller's thread and the world's group (no negotiation, no fusion),
 with the same results. ``grouped_allreduce_async`` always runs so, as in
@@ -53,8 +64,11 @@ import torch
 import torch.distributed as dist
 
 from ..common import config as _config
+from ..common import faults as _faults
 from ..common import logging as _log
+from ..common import metrics as _metrics
 from ..common import native as _native
+from ..common import timeline as _timeline
 from ..common.compression import resolve_compression
 from ..common.exceptions import DuplicateTensorNameError, HorovodInternalError
 from ..parallel.mesh import AxisGroup, host_ranks
@@ -70,19 +84,9 @@ _OP_TO_NATIVE = {
 }
 _KIND_FROM_OP = {v: k for k, v in _OP_TO_NATIVE.items()}
 
-_TORCH_DTYPES = {
-    "uint8": torch.uint8, "int8": torch.int8, "uint16": torch.uint16,
-    "int16": torch.int16, "int32": torch.int32, "int64": torch.int64,
-    "float16": torch.float16, "float32": torch.float32,
-    "float64": torch.float64, "bool": torch.bool,
-    "bfloat16": torch.bfloat16,
-}
-_DTYPE_CODE = {_TORCH_DTYPES[n]: c for n, c in _native.DTYPE_CODES.items()}
-_DTYPE_FROM_CODE = {c: _TORCH_DTYPES[n]
-                    for n, c in _native.DTYPE_CODES.items()}
-# Dtypes neither NCCL nor gloo carries travel as int32: exact for every
-# op here (a sum wraps to the same 16 bits either way).
-_WIRE = {torch.int16: torch.int32, torch.uint16: torch.int32}
+_DTYPE_CODE = _native.TORCH_DTYPE_CODES
+_DTYPE_FROM_CODE = _native.TORCH_FROM_CODE
+_WIRE = _native.WIRE_DTYPES
 
 
 class _Pending:
@@ -134,6 +138,10 @@ class EagerEngine:
         self._world = AxisGroup(None, tuple(range(state.size)), state.rank)
         self._stream = None
         self._native = False
+        # (done event, names, activity) of responses whose execution
+        # activity closes when the card has run them (timeline only).
+        self._finalize_q: "queue.SimpleQueue" = queue.SimpleQueue()
+        self._finalizer = None
         try:
             self._hosts = self._make_hosts(backend)
             self._core = _native.NativeCore()
@@ -142,6 +150,7 @@ class EagerEngine:
         except BaseException:
             self._destroy_groups()
             raise
+        _metrics.maybe_start_pump()
 
     def _make_hosts(self, backend):
         """The engine's own (local, cross) groups, so that a hierarchical
@@ -198,6 +207,11 @@ class EagerEngine:
                 f"the native core did not start (controller "
                 f"{_config.controller_addr()}:{port}); HOROVOD_NATIVE=0 "
                 f"runs the eager collectives in direct mode")
+        if cfg.timeline_filename:
+            # The coordinator records each rank's submission ticks for the
+            # timeline (NegotiateRankReady) from the first one on: a peer
+            # may submit as soon as the core is up.
+            self._core.set_record_negotiation(True)
         self._native = True
         self._executor = threading.Thread(
             target=self._executor_loop, daemon=True, name="hvd-eager-executor")
@@ -211,7 +225,17 @@ class EagerEngine:
         None (direct mode)."""
         return self._core if self._native else None
 
+    def _record_autotune(self, tensors) -> None:
+        """Feed the tuner (rank 0) one response's application bytes, before
+        compression."""
+        tuner = self._state.autotuner
+        if tuner is None or not tuner.active:
+            return
+        tuner.update(sum(t.numel() * t.element_size() for t in tensors))
+
     def shutdown(self):
+        # The pump's last publish still sees the live core and timeline.
+        _metrics.stop_pump()
         if self._native:
             self._core.shutdown()
             self._exec_q.put(None)
@@ -220,6 +244,10 @@ class EagerEngine:
                 raise HorovodInternalError(
                     "the eager executor did not stop within 30 s")
             self._native = False
+        if self._finalizer is not None:
+            self._finalize_q.put(None)
+            self._finalizer.join(timeout=30.0)
+            self._finalizer = None
         if self._stream is not None:
             self._stream.synchronize()
         with self._lock:
@@ -262,6 +290,16 @@ class EagerEngine:
                     self._core.response_done(response_id, False, str(e))
 
     def _execute_response(self, resp: "_native.NativeResponse"):
+        # The device plane's chaos seam: a fault here fails the response
+        # like a real executor failure (every pending entry errors), on
+        # every rank (voted, so no rank waits in a collective its peer
+        # skipped).
+        _faults.voted_point("xla.exec", self._vote, rank=self._state.rank)
+        timeline = self._state.timeline
+        if timeline is not None:
+            # The coordinator's per-rank submission ticks (rank 0 only).
+            for rank, mono_ns, tname in self._core.drain_negotiation():
+                timeline.rank_ready(tname, rank, mono_ns)
         names = resp.names
         with self._lock:
             found = {n: self._pending[n] for n in names if n in self._pending}
@@ -271,6 +309,11 @@ class EagerEngine:
         if kind is None:
             return
         self.response_sizes.append((kind, len(names)))
+        activity = _timeline.execution_activity(kind, self._device.type)
+        if timeline is not None:
+            for n in found:
+                timeline.end_activity(n, _timeline.negotiate_activity(kind))
+                timeline.start_activity(n, activity)
         for p in found.values():
             self._wait_ready(p)
         # The hierarchical flags stamped into this frame (-1: untuned, the
@@ -303,11 +346,49 @@ class EagerEngine:
         else:
             for p in found.values():
                 p.result = self._one(kind, p, self._axis)
+        done = None
         if self._stream is not None:
             done = torch.cuda.Event()
             done.record(self._stream)
             for p in found.values():
                 p.done = done
+        if timeline is not None:
+            self._end_activity(timeline, done, list(found), activity)
+        self._record_autotune([p.tensor for p in found.values()])
+
+    def _end_activity(self, timeline, done, names, activity):
+        """Close the execution activity of ``names``: at once on the CPU,
+        when ``done`` has passed on the card (a finalizer thread waits for
+        it, so the executor never does)."""
+        if done is None:
+            for n in names:
+                timeline.end_activity(n, activity)
+            return
+        if self._finalizer is None:
+            self._finalizer = threading.Thread(
+                target=self._finalize_loop, daemon=True,
+                name="hvd-eager-timeline-finalizer")
+            self._finalizer.start()
+        self._finalize_q.put((done, names, activity))
+
+    def _finalize_loop(self):
+        while True:
+            item = self._finalize_q.get()
+            if item is None:
+                return
+            done, names, activity = item
+            done.synchronize()
+            timeline = self._state.timeline
+            if timeline is not None:
+                for n in names:
+                    timeline.end_activity(n, activity)
+
+    def _vote(self, ok: bool) -> bool:
+        """True when every rank's ``ok`` is (a MIN all-reduce on the
+        engine's group, on the executor's thread)."""
+        flag = torch.tensor([int(ok)], dtype=torch.int32, device=self._device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=self._group)
+        return bool(flag.item())
 
     def _wait_ready(self, p: _Pending):
         if p.ready is not None:
@@ -447,6 +528,10 @@ class EagerEngine:
                     "complete")
             self._pending[name] = _Pending(t, was_numpy, kind, op, prescale,
                                            postscale, root, ready)
+        timeline = self._state.timeline
+        negotiate = _timeline.negotiate_activity(kind)
+        if timeline is not None:
+            timeline.start_activity(name, negotiate)
         handle = self._core.enqueue(
             name, _OP_TO_NATIVE[kind], op if op is not None else ReduceOp.SUM,
             _DTYPE_CODE[t.dtype], tuple(t.shape), root_rank=root,
@@ -454,6 +539,8 @@ class EagerEngine:
         if handle < 0:
             with self._lock:
                 self._pending.pop(name, None)
+            if timeline is not None:
+                timeline.end_activity(name, negotiate)
             raise HorovodInternalError(
                 "native enqueue failed (runtime not initialized or shutting "
                 "down)")
@@ -461,6 +548,8 @@ class EagerEngine:
         if r < 0 and "Duplicate tensor name" in reason:
             with self._lock:
                 self._pending.pop(name, None)
+            if timeline is not None:
+                timeline.end_activity(name, negotiate)
             raise DuplicateTensorNameError(reason)
         with self._lock:
             self._handle_names[handle] = name
@@ -488,6 +577,7 @@ class EagerEngine:
                 p = _Pending(ts[0], False, kind, op, prescale, postscale,
                              root, None)
                 outs = [self._one(kind, p, self._world)]
+            self._record_autotune(ts)
             err = None
         # Deferred, not swallowed: synchronize raises it on this thread.
         except Exception as e:
@@ -627,6 +717,12 @@ class EagerEngine:
                 name = self._handle_names.pop(handle)
                 pending = self._pending.pop(name, None)
             if r < 0:
+                # An error response resolves in the core and never reaches
+                # the executor: close its negotiation span here.
+                timeline = self._state.timeline
+                if timeline is not None and pending is not None:
+                    timeline.end_activity(
+                        name, _timeline.negotiate_activity(pending.kind))
                 raise HorovodInternalError(reason)
             if pending is None or (pending.result is None
                                    and pending.error is None):

@@ -81,6 +81,7 @@ import torch
 import torch.nn as nn
 
 from .common import config as _config
+from .common import faults as _faults
 from .common.compression import Compression, resolve_compression
 from .common.fusion import (Bucket, forward_bucket_order, plan_buckets,
                             resolve_bucket_cap, resolve_prefetch_depth)
@@ -636,6 +637,13 @@ def _check_state(state, k, requested, auto_comp, requested_comp):
     return plan, stage, comp
 
 
+def _vote(ok: bool, axis, device) -> bool:
+    """True when every rank of ``axis`` passes ``ok`` (a MIN
+    all-reduce)."""
+    flag = torch.tensor([int(ok)], dtype=torch.int32, device=device)
+    return bool(_coll.allreduce(flag, op=_coll.ReduceOp.MIN, axis=axis))
+
+
 def make_zero_train_step(accumulate_steps: int = 1, bucket_cap_bytes="auto",
                          compression="auto", zero_stage="auto",
                          prefetch="auto"):
@@ -665,6 +673,15 @@ def make_zero_train_step(accumulate_steps: int = 1, bucket_cap_bytes="auto",
     def step(state: ZeroTrainState, images, labels):
         plan, stage, comp = _check_state(state, k, (req_cap, req_stage),
                                          auto_comp, req_comp)
+        if stage == 3:
+            # The partition plane's chaos seam, armed as a stage-3 step
+            # starts its gathers: a fault raises HorovodInternalError on
+            # every rank of the state (voted), where a real gather
+            # failure would surface.
+            _faults.voted_point(
+                "zero.gather",
+                lambda ok: _vote(ok, state.axis, state.pshard.device),
+                rank=state.axis.global_rank(state.axis.rank))
         wire = comp.wire_dtype(torch.float32) if comp is not None else None
         model = state.model
         model.train()

@@ -123,17 +123,32 @@ def hier_extras(res):
 
 
 def leftovers(res):
-    # Nothing of the engine outlives hvd.shutdown: no executor thread, no
-    # listener on the native controller's port.
-    import socket
+    # Nothing of the engine outlives hvd.shutdown: no executor thread, and
+    # no socket of this process on the native controller's port (as
+    # either end). The process's own sockets are read from the kernel's
+    # table, not probed by a bind: a bind also fails on the TIME_WAIT
+    # entries that the coordinator's closed connections leave, which
+    # belong to no process.
     import threading
 
     res["executor-threads"] = np.array(sum(
         t.name == "hvd-eager-executor" for t in threading.enumerate()))
-    with socket.socket() as s:
-        s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
-        s.bind(("127.0.0.1", config.native_controller_port()))
-        s.listen()
+    port = ":%04X" % config.native_controller_port()
+    mine = set()
+    for fd in os.listdir("/proc/self/fd"):
+        try:
+            target = os.readlink(f"/proc/self/fd/{fd}")
+        except OSError:
+            continue
+        if target.startswith("socket:["):
+            mine.add(target[len("socket:["):-1])
+    held = []
+    for table in ("/proc/net/tcp", "/proc/net/tcp6"):
+        for line in open(table).read().splitlines()[1:]:
+            f = line.split()
+            if (f[1].endswith(port) or f[2].endswith(port)) and f[9] in mine:
+                held.append(line)
+    assert not held, held
     res["port-free"] = np.array(1)
 
 

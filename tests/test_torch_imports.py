@@ -27,7 +27,11 @@ for name in ("parallel", "parallel.mesh", "parallel.ring_attention",
              "models.image_layers", "models.resnet", "models.vgg",
              "models.inception", "image_bench", "zero", "checkpoint",
              "ops.adasum", "ops.eager", "common.native", "common.metrics",
-             "common.logging"):
+             "common.logging", "common.faults", "common.timeline",
+             "common.parameter_manager", "common.optim",
+             "common.optim.gaussian_process",
+             "common.optim.bayesian_optimization", "common.host_world",
+             "common.host_staging"):
     assert "horovod_tpu_torch." + name in names, name
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib",
                                                            "horovod_tpu"))
