@@ -4,7 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --time-tree DIR   # kernel times of one checkout
 
-Phases, in order (a, b, c, e, f, g, h, i, j, d); any failure exits
+Phases, in order (a, b, c, e, f, g, h, i, j, k, d); any failure exits
 nonzero:
 
 (a) device and build: the card, its power limit, the torch and CUDA
@@ -157,10 +157,29 @@ nonzero:
     complete. Last ``image_bench`` at dp=2 with ``--fault-spec``: the
     ring fields are there and not negative. No kernel of the port runs
     here.
+(k) the torch binding and the elastic worker: two ranks on cuda:0 as
+    two hosts of one (``--binding-worker``, ``hvd.init()`` of
+    ``horovod_tpu_torch.torch``, deterministic kernels): the reference
+    binding's worker checks on CUDA tensors and a CPU tensor through the
+    host ring; ResNet-50 (bf16, batch 32 a rank) under the binding's
+    per-parameter optimizer bitwise the bucketed one over 2 steps;
+    ``SyncBatchNorm`` against ``BatchNorm2d`` over the world's batch
+    (forward 1e-4, running mean 1e-5, variance 1e-4); ResNet-50 with and
+    without ``sync_bn_axis="dp"`` and the example's ResNet-50 with local,
+    direct and negotiated batch-norm statistics (ms a step, losses
+    finite, world losses equal); ``HOROVOD_FAULT_SPEC`` (``xla.exec``)
+    inside ``elastic.run`` with a ``TorchState``, bitwise the clean run;
+    the example at two ranks. Then ``--elastic-worker``, twice: rank 1
+    SIGKILLed inside its 64 MiB allreduces, and between the batches of a
+    model of ``SyncBatchNorm`` (direct all-reduces only), rank 0 raising
+    within ``KILL_BOUND_S`` (the seconds printed), rank 1 respawned with
+    its rank, both ending with rank 0's parameters. Last the example at one rank, full size
+    (img/s a device). No kernel of the port runs here.
 (d) the kernel table as one JSON line, the card's name and power limit,
     and last the result line ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -1013,7 +1032,7 @@ def sp_worker(out_path):
         s: small_sp_check(s, ref) for s in ("ring", "ulysses")}}
     args = transformer_bench.parse_args([
         "--sp", str(SP), "--seq-len", "4096", "--num-warmup", "2",
-        "--num-iters", "10", "--device", "cuda:0"])
+        "--num-iters", "4", "--device", "cuda:0"])
     fa.reset_launches()
     run = transformer_bench.run(args)
     launches = dict(fa.LAUNCHES)
@@ -2911,6 +2930,616 @@ AB_MODES = ("flash_fwd", "flash_fwd_train", "flash_bwd_dq", "flash_bwd_dkv")
 AB_RING_MODES = ("flash_fwd_state", "flash_bwd_dq_f32", "flash_bwd_dkv_f32")
 
 
+# ---- (k) the torch binding and the elastic worker ----------------------------
+
+BINDING = 2             # ranks of (k), both on cuda:0, two hosts of one
+BINDING_TIMEOUT_S = 360
+# (k): a survivor raises HorovodInternalError within this many seconds of
+# its peer's SIGKILL (the native core's closed connection, then the
+# communicators' abort); past it the phase fails as a hang.
+KILL_BOUND_S = 30.0
+KILL_LOG_TAIL = 40      # lines of each worker's log on stderr when (k)(2) fails
+ELASTIC_FAULT = "xla.exec:rank=1:step=3"
+ELASTIC_BATCHES = 8     # (k)(1): committed batches of the small model
+KILL_TARGET, KILL_READY = 30, 5     # (k)(2): batches, and when to kill
+SBN_STEPS = (2, 3)      # warm-up and timed steps of (k)'s batch-norm runs
+
+
+def binding_checks(hvd, rank, dev):
+    """The reference binding's worker checks (``tests/test_torch.py``'s
+    multi-process worker) on tensors on the card, at two ranks; then a CPU
+    tensor through the host ring. Returns the checks' names."""
+    import numpy as np
+    import torch
+
+    from horovod_tpu_torch.ops.adasum import adasum_reference
+
+    done = []
+
+    def check(name, ok, detail=""):
+        if not ok:
+            raise AssertionError(f"(k) {name} on rank {rank}: {detail}")
+        done.append(name)
+
+    x = torch.arange(10, dtype=torch.float32, device=dev) * (rank + 1)
+    want = torch.arange(10, dtype=torch.float32, device=dev) * 3
+    check("sum", torch.equal(hvd.allreduce(x, op=hvd.Sum, name="k.sum"),
+                             want))
+    check("average", torch.equal(hvd.allreduce(x, name="k.avg"), want / 2))
+    xi = torch.full((6,), 2 ** 40 + rank, dtype=torch.int64, device=dev)
+    hvd.allreduce_(xi, op=hvd.Sum, name="k.int64")
+    check("int64-in-place", bool((xi == 2 ** 41 + 1).all()), xi)
+    xm = torch.full((3,), float(rank), device=dev)
+    check("min-max", bool((hvd.allreduce(xm, op=hvd.Max) == 1).all()) and
+          bool((hvd.allreduce(xm, op=hvd.Min) == 0).all()))
+    b = torch.full((5,), float(rank * 100), device=dev)
+    check("broadcast-root1", torch.equal(hvd.broadcast(b, 1, name="k.bc"),
+                                         torch.full_like(b, 100.0)))
+    g = hvd.allgather(torch.full((rank + 1, 2), float(rank), device=dev),
+                      name="k.ag")
+    check("allgather-ragged", torch.equal(g.cpu(), torch.tensor(
+        [[0.0, 0], [1, 1], [1, 1]])), g)
+    t = torch.randn(4, device=dev, requires_grad=True)
+    hvd.allreduce(t, name="k.grad").sum().backward()
+    check("autograd", torch.equal(t.grad, torch.ones_like(t)), t.grad)
+    bf = torch.full((8,), 1 + 2 ** -7, dtype=torch.bfloat16,
+                    device=dev) * (rank + 1)
+    check("bf16", torch.equal(hvd.allreduce(bf, op=hvd.Sum).cpu(), (
+        torch.full((8,), 1 + 2 ** -7) * 3).bfloat16()))
+    rng = np.random.RandomState(7)
+    vecs = [rng.randn(1000).astype(np.float32) for _ in range(2)]
+    got = hvd.allreduce(torch.from_numpy(vecs[rank]).to(dev),
+                        op=hvd.Adasum, name="k.adasum").cpu().numpy()
+    want_a = adasum_reference(vecs)
+    err = float(np.abs(got - want_a).max() / np.abs(want_a).max())
+    check("adasum", err <= 1e-5, err)
+    obj = {"rank": rank, "data": list(range(rank + 1))}
+    check("objects", hvd.broadcast_object(obj, root_rank=1) ==
+          {"rank": 1, "data": [0, 1]} and
+          [o["rank"] for o in hvd.allgather_object(obj)] == [0, 1])
+    # broadcast_parameters + broadcast_optimizer_state (SGD with momentum,
+    # its state not made yet), then 4 steps: every rank equal.
+    torch.manual_seed(1234 + rank)
+    model = torch.nn.Sequential(torch.nn.Linear(6, 8), torch.nn.ReLU(),
+                                torch.nn.Linear(8, 1)).to(dev)
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=0.05, momentum=0.9),
+        named_parameters=model.named_parameters())
+    hvd.broadcast_optimizer_state(opt, root_rank=0)
+    X = torch.randn(16, 6, generator=torch.Generator().manual_seed(99))
+    X = X.to(dev)
+    for _ in range(4):
+        opt.zero_grad()
+        xb = X[rank * 8:(rank + 1) * 8]
+        torch.nn.functional.mse_loss(
+            model(xb), xb.sum(1, keepdim=True)).backward()
+        opt.step()
+    flat = torch.cat([p.detach().flatten() for p in model.parameters()])
+    both = hvd.allgather(flat[None], name="k.opt.check")
+    check("optimizer-ranks-equal", torch.equal(both[0], both[1]))
+    model2 = torch.nn.Linear(4, 1, bias=False).to(dev)
+    torch.nn.init.zeros_(model2.weight)
+    opt2 = hvd.DistributedOptimizer(
+        torch.optim.SGD(model2.parameters(), lr=1.0),
+        named_parameters=model2.named_parameters(),
+        backward_passes_per_step=2)
+    for micro in range(2):
+        model2(torch.ones(2, 4, device=dev) * (rank + micro + 1)).sum() \
+            .backward()
+    opt2.step()
+    check("backward-passes-per-step-2",
+          torch.equal(model2.weight.cpu(), torch.full((1, 4), -8.0)),
+          model2.weight)
+    # A CPU tensor in the world on the card takes the host ring (in a
+    # world on the CPU, the world's own plane).
+    before = hvd.ring_traffic()["bytes_sent"]
+    host = hvd.allreduce(torch.full((1024,), float(rank + 1)), op=hvd.Sum,
+                         name="k.host")
+    sent = hvd.ring_traffic()["bytes_sent"] - before
+    check("cpu-tensor-host-ring", host.device.type == "cpu" and
+          torch.equal(host, torch.full((1024,), 3.0)) and
+          (sent > 0 or torch.device(dev).type == "cpu"),
+          f"{host.device}, {sent} ring bytes")
+    return done
+
+
+def binding_resnet_bitwise(hvd, rank, dev, steps=2):
+    """ResNet-50 (bf16, 224 px, batch 32 a rank, each rank its own batch)
+    trained by the binding's per-parameter ``DistributedOptimizer`` and,
+    from the same weights and batches, by the port's bucketed one
+    (``horovod_tpu_torch.DistributedOptimizer``): the parameters' sha256
+    after every step, each pair equal (a sum of two has one rounding)."""
+    import numpy as np
+    import torch
+
+    import horovod_tpu_torch
+    from horovod_tpu_torch import training
+    from horovod_tpu_torch.models import resnet
+
+    rng = np.random.RandomState(rank)
+    x = torch.as_tensor(rng.rand(32, 224, 224, 3).astype(np.float32),
+                        device=dev)
+    y = torch.as_tensor(rng.randint(0, 1000, 32), device=dev)
+    rows = []
+    for name, wrap in (
+            ("binding", lambda o, m: hvd.DistributedOptimizer(
+                o, named_parameters=m.named_parameters())),
+            ("bucketed", lambda o, m: horovod_tpu_torch.DistributedOptimizer(
+                o, named_parameters=m.named_parameters()))):
+        model = resnet.ResNet50(num_classes=1000, dtype=torch.bfloat16,
+                                device=dev, seed=0)
+        opt = wrap(torch.optim.SGD(model.parameters(), lr=0.01,
+                                   momentum=0.9), model)
+        digests = []
+        for _ in range(steps):
+            opt.zero_grad()
+            training.cross_entropy_loss(model(x), y).backward()
+            opt.step()
+            digests.append(tensor_digest(list(model.parameters())))
+        rows.append((name, len(list(model.parameters())), digests))
+        del model, opt
+        torch.cuda.empty_cache()
+    return rows
+
+
+def swap_sync_bn(module, hvd):
+    """``module`` with every ``nn.BatchNorm2d`` replaced by the binding's
+    ``SyncBatchNorm`` (the same buffers and parameters)."""
+    import torch
+
+    for name, child in module.named_children():
+        if isinstance(child, torch.nn.BatchNorm2d):
+            sbn = hvd.SyncBatchNorm(child.num_features, child.eps,
+                                    child.momentum)
+            sbn.load_state_dict(child.state_dict())
+            setattr(module, name, sbn.to(child.weight.device))
+        else:
+            swap_sync_bn(child, hvd)
+    return module
+
+
+@contextlib.contextmanager
+def negotiated_statistics(hvd):
+    """(k)'s A/B alone: ``SyncBatchNorm``'s two sums a layer through the
+    named plane (``hvd.allreduce``) instead of the direct all-reduce."""
+    from horovod_tpu_torch.torch import sync_batch_norm
+
+    direct = sync_batch_norm._world_sum
+    sync_batch_norm._world_sum = lambda t, name: hvd.synchronize(
+        hvd.allreduce_async(t, op=hvd.Sum, name=name))
+    try:
+        yield
+    finally:
+        sync_batch_norm._world_sum = direct
+
+
+def timed_steps(step, warmup, iters):
+    """(losses, ms a step over the timed steps)."""
+    import torch
+
+    losses = [step() for _ in range(warmup)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [step() for _ in range(iters)]
+    torch.cuda.synchronize()
+    return losses, 1e3 * (time.perf_counter() - t0) / iters
+
+
+def sync_bn_checks(hvd, rank, dev):
+    """``SyncBatchNorm`` on the card against ``nn.BatchNorm2d`` over both
+    ranks' batch; ResNet-50 with ``sync_bn_axis="dp"`` and without; the
+    example's ResNet-50 (53 ``BatchNorm2d``) with ``SyncBatchNorm`` on the
+    direct and on the negotiated path (``negotiated_statistics``), and
+    with local batch norm."""
+    import numpy as np
+    import torch
+
+    from horovod_tpu_torch import training
+    from horovod_tpu_torch.examples import pytorch_synthetic_benchmark as ex
+    from horovod_tpu_torch.models import resnet
+
+    out = {}
+    gen = torch.Generator().manual_seed(7)
+    full = (torch.randn(16, 8, 12, 12, generator=gen) * 2 + 0.5).to(dev)
+    sbn = hvd.SyncBatchNorm(8, momentum=0.5).to(dev)
+    ref = torch.nn.BatchNorm2d(8, momentum=0.5).to(dev)
+    got = sbn(full[rank * 8:(rank + 1) * 8])
+    want = ref(full)[rank * 8:(rank + 1) * 8]
+    out["sbn_forward"] = float((got - want).abs().max())
+    out["sbn_mean"] = float((sbn.running_mean - ref.running_mean).abs().max())
+    out["sbn_var"] = float((sbn.running_var - ref.running_var).abs().max())
+    rng = np.random.RandomState(rank)
+    x = torch.as_tensor(rng.rand(32, 224, 224, 3).astype(np.float32),
+                        device=dev)
+    y = torch.as_tensor(rng.randint(0, 1000, 32), device=dev)
+    for axis in ("dp", None):
+        model = resnet.ResNet50(num_classes=1000, dtype=torch.bfloat16,
+                                device=dev, seed=0, sync_bn_axis=axis)
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.01, momentum=0.9),
+            named_parameters=model.named_parameters())
+
+        def step():
+            opt.zero_grad()
+            loss = training.cross_entropy_loss(model(x), y)
+            loss.backward()
+            opt.step()
+            # The world's mean loss: each rank has its own batch.
+            return hvd.allreduce(loss.detach(), name="k.loss").item()
+
+        out[f"resnet_{axis}"] = timed_steps(step, *SBN_STEPS)
+        del model, opt
+        torch.cuda.empty_cache()
+    xe = torch.randn(32, 3, 224, 224, generator=gen).to(dev)
+    ye = torch.randint(0, 1000, (32,), generator=gen).to(dev)
+    for path in ("local", "direct", "negotiated"):
+        torch.manual_seed(42)
+        model = ex.resnet50().to(dev)
+        if path != "local":
+            swap_sync_bn(model, hvd)
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.01),
+            named_parameters=model.named_parameters())
+
+        def step():
+            opt.zero_grad()
+            loss = torch.nn.functional.cross_entropy(model(xe), ye)
+            loss.backward()
+            opt.step()
+            return loss.item()
+
+        with (negotiated_statistics(hvd) if path == "negotiated"
+              else contextlib.nullcontext()):
+            out[f"example_{path}"] = timed_steps(step, *SBN_STEPS)
+        del model, opt
+        torch.cuda.empty_cache()
+    return out
+
+
+def elastic_fault_run(hvd, rank, dev, fault):
+    """(k)(1): a small model in ``elastic.run`` with a ``TorchState``,
+    ``ELASTIC_BATCHES`` committed batches; with ``fault`` armed alike on
+    both ranks at batch 2 (the point is voted). Returns (the batches
+    the re-initialized worlds resumed from, the parameters' sha256)."""
+    import torch
+
+    from horovod_tpu_torch.common import faults
+
+    gen = torch.Generator().manual_seed(11)
+    data = torch.randn(ELASTIC_BATCHES, 2, 16, 256, generator=gen).to(dev)
+    torch.manual_seed(3)
+    model = torch.nn.Sequential(torch.nn.Linear(256, 256), torch.nn.ReLU(),
+                                torch.nn.Linear(256, 10)).to(dev)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=0.05, momentum=0.9),
+        named_parameters=model.named_parameters())
+    state = hvd.elastic.TorchState(model=model, optimizer=opt, batch=0)
+    resets = []     # the batch each re-initialized world resumed from
+    state.register_reset_callbacks([lambda: resets.append(state.batch)])
+    armed = []
+
+    @hvd.elastic.run
+    def train(state):
+        while state.batch < ELASTIC_BATCHES:
+            if state.batch == 2 and not armed:
+                hvd.barrier()   # every rank arms between the same responses
+                os.environ["HOROVOD_FAULT_SPEC"] = fault
+                faults.refresh()
+                armed.append(True)
+            opt.zero_grad()
+            model(data[state.batch, rank]).square().mean().backward()
+            opt.step()
+            state.batch += 1
+            state.commit()
+        return state.batch
+
+    batches = train(state)
+    hvd.barrier()
+    os.environ.pop("HOROVOD_FAULT_SPEC")
+    faults.refresh()
+    if batches != ELASTIC_BATCHES:
+        raise AssertionError(f"(k) elastic run ended at batch {batches}")
+    return resets, tensor_digest(list(model.parameters()))
+
+
+def binding_worker(out_path):
+    """One rank of (k) (run as ``chip_smoke.py --binding-worker``; two
+    hosts of one rank on cuda:0): the binding's checks, its optimizer
+    against the bucketed one, batch norm over the world, the elastic retry
+    loop under a fault, and the example at two ranks."""
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    import horovod_tpu_torch.torch as hvd
+    from horovod_tpu_torch.examples import pytorch_synthetic_benchmark as ex
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # The optimizers' comparison and the faulted run against the clean
+    # one are bitwise claims across runs: deterministic kernels.
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    hvd.init()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rank = hvd.rank()
+    out = {"rank": rank, "device": str(dev),
+           "checks": binding_checks(hvd, rank, dev),
+           "bitwise": binding_resnet_bitwise(hvd, rank, dev),
+           "sync_bn": sync_bn_checks(hvd, rank, dev)}
+    t0 = time.perf_counter()
+    out["faulted"] = elastic_fault_run(hvd, rank, dev, ELASTIC_FAULT)
+    out["faulted_s"] = time.perf_counter() - t0
+    out["clean"] = elastic_fault_run(hvd, rank, dev, "")
+    hvd.shutdown()
+    out["example"] = ex.main(["--num-warmup-batches", "1",
+                              "--num-batches-per-iter", "1",
+                              "--num-iters", "1"])
+    Path(out_path).write_text(json.dumps(out))
+    return 0
+
+
+def elastic_worker(out_path):
+    """One rank of (k)(2) (run as ``chip_smoke.py --elastic-worker``): a
+    model in ``elastic.run`` whose every batch ends in a 64 MiB
+    allreduce, or, with ``CHIP_SMOKE_KILL_SYNC_BN=1``, a model of two
+    ``SyncBatchNorm`` under a plain optimizer, whose only collectives are
+    the batch norms' direct all-reduces (the same data on every rank).
+    Rank 1 marks batch ``KILL_READY`` (``ready``); rank 0 writes the time
+    it raised ``HorovodInternalError`` (``raised``). The device is
+    ``CHIP_SMOKE_DEVICE`` (cuda:0 by default)."""
+    import faulthandler
+    import signal
+    import traceback
+
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    import horovod_tpu_torch.torch as hvd
+
+    faulthandler.register(signal.SIGUSR1, all_threads=True)
+    tmp = Path(out_path).parent
+    dev = os.environ.get("CHIP_SMOKE_DEVICE", "cuda:0")
+    respawned = os.environ.get("CHIP_SMOKE_RESPAWNED") == "1"
+    sync_bn = os.environ.get("CHIP_SMOKE_KILL_SYNC_BN") == "1"
+    hvd.init(device=dev)
+    rank = hvd.rank()
+    torch.manual_seed(rank)   # the ranks differ until state.sync()
+    if sync_bn:
+        model = torch.nn.Sequential(
+            torch.nn.Linear(512, 512), hvd.SyncBatchNorm(512),
+            torch.nn.ReLU(), torch.nn.Linear(512, 512),
+            hvd.SyncBatchNorm(512)).to(dev)
+        opt = torch.optim.SGD(model.parameters(), lr=0.01)
+    else:
+        model = torch.nn.Linear(512, 512).to(dev)
+        opt = hvd.DistributedOptimizer(
+            torch.optim.SGD(model.parameters(), lr=0.01),
+            named_parameters=model.named_parameters())
+    state = hvd.elastic.TorchState(model=model, optimizer=opt, batch=0)
+    big = torch.ones(1 << 24, device=dev)
+    resets, raised_in = [], []
+
+    @hvd.elastic.run
+    def train(state):
+        while state.batch < KILL_TARGET:
+            try:
+                opt.zero_grad()
+                if sync_bn:
+                    time.sleep(0.02)    # rank 1's kill lands between batches
+                    x = torch.randn(
+                        64, 512, generator=torch.Generator().manual_seed(
+                            state.batch)).to(dev)
+                    model(x).square().mean().backward()
+                    opt.step()
+                else:
+                    model(torch.ones(8, 512, device=dev)).sum().backward()
+                    opt.step()
+                    hvd.allreduce(big, name=f"big.{state.batch}")
+                state.batch += 1
+                state.commit()
+            except hvd.HorovodInternalError as e:
+                resets.append(state.batch)
+                raised_in.append(sorted({
+                    Path(f.filename).name
+                    for f in traceback.extract_tb(e.__traceback__)}))
+                (tmp / f"raised.{rank}").write_text(repr(time.time()))
+                raise
+            if rank == 1 and not respawned and state.batch == KILL_READY:
+                (tmp / "ready").write_text("1")
+        return state.batch
+
+    batches = train(state)
+    out = {"rank": rank, "batches": batches, "respawned": respawned,
+           "resets": resets, "raised_in": raised_in,
+           "digest": tensor_digest(list(model.parameters()))}
+    hvd.shutdown()
+    Path(out_path).write_text(json.dumps(out))
+    return 0
+
+
+def kill_and_respawn(n, env, timeout_s, bound_s=KILL_BOUND_S):
+    """(k)(2)'s driver: ``n`` ``--elastic-worker`` ranks; once rank 1
+    marks ``ready``, SIGKILL it and time rank 0's ``raised`` mark (a
+    failure past ``bound_s``: the survivor hung), then start rank 1 again
+    with the same rank. Returns (seconds from the kill to the raise, each
+    rank's result). Every process is stopped before it returns."""
+    import signal
+
+    from horovod_tpu_torch.common.config import free_port_pair
+
+    port = free_port_pair()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_kill_"))
+
+    def spawn(r, extra=None):
+        renv = dict(os.environ, **env, **(extra or {}), HOROVOD_RANK=str(r),
+                    HOROVOD_SIZE=str(n), HOROVOD_LOCAL_RANK="0",
+                    HOROVOD_LOCAL_SIZE="1", HOROVOD_CROSS_RANK=str(r),
+                    HOROVOD_CROSS_SIZE=str(n),
+                    HOROVOD_CONTROLLER_ADDR="127.0.0.1",
+                    HOROVOD_CONTROLLER_PORT=str(port),
+                    NCCL_HOSTID=f"chip-smoke-rank{r}",
+                    NCCL_IB_DISABLE="1", NCCL_SOCKET_IFNAME="lo")
+        logf = open(tmp / f"log{r}.txt", "a")
+        return subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()),
+             "--elastic-worker", str(tmp / f"rank{r}.json")], env=renv,
+            stdout=logf, stderr=subprocess.STDOUT)
+
+    procs = [spawn(r) for r in range(n)]
+    t0 = time.perf_counter()
+
+    def dump_stacks():
+        for p in procs:                 # each thread's stack to its log
+            if p.poll() is None:
+                p.send_signal(signal.SIGUSR1)
+        time.sleep(1.0)
+
+    def wait_for(path, limit, what, running):
+        while not path.exists():
+            if time.perf_counter() > limit:
+                dump_stacks()
+                raise AssertionError(f"(k) timed out waiting for {what}")
+            if any(p.poll() is not None for p in running):
+                raise AssertionError(f"(k) a worker exited "
+                                     f"{[p.poll() for p in procs]} before "
+                                     f"{what}")
+            time.sleep(0.01)
+
+    ended = False
+    try:
+        wait_for(tmp / "ready", t0 + timeout_s, "rank 1's batches", procs)
+        time.sleep(0.2)
+        t_kill = time.time()
+        procs[1].send_signal(signal.SIGKILL)
+        procs[1].wait()
+        wait_for(tmp / "raised.0", time.perf_counter() + bound_s,
+                 f"rank 0 to raise within {bound_s} s of the kill",
+                 procs[:1])
+        kill_to_raise = float((tmp / "raised.0").read_text()) - t_kill
+        procs[1] = spawn(1, {"CHIP_SMOKE_RESPAWNED": "1"})
+        for p in procs:
+            try:
+                p.wait(timeout=max(1.0,
+                                   timeout_s - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                dump_stacks()
+                raise
+        ended = True
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        ended = ended and all(p.returncode == 0 for p in procs)
+        for r in range(n):
+            lines = (tmp / f"log{r}.txt").read_text().splitlines()
+            for line in lines:
+                log(f"    [rank {r}] {line}")
+            if not ended:   # the end of each log beside the error
+                for line in [x for x in lines
+                             if not x.startswith("frame #")][-KILL_LOG_TAIL:]:
+                    print(f"    [rank {r}] {line}", file=sys.stderr,
+                          flush=True)
+    codes = [p.returncode for p in procs]
+    if codes != [0] * n:
+        raise AssertionError(f"(k) elastic workers exited {codes}")
+    res = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(n)]
+    shutil.rmtree(tmp, ignore_errors=True)
+    return kill_to_raise, res
+
+
+def binding_phase(gpu):
+    """(k): the binding's checks and batch norm over the world with two
+    ranks on cuda:0, the elastic retry loop under a fault, a SIGKILLed rank
+    and its replacement, and the example at one rank on the card."""
+    import torch
+
+    from horovod_tpu_torch.examples import pytorch_synthetic_benchmark as ex
+
+    t0 = time.perf_counter()
+    env = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    # Two hosts of one rank: each rank's local rank is 0, so the example's
+    # torch.cuda.set_device(hvd.local_rank()) takes the one card.
+    res = run_workers("--binding-worker", BINDING, BINDING_TIMEOUT_S,
+                      local_size=1, env=env)
+    for r in res:
+        log(f"    rank {r['rank']} on {r['device']}: {len(r['checks'])} "
+            f"binding checks passed: {', '.join(r['checks'])}")
+        (_, n_b, d_b), (_, n_u, d_u) = r["bitwise"]
+        log(f"    rank {r['rank']} ResNet-50 ({n_b} parameters): the "
+            f"binding's DistributedOptimizer {[d[:12] for d in d_b]}, the "
+            f"bucketed one {[d[:12] for d in d_u]}")
+        if n_b != RESNET50_TENSORS or d_b != d_u:
+            raise AssertionError(f"(k) rank {r['rank']}: the binding's "
+                                 f"optimizer is not bitwise the bucketed "
+                                 f"one")
+        s = r["sync_bn"]
+        log(f"    rank {r['rank']} SyncBatchNorm against BatchNorm2d over "
+            f"the world's batch: forward {s['sbn_forward']:.2e} (limit "
+            f"1e-4), running mean {s['sbn_mean']:.2e} (1e-5), running "
+            f"variance {s['sbn_var']:.2e} (1e-4)")
+        if not (s["sbn_forward"] <= 1e-4 and s["sbn_mean"] <= 1e-5 and
+                s["sbn_var"] <= 1e-4):
+            raise AssertionError(f"(k) rank {r['rank']}: SyncBatchNorm")
+        for key in ("resnet_dp", "resnet_None", "example_local",
+                    "example_direct", "example_negotiated"):
+            losses, ms = s[key]
+            log(f"    rank {r['rank']} {key}: losses "
+                f"{[round(x, 4) for x in losses]}, {ms:.2f} ms a step "
+                f"({SBN_STEPS[1]} timed, two ranks on one card) on {gpu}")
+            if not all(math.isfinite(x) for x in losses):
+                raise AssertionError(f"(k) {key}: a loss is not finite")
+        for key in ("faulted", "clean"):
+            log(f"    rank {r['rank']} elastic {key}: re-initialized at "
+                f"batches {r[key][0]}, parameters {r[key][1][:12]}")
+        if not r["faulted"][0] or r["clean"][0] or \
+                r["faulted"][1] != r["clean"][1]:
+            raise AssertionError(f"(k) rank {r['rank']}: the faulted elastic "
+                                 f"run is not the clean one")
+        log(f"    rank {r['rank']} the faulted run took "
+            f"{r['faulted_s']:.2f} s; the example at two ranks "
+            f"{[round(x, 1) for x in r['example']]} img/s a device")
+    if res[0]["faulted"][1] != res[1]["faulted"][1]:
+        raise AssertionError("(k) the ranks' elastic parameters differ")
+    for key in ("resnet_dp", "resnet_None"):
+        if res[0]["sync_bn"][key][0] != res[1]["sync_bn"][key][0]:
+            raise AssertionError(f"(k) {key}: the ranks' losses differ")
+    # An elastic job in a fixed world sets what HOROVOD_ELASTIC sets for
+    # the groups init makes: torch's watchdog leaves a lost rank to the
+    # binding's watch.
+    from horovod_tpu_torch.common.state import ELASTIC_NCCL_ENV
+
+    kill_env = dict(env, **ELASTIC_NCCL_ENV)
+    for what, extra in (("inside the 64 MiB allreduces", {}),
+                        ("between SyncBatchNorm batches",
+                         {"CHIP_SMOKE_KILL_SYNC_BN": "1"})):
+        t1 = time.perf_counter()
+        kill_to_raise, kres = kill_and_respawn(
+            BINDING, dict(kill_env, **extra), BINDING_TIMEOUT_S)
+        log(f"    SIGKILL of rank 1 {what}: rank 0 raised "
+            f"HorovodInternalError {kill_to_raise:.3f} s after it (bound "
+            f"{KILL_BOUND_S} s); the respawned rank 1 rejoined; "
+            f"{time.perf_counter() - t1:.1f} s in all on {gpu}")
+        for r in kres:
+            log(f"    rank {r['rank']} (respawned {r['respawned']}): "
+                f"{r['batches']} batches, reset at {r['resets']} (raised "
+                f"through {r['raised_in']}), parameters {r['digest'][:12]}")
+        if not (kres[0]["resets"] and kres[1]["respawned"] and
+                kres[0]["batches"] == kres[1]["batches"] == KILL_TARGET and
+                kres[0]["digest"] == kres[1]["digest"]):
+            raise AssertionError(f"(k) the world did not re-form after the "
+                                 f"kill {what}")
+    torch.cuda.empty_cache()
+    img = ex.main(["--num-warmup-batches", "2", "--num-batches-per-iter",
+                   "5", "--num-iters", "3"])
+    log(f"    pytorch_synthetic_benchmark at one rank (ResNet-50, fp32, "
+        f"batch 32, 224 px): {[round(x, 1) for x in img]} img/s, mean "
+        f"{sum(img) / len(img):.1f} img/s a device on {gpu}")
+    log(f"    (k) took {time.perf_counter() - t0:.1f} s")
+
+
 def time_tree(tree):
     """``chip_smoke.py --time-tree DIR``: kernel times of the checkout DIR
     (say, a parent commit unpacked with ``git archive``; it builds its own
@@ -3145,6 +3774,12 @@ def main():
         f"{since()}")
     planes_phase(gpu)
 
+    # (k) the torch binding and the elastic worker: NCCL, cuDNN and the
+    # host, no kernel of the port
+    log(f"(k) the torch binding and elastic: {BINDING} ranks on cuda:0, "
+        f"one NCCL world {since()}")
+    binding_phase(gpu)
+
     # (d) result
     log(f"(d) result {since()}")
     for name, row in table.items():
@@ -3172,6 +3807,10 @@ if __name__ == "__main__":
         sys.exit(host_worker(sys.argv[2]))
     if sys.argv[1:2] == ["--planes-worker"]:
         sys.exit(planes_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--binding-worker"]:
+        sys.exit(binding_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--elastic-worker"]:
+        sys.exit(elastic_worker(sys.argv[2]))
     if sys.argv[1:2] == ["--time-tree"]:
         sys.exit(time_tree(sys.argv[2]))
     sys.exit(main())

@@ -36,7 +36,9 @@ CPU tensors of a process-rank world without ``hvd.init`` go through
 NCCL with ``HOROVOD_HOST_VIA_XLA=1`` (``common/host_staging.py``). The direct collectives on a group (``allgather(x, axis=...)``,
 ``grouped_allreduce(..., bucket_cap_bytes=...)``, the differentiable
 ones) live in ``horovod_tpu_torch.ops.collectives``, the counterpart of
-``hvd.xla``.
+``hvd.xla``. ``horovod_tpu_torch.torch`` is Horovod's PyTorch binding
+(``import horovod_tpu_torch.torch as hvd``) on this runtime, and
+``horovod_tpu_torch.elastic`` the elastic state and retry loop.
 """
 
 from typing import List, Optional

@@ -60,6 +60,18 @@ HOROVOD_AUTOTUNE_GAUSSIAN_PROCESS_NOISE = "HOROVOD_AUTOTUNE_GAUSSIAN_PROCESS_NOI
 # (common/host_staging.py); the names are the JAX package's, where the
 # staging went through XLA.
 HOROVOD_ELASTIC = "HOROVOD_ELASTIC"
+# The elastic worker (common/host_world.py, elastic/, run/): the driver's
+# rendezvous KV, its notification key, the preemption signal, the rejoin
+# and drain graces and the blacklist strikes.
+HOROVOD_RENDEZVOUS_ADDR = "HOROVOD_GLOO_RENDEZVOUS_ADDR"
+HOROVOD_RENDEZVOUS_PORT = "HOROVOD_GLOO_RENDEZVOUS_PORT"
+HOROVOD_SECRET_KEY = "HOROVOD_SECRET_KEY"
+HOROVOD_ELASTIC_PREEMPT_SIGNAL = "HOROVOD_ELASTIC_PREEMPT_SIGNAL"
+HOROVOD_ELASTIC_REJOIN_GRACE = "HOROVOD_ELASTIC_REJOIN_GRACE"
+HOROVOD_DRAIN_GRACE_MS = "HOROVOD_DRAIN_GRACE_MS"
+DEFAULT_DRAIN_GRACE_MS = 5000
+HOROVOD_ELASTIC_BLACKLIST_STRIKES = "HOROVOD_ELASTIC_BLACKLIST_STRIKES"
+DEFAULT_BLACKLIST_STRIKES = 3
 HOROVOD_HOST_VIA_XLA = "HOROVOD_HOST_VIA_XLA"
 HOROVOD_HOST_VIA_XLA_THRESHOLD = "HOROVOD_HOST_VIA_XLA_THRESHOLD"
 DEFAULT_HOST_VIA_XLA_THRESHOLD = 1 << 20  # 1 MiB fused response
@@ -183,14 +195,40 @@ def zero_prefetch_env():
     return max(0, min(8, v)), explicit
 
 
+# The elastic rendezvous's plan for the current round
+# (``host_world.elastic_rendezvous``): while set, it takes the place of the
+# launcher's rank block and controller endpoint, so every reader of the
+# world's layout sees the round's.
+_round_world: "dict | None" = None
+
+
+def set_round_world(world) -> None:
+    """Install (a dict with ``rank``, ``size``, ``local_rank``,
+    ``local_size``, ``cross_rank``, ``cross_size``, ``addr``, ``port``)
+    or clear (None) the elastic round's layout."""
+    global _round_world
+    _round_world = dict(world) if world is not None else None
+
+
+def round_world():
+    """The elastic round's layout (a copy), or None."""
+    return None if _round_world is None else dict(_round_world)
+
+
+def _round(key: str):
+    return None if _round_world is None else _round_world[key]
+
+
 def rank() -> int:
-    """This process's launch-time global rank (0 when unlaunched)."""
-    return _get_int(HOROVOD_RANK, 0)
+    """This process's global rank (0 when unlaunched)."""
+    r = _round("rank")
+    return r if r is not None else _get_int(HOROVOD_RANK, 0)
 
 
 def size() -> int:
-    """Launch-time world size (1 when unlaunched)."""
-    return _get_int(HOROVOD_SIZE, 1)
+    """The world's size (1 when unlaunched)."""
+    r = _round("size")
+    return r if r is not None else _get_int(HOROVOD_SIZE, 1)
 
 
 def rank_string():
@@ -200,33 +238,47 @@ def rank_string():
 
 
 def local_rank() -> int:
-    """Launch-time rank on this host (0 when unlaunched)."""
+    """This process's rank on its host (0 when unlaunched)."""
+    r = _round("local_rank")
+    return r if r is not None else slot_local_rank()
+
+
+def slot_local_rank() -> int:
+    """The launch-time local rank: with ``hostname()`` the identity of
+    this worker's slot in the elastic driver's KV, fixed for the life of
+    the process while the rank moves."""
     return _get_int(HOROVOD_LOCAL_RANK, 0)
 
 
 def local_size(default: int) -> int:
     """Processes on this host; the caller supplies the fallback."""
-    return _get_int(HOROVOD_LOCAL_SIZE, default)
+    r = _round("local_size")
+    return r if r is not None else _get_int(HOROVOD_LOCAL_SIZE, default)
 
 
 def cross_rank(default: int) -> int:
-    """Host index from the launcher; the caller supplies the fallback."""
-    return _get_int(HOROVOD_CROSS_RANK, default)
+    """Host index; the caller supplies the fallback."""
+    r = _round("cross_rank")
+    return r if r is not None else _get_int(HOROVOD_CROSS_RANK, default)
 
 
 def cross_size(default: int) -> int:
-    """Host count from the launcher; the caller supplies the fallback."""
-    return _get_int(HOROVOD_CROSS_SIZE, default)
+    """Host count; the caller supplies the fallback."""
+    r = _round("cross_size")
+    return r if r is not None else _get_int(HOROVOD_CROSS_SIZE, default)
 
 
 def controller_addr() -> str:
     """The rendezvous host for the process group's TCP store."""
-    return os.environ.get(HOROVOD_CONTROLLER_ADDR, "127.0.0.1")
+    r = _round("addr")
+    return r if r is not None else os.environ.get(HOROVOD_CONTROLLER_ADDR,
+                                                  "127.0.0.1")
 
 
 def controller_base_port() -> int:
     """The rendezvous port for the process group's TCP store."""
-    return _get_int(HOROVOD_CONTROLLER_PORT, 29500)
+    r = _round("port")
+    return r if r is not None else _get_int(HOROVOD_CONTROLLER_PORT, 29500)
 
 
 # The native controller listens on the process group's port + this.
@@ -292,9 +344,67 @@ def log_hide_time() -> bool:
 
 def elastic_enabled() -> bool:
     """Whether the launcher asked for an elastic world (``HOROVOD_ELASTIC``,
-    the ``EnvFlag`` grammar). The port has no elastic rendezvous yet: the
-    host world refuses such a world rather than run a fixed one."""
+    the ``EnvFlag`` grammar): every (re-)init then takes the world's
+    layout from the elastic driver's rendezvous KV."""
     return _get_bool(HOROVOD_ELASTIC)
+
+
+def rendezvous_addr():
+    """The elastic rendezvous KV's host, ``None`` when not under the
+    elastic driver (empty counts as unset)."""
+    return os.environ.get(HOROVOD_RENDEZVOUS_ADDR) or None
+
+
+def rendezvous_port():
+    """The elastic rendezvous KV's port, ``None`` when unset or not a
+    number (which warns: callers then run without the KV, and that must
+    not look like a launcher that never exported the port)."""
+    v = os.environ.get(HOROVOD_RENDEZVOUS_PORT)
+    if not v:
+        return None
+    try:
+        return int(v)
+    except ValueError:
+        _log.warning(f"{HOROVOD_RENDEZVOUS_PORT}={v!r} is not a valid port; "
+                     "elastic rendezvous registration disabled")
+        return None
+
+
+def rendezvous_port_string():
+    """The raw rendezvous port, ``None`` when unset or empty (for errors
+    that must show a value that did not parse)."""
+    return os.environ.get(HOROVOD_RENDEZVOUS_PORT) or None
+
+
+def secret_key_b64():
+    """The elastic driver's base64 notification key; ``None`` when this
+    process was not launched by the elastic driver."""
+    return os.environ.get(HOROVOD_SECRET_KEY) or None
+
+
+def preempt_signal_spec() -> str:
+    """The opt-in preemption signal (a name or a number; empty: none)."""
+    return os.environ.get(HOROVOD_ELASTIC_PREEMPT_SIGNAL, "").strip()
+
+
+def rejoin_grace_env():
+    """The operator's rejoin grace in seconds, ``None`` when unset (the
+    grace the driver publishes in the KV applies then)."""
+    if not os.environ.get(HOROVOD_ELASTIC_REJOIN_GRACE):
+        return None
+    return _get_float(HOROVOD_ELASTIC_REJOIN_GRACE, 10.0)
+
+
+def drain_grace_ms() -> int:
+    """How long a preempted worker gets to commit and say DRAIN before
+    it force-exits."""
+    return max(1, _get_int(HOROVOD_DRAIN_GRACE_MS, DEFAULT_DRAIN_GRACE_MS))
+
+
+def blacklist_strikes() -> int:
+    """Failures a host absorbs before its blacklist turns permanent."""
+    return max(1, _get_int(HOROVOD_ELASTIC_BLACKLIST_STRIKES,
+                           DEFAULT_BLACKLIST_STRIKES))
 
 
 # ---- fault injection (common/faults.py) ------------------------------------

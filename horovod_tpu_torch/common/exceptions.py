@@ -25,3 +25,22 @@ class HorovodInternalError(HorovodTpuError):
 class DuplicateTensorNameError(HorovodTpuError):
     """A tensor name was submitted again before its first submission
     completed (the tensor queue's duplicate-name rejection)."""
+
+
+class HostsUpdatedInterrupt(HorovodTpuError):
+    """The elastic driver changed the set of hosts. The results so far
+    stand; training goes on after a re-initialization against the new
+    world (``skip_sync``: without the broadcast from rank 0 first)."""
+
+    def __init__(self, skip_sync: bool = False):
+        super().__init__()
+        self.skip_sync = skip_sync
+
+
+class PreemptionInterrupt(HostsUpdatedInterrupt):
+    """This worker's host got a preemption notice: the retry loop commits,
+    announces the drain and exits 0, so the driver charges the host no
+    blacklist strike."""
+
+    def __init__(self):
+        super().__init__(skip_sync=True)

@@ -19,9 +19,10 @@ The API is raw buffers (``enqueue``/``test``/``wait`` with data pointers,
 ``result_fetch``) and small blocking helpers on numpy arrays; torch CPU
 tensors pass their ``data_ptr()`` with the code of ``dtype_code``.
 
-Not ported yet: the elastic re-rendezvous through the elastic driver's KV
-(ROADMAP A17). Under ``HOROVOD_ELASTIC`` ``init`` refuses the world rather
-than run a fixed one in its place.
+Under ``HOROVOD_ELASTIC`` every (re-)init takes the world's layout from
+the elastic driver's rendezvous KV (``elastic_rendezvous``), as
+``hvd.init`` does: the slot plan of the current round, and the endpoint
+rank 0 publishes for it.
 """
 
 from __future__ import annotations
@@ -74,6 +75,186 @@ def _sched_env(primary: str, fallbacks, default: str) -> str:
     return default
 
 
+def _rejoin_grace_seconds(addr=None, port=None) -> float:
+    """How long a surviving worker waits for the driver to move to a new
+    round before it takes the failure for a transient one and rejoins the
+    current round: ``HOROVOD_ELASTIC_REJOIN_GRACE`` when set, else the
+    grace the driver publishes under ``config/rejoin_grace`` (it covers
+    its blacklist cooldown), else 10 s. Read at every re-init."""
+    grace = _config.rejoin_grace_env()
+    if grace is not None:
+        return grace
+    if addr and port:
+        from ..run.http.http_client import read_data_from_kvstore
+
+        try:
+            blob = read_data_from_kvstore(addr, int(port), "config",
+                                          "rejoin_grace", timeout=2.0,
+                                          retries=1)
+            if blob:
+                return float(blob.decode())
+        except (OSError, ValueError):
+            pass
+    return 10.0
+
+
+def _excluded_from_plan_error() -> HorovodInternalError:
+    return HorovodInternalError(
+        "this worker is no longer in the rendezvous plan (slot removed or "
+        "host blacklisted)")
+
+
+# The rendezvous round of this process's last elastic init (None before
+# the first): a re-init prefers a newer one.
+_last_round: Optional[int] = None
+# The base port rank 0 published for each round: a re-init that rejoins
+# the same round publishes the same one again, so a peer that reads the
+# round's key before rank 0 writes it anew still finds rank 0.
+_round_ports: dict = {}
+
+
+def elastic_rendezvous(current_rank: int = 0) -> None:
+    """Under ``HOROVOD_ELASTIC``: this worker's layout for the current
+    round of the elastic driver's plan, and the endpoint of the round's
+    world (rank 0 takes a free pair of ports, ``config.free_port_pair``,
+    a round, and publishes ``host:port`` keyed by the round; the others
+    wait for it). The layout is installed with ``config.set_round_world``, and
+    the notification service is started, so the driver can reach this
+    worker. Nothing is installed (the launch-time environment stands)
+    when the job is not elastic, and at the first init when the KV is
+    unreachable or has no plan for this slot yet (the launch-time
+    environment is the plan's first round). Raises ``HorovodInternalError`` when the job is
+    elastic but the rendezvous is not in the environment, and at a
+    re-init when the KV cannot be read or the plan leaves this slot out:
+    it never runs a fixed world in place of an elastic one.
+
+    ``current_rank`` targets the fault points (the launch-time rank goes
+    stale once the driver moves ranks)."""
+    global _last_round
+    _config.set_round_world(None)
+    if not _config.elastic_enabled():
+        return
+    addr = _config.rendezvous_addr()
+    port = _config.rendezvous_port()
+    hostname = _config.hostname()
+    if not (addr and port and hostname):
+        raise HorovodInternalError(
+            f"{_config.HOROVOD_ELASTIC} is set but the elastic driver's "
+            f"rendezvous is not ({_config.HOROVOD_RENDEZVOUS_ADDR}, "
+            f"{_config.HOROVOD_RENDEZVOUS_PORT}, {_config.HOROVOD_HOSTNAME}):"
+            f" launch elastic jobs with the elastic launcher; a fixed world "
+            f"does not run in place of an elastic one")
+    from ..run.elastic.rendezvous import fetch_slot_info
+
+    slot = _config.slot_local_rank()
+    if _last_round is None:
+        try:
+            fetched = fetch_slot_info(addr, port, hostname, slot,
+                                      rank=current_rank)
+        # The first init only: the launch-time environment is still the
+        # plan's first round, so an unreachable KV degrades to it.
+        except Exception as e:
+            _log.warning(f"elastic rendezvous unreachable at first init; "
+                         f"using the launch-time layout: {e}")
+            return
+        if fetched is None:
+            return
+    else:
+        last, latest = _last_round, [None]
+
+        def fetch_newer():
+            try:
+                got = fetch_slot_info(addr, port, hostname, slot,
+                                      rank=current_rank)
+            except Exception as e:
+                raise HorovodInternalError(
+                    f"elastic re-rendezvous failed: {e}") from e
+            if got is None:
+                raise _excluded_from_plan_error()
+            latest[0] = got
+            return got if got[1] > last else None
+
+        # A failure that killed a worker makes the driver plan a new round
+        # (cooldown + activation, a few seconds); a transient one changes
+        # nothing, and everyone rejoins the current round once the grace
+        # is over. Unlimited polls within the grace are the contract, so
+        # attempts and deadline take no environment override.
+        retrier = _faults.retrier(
+            "REJOIN", name="elastic.rejoin", rank=current_rank,
+            pinned=("max_attempts", "deadline"),
+            max_attempts=0, base_delay=0.25, max_delay=1.0,
+            deadline=max(_rejoin_grace_seconds(addr, port), 0.001))
+        try:
+            fetched = retrier.poll(fetch_newer)
+        except _faults.RetryExhausted:
+            fetched = latest[0]
+    (rank, size, local_rank, local_size, cross_rank,
+     cross_size), rendezvous_round = fetched
+    host, base_port = _exchange_endpoint(addr, port, hostname, slot, rank,
+                                         rendezvous_round)
+    _last_round = rendezvous_round
+    _config.set_round_world(dict(
+        rank=rank, size=size, local_rank=local_rank, local_size=local_size,
+        cross_rank=cross_rank, cross_size=cross_size, addr=host,
+        port=base_port))
+    from ..run.elastic.worker import notification_manager
+
+    notification_manager.init()
+
+
+def _exchange_endpoint(addr: str, port: int, hostname: str, slot: int,
+                       rank: int, rendezvous_round: int) -> Tuple[str, int]:
+    """Rank 0 takes a free pair of ports (the store's and the native
+    controller's) for the round, the same one again when it rejoins a
+    round, and publishes it; the others poll for it, watching for the
+    round moving on under them. Raises ``HorovodInternalError``: the
+    retry loop then re-rendezvouses."""
+    from ..run.elastic.rendezvous import (fetch_controller_endpoint,
+                                          fetch_slot_info,
+                                          publish_controller_endpoint)
+
+    try:
+        if rank == 0:
+            base = _round_ports.get(rendezvous_round)
+            if base is None:
+                base = _round_ports[rendezvous_round] = \
+                    _config.free_port_pair()
+            publish_controller_endpoint(addr, port, hostname, base,
+                                        rendezvous_round)
+            return hostname, base
+
+        def fetch_once():
+            ep = fetch_controller_endpoint(addr, port, rendezvous_round,
+                                           timeout=2.0, rank=rank)
+            if ep is not None:
+                return ep
+            current = fetch_slot_info(addr, port, hostname, slot, rank=rank)
+            if current is None:
+                raise _excluded_from_plan_error()
+            if current[1] != rendezvous_round:
+                raise HorovodInternalError(
+                    f"rendezvous advanced to round {current[1]} while "
+                    f"waiting for round {rendezvous_round}'s endpoint")
+            return None
+
+        retrier = _faults.retrier(
+            "RENDEZVOUS", name="controller.endpoint", rank=rank,
+            pinned=("max_attempts",),
+            max_attempts=0, base_delay=0.25, max_delay=2.0, deadline=120.0)
+        try:
+            return retrier.poll(fetch_once)
+        except _faults.RetryExhausted:
+            raise HorovodInternalError(
+                f"the endpoint of rendezvous round {rendezvous_round} never "
+                f"appeared in the KV (rank 0 failed before publishing?)"
+            ) from None
+    except HorovodInternalError:
+        raise
+    except Exception as e:
+        raise HorovodInternalError(
+            f"elastic endpoint rendezvous failed: {e}") from e
+
+
 class HostWorld:
     """Process-rank collective world over the native host data plane."""
 
@@ -108,22 +289,27 @@ class HostWorld:
         with self._lock:
             if self.initialized:
                 return
-            if _config.elastic_enabled():
-                raise NotImplementedError(
-                    "HOROVOD_ELASTIC: the host world's elastic "
-                    "re-rendezvous is not ported yet (ROADMAP A17); "
-                    "refusing to run a fixed world in place of an elastic "
-                    "one")
-            self.rank = int(_sched_env(_config.HOROVOD_RANK, _SCHED_RANK,
-                                       "0"))
-            self.size = int(_sched_env(_config.HOROVOD_SIZE, _SCHED_SIZE,
-                                       "1"))
-            self.local_rank = int(
-                _sched_env(_config.HOROVOD_LOCAL_RANK, _SCHED_LOCAL_RANK,
-                           "0"))
-            self.local_size = int(
-                _sched_env(_config.HOROVOD_LOCAL_SIZE, _SCHED_LOCAL_SIZE,
-                           "1"))
+            core = self._borrow_engine_core()
+            if core is None and _config.elastic_enabled():
+                # Without hvd.init this world rendezvouses itself; with it,
+                # hvd.init already installed the round's layout.
+                elastic_rendezvous(_config.rank())
+            rw = _config.round_world()
+            if rw is not None:
+                self.rank, self.size = rw["rank"], rw["size"]
+                self.local_rank = rw["local_rank"]
+                self.local_size = rw["local_size"]
+            else:
+                self.rank = int(_sched_env(_config.HOROVOD_RANK,
+                                           _SCHED_RANK, "0"))
+                self.size = int(_sched_env(_config.HOROVOD_SIZE,
+                                           _SCHED_SIZE, "1"))
+                self.local_rank = int(
+                    _sched_env(_config.HOROVOD_LOCAL_RANK,
+                               _SCHED_LOCAL_RANK, "0"))
+                self.local_size = int(
+                    _sched_env(_config.HOROVOD_LOCAL_SIZE,
+                               _SCHED_LOCAL_SIZE, "1"))
             # The launcher's cross topology wins; under a scheduler it
             # follows from the per-node packing (a homogeneous layout).
             ls = max(1, self.local_size)
@@ -174,7 +360,6 @@ class HostWorld:
                         f"ring.stripe.connect fault armed: forcing "
                         f"stripe connect failure; single-socket TCP "
                         f"carries the cross legs ({e})")
-            core = self._borrow_engine_core()
             if core is not None:
                 self._core, self._owns_core = core, False
             elif self.size > 1:

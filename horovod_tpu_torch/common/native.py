@@ -326,6 +326,8 @@ def _bind_prototypes(lib):
     # 3 a.m. load.
     lib.hvd_initialized.restype = ctypes.c_int
     lib.hvd_initialized.argtypes = []
+    lib.hvd_world_lost.restype = ctypes.c_int
+    lib.hvd_world_lost.argtypes = []
     lib.hvd_rank.restype = ctypes.c_int
     lib.hvd_rank.argtypes = []
     lib.hvd_size.restype = ctypes.c_int
@@ -676,6 +678,12 @@ class NativeCore:
     def shutdown(self):
         if self.available:
             self.lib.hvd_shutdown()
+
+    def world_lost(self) -> bool:
+        """True once this rank's world ended because a rank was lost (it
+        died, was evicted, or stalled past the shutdown window), not
+        because a rank asked to leave."""
+        return bool(self.available and self.lib.hvd_world_lost())
 
     def drain(self):
         """Mark this rank's departure as a graceful DRAIN (preemption):

@@ -14,11 +14,29 @@ executor on a process group of its own) after the groups are made, the
 timeline on a rank whose ``HOROVOD_TIMELINE`` names a file, and the
 autotuner (``HOROVOD_AUTOTUNE``) on rank 0; ``shutdown`` stops them before
 any group is destroyed.
+
+Under ``HOROVOD_ELASTIC`` the layout and the store's endpoint come from
+the elastic driver's plan for the current round
+(``host_world.elastic_rendezvous``). A world of more than one process
+whose native core runs keeps a watch on the core's verdict
+(``_CoreWatch``): when a peer dies, NCCL raises nothing and a survivor's
+kernel would wait for it forever, but the core's controller sees the
+closed connection on its own thread, so the watch aborts the world's
+communicators, and the collectives in flight and the next ones raise
+``HorovodInternalError``, which the elastic retry loop answers with a
+restore and ``reinitialize()``. A direct collective of the world's
+groups turns its failure into that error through ``direct_collective``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import gc
+import importlib
+import os
+import socket
 import threading
+import time
 from typing import Optional
 
 import torch
@@ -26,7 +44,7 @@ import torch.distributed as dist
 
 from . import config as _config
 from . import logging as _log
-from .exceptions import NotInitializedError
+from .exceptions import HorovodInternalError, NotInitializedError
 
 
 class _GlobalState:
@@ -47,12 +65,250 @@ class _GlobalState:
         self.engine = None       # the eager engine (ops/eager.py)
         self.timeline = None     # common/timeline.Timeline when written
         self.autotuner = None    # common/parameter_manager (rank 0)
+        self.watch = None        # _CoreWatch of a world init made
+        self.world_lost = False  # a rank was lost; the groups are aborted
+        self.aborted = threading.Event()  # set once that abort returned
+        self.store = None        # rank 0's TCPStore of a world init made
 
     def reset(self):
         self.__init__()
 
 
 _state = _GlobalState()
+# The arguments of the last init, for reinitialize().
+_init_args: dict = {}
+
+# Seconds a rank waits for rank 0 to open a new world on its store.
+JOIN_TIMEOUT_S = 120.0
+# How often the watch reads the core's verdict on the world.
+WATCH_PERIOD_S = 0.01
+# Seconds a failed direct collective waits for the core's verdict: the
+# communicator may see a dead peer a cycle before the core does.
+VERDICT_WAIT_S = 2.0
+# Seconds a rank that found its world lost waits for the watch's abort
+# to return before it raises.
+ABORT_WAIT_S = 60.0
+
+
+class _CoreWatch:
+    """A thread that reads the native core's verdict on the world
+    (``NativeCore.world_lost``: a closed or silent controller connection,
+    an eviction, a stall shutdown; a rank that asked to leave is not a
+    loss) and calls ``on_lost`` once when the world was lost."""
+
+    def __init__(self, core, on_lost):
+        self._core, self._on_lost = core, on_lost
+        self._stop = threading.Event()
+        self._thread = threading.Thread(
+            target=self._run, daemon=True, name="hvd-world-watch")
+        self._thread.start()
+
+    def _run(self):
+        while not self._stop.wait(WATCH_PERIOD_S):
+            if self._core.world_lost():
+                self._on_lost()
+                return
+
+    def close(self):
+        """Stop the thread, then read the verdict once more: a collective
+        can raise on the core's own error before the thread's next read,
+        and a lost world must be aborted before its groups are torn
+        down."""
+        self._stop.set()
+        self._thread.join()
+        if self._core.world_lost():
+            self._on_lost()
+
+
+# Rank 0's hold on its world's two ports (``_hold_ports``): port -> socket.
+_held_ports: dict = {}
+
+
+def _hold_ports(ports) -> None:
+    """Hold ``ports`` (and let go of any other held before): a socket
+    bound to each with ``SO_REUSEADDR`` that never listens. The store and
+    the native controller bind beside it (both set ``SO_REUSEADDR``), but
+    no ``connect()`` of the host takes a held port as its ephemeral local
+    port. The controller's port is free once the core's bootstrap is over,
+    and a base port from ``bind(0)`` makes it one that ``connect()``
+    hands out: a peer's store client or an NCCL socket of the world could
+    take it, and a re-init on the same ports then failed to listen there.
+    A port that is taken already is left to the bind that needs it."""
+    for port in [p for p in _held_ports if p not in ports]:
+        _held_ports.pop(port).close()
+    for port in ports:
+        if port in _held_ports:
+            continue
+        sock = socket.socket()
+        sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        try:
+            sock.bind(("", port))
+        except OSError:
+            sock.close()
+            continue
+        _held_ports[port] = sock
+
+
+# The token of the last world this process joined (``_open_store``).
+_last_token: Optional[str] = None
+_TOKEN_KEY = "hvd.world.token"
+_CLOSED = "closed"
+
+
+def _open_store(size: int, rank: int):
+    """The world's store and its token. Rank 0 listens on the base port
+    and puts a fresh token in its store; the others connect and wait for
+    a token that is not the one of the last world they joined, nor the
+    mark of an ended world (``_close_store``). At a re-init on the same
+    port a peer (a member of the old world, or a process started in a
+    lost rank's place) may reach rank 0's old store before it goes; the
+    peer then waits there until it goes, and connects again, until
+    ``JOIN_TIMEOUT_S``."""
+    addr, port = _config.controller_addr(), _config.controller_base_port()
+    if rank == 0:
+        _hold_ports((port, _config.native_controller_port()))
+        store = dist.TCPStore(addr, port, world_size=size, is_master=True)
+        token = os.urandom(8).hex()
+        store.set(_TOKEN_KEY, token)
+        return store, token
+    deadline = time.monotonic() + JOIN_TIMEOUT_S
+    while True:
+        try:
+            store = dist.TCPStore(addr, port, world_size=size,
+                                  is_master=False)
+            while True:
+                token = store.get(_TOKEN_KEY).decode()
+                if token not in (_last_token, _CLOSED):
+                    return store, token
+                if time.monotonic() > deadline:
+                    raise HorovodInternalError(
+                        "rank 0 did not open a new world on its store")
+                time.sleep(0.05)
+        except RuntimeError:
+            # The old store went away under us: rank 0 is re-initializing.
+            if time.monotonic() > deadline:
+                raise
+            time.sleep(0.1)
+
+
+def _close_store():
+    """Mark rank 0's store as an ended world's, for whoever reaches it
+    while the old groups keep it alive."""
+    if _state.store is not None:
+        try:
+            _state.store.set(_TOKEN_KEY, _CLOSED)
+        except RuntimeError:
+            pass
+
+
+def _on_world_lost():
+    if _state.world_lost:
+        return
+    _state.world_lost = True
+    _close_store()
+    _log.warning("the native core lost a rank of the world: aborting the "
+                 "world's communicators")
+    # Every group of the process, so that a kernel waiting for the dead
+    # peer returns (a gloo group raises by itself when a peer's connection
+    # drops; aborting it does nothing). Each group's abort runs on a
+    # thread of its own, so that no group's abort waits for another's:
+    # torch's one call for every group never returned on an H100 when
+    # the kernel that waited for the peer was the world group's. Then the
+    # groups leave torch's tables.
+    from torch.distributed import distributed_c10d as c10d
+
+    def abort(pg):
+        try:
+            pg.abort()
+        except RuntimeError as e:
+            _log.warning(f"aborting a group of the world failed: {e}")
+
+    try:
+        aborts = [threading.Thread(target=abort, args=(pg,), daemon=True)
+                  for pg in list(c10d._world.pg_map)]
+        for t in aborts:
+            t.start()
+        for t in aborts:
+            t.join()
+        c10d._abort_process_group()
+    except (RuntimeError, ValueError) as e:
+        _log.warning(f"aborting the world's groups failed: {e}")
+    finally:
+        _state.aborted.set()
+
+
+def check_world() -> None:
+    """Raise ``HorovodInternalError`` once the world was lost, after the
+    watch's abort has returned: a kernel of the world's groups that
+    waited for the dead peer has then ended, so what the caller does
+    next on the card (the retry loop's restore) does not queue behind
+    one."""
+    if _state.world_lost:
+        if not _state.aborted.wait(ABORT_WAIT_S):
+            _log.warning(f"the world's abort did not return within "
+                         f"{ABORT_WAIT_S} s")
+        raise HorovodInternalError(
+            "a rank of the world was lost; its communicators were aborted")
+
+
+def poll_until(done) -> None:
+    """Wait for ``done()`` by polling it; raise ``HorovodInternalError``
+    (``check_world``) once the world is lost."""
+    pause = 0.0
+    while not done():
+        check_world()
+        time.sleep(pause)
+        pause = min(1e-3, pause + 2e-5)
+
+
+@contextlib.contextmanager
+def direct_collective():
+    """Around a direct collective of the world's groups (one the native
+    core does not negotiate): in a world that lost a rank, c10d's error
+    (or a result the abort cut short) becomes ``HorovodInternalError``,
+    which the elastic retry loop answers. Any other error propagates.
+
+    ``ops/collectives.guarded_allreduce`` runs one inside it."""
+    check_world()
+    try:
+        yield
+    except (RuntimeError, ValueError) as e:
+        deadline = time.monotonic() + VERDICT_WAIT_S
+        while _state.watch is not None and not _state.world_lost and \
+                time.monotonic() < deadline:
+            time.sleep(WATCH_PERIOD_S)
+        if not _state.world_lost:
+            raise
+        try:
+            check_world()
+        except HorovodInternalError as lost:
+            raise lost from e
+    check_world()
+
+
+# Torch's NCCL error handling for the groups an elastic ``init`` makes:
+# the watch, not torch's watchdog, answers a lost rank (the watchdog would
+# end the survivor), and a lost rank, an expected event there, does not
+# set off the flight recorder's dump of every rank's collectives.
+ELASTIC_NCCL_ENV = {"TORCH_NCCL_ASYNC_ERROR_HANDLING": "0",
+                    "TORCH_NCCL_DUMP_ON_TIMEOUT": "0"}
+
+
+@contextlib.contextmanager
+def _nccl_error_handling(backend: str):
+    """``ELASTIC_NCCL_ENV`` while ``init`` makes its NCCL groups under
+    ``HOROVOD_ELASTIC``. A value the caller set is kept, and nothing else
+    in the process (later groups, child processes) sees the change."""
+    if backend != "nccl" or not _config.elastic_enabled():
+        yield
+        return
+    added = [k for k in ELASTIC_NCCL_ENV if k not in os.environ]
+    os.environ.update({k: ELASTIC_NCCL_ENV[k] for k in added})
+    try:
+        yield
+    finally:
+        for k in added:
+            os.environ.pop(k, None)
 
 
 def global_state() -> _GlobalState:
@@ -95,7 +351,9 @@ def init(device=None, sp: int = 1, tp: int = 1, pp: int = 1):
     """
     from ..ops.eager import EagerEngine
     from ..parallel.mesh import build_groups, factor_devices
+    from .host_world import elastic_rendezvous
 
+    global _last_token
     asked = {"sp": sp, "tp": tp, "pp": pp}
     with _state.lock:
         if _state.initialized:
@@ -105,6 +363,10 @@ def init(device=None, sp: int = 1, tp: int = 1, pp: int = 1):
                     f"already initialized with {have}; shutdown() before "
                     f"asking for {asked}")
             return
+        _init_args.clear()
+        _init_args.update(device=device, sp=sp, tp=tp, pp=pp)
+        if not dist.is_initialized():
+            elastic_rendezvous(_config.rank())
         size, rank = _config.size(), _config.rank()
         # Bad axis sizes raise before the world is joined.
         factor_devices(dist.get_world_size() if dist.is_initialized()
@@ -115,37 +377,57 @@ def init(device=None, sp: int = 1, tp: int = 1, pp: int = 1):
         if dev.type == "cuda":
             torch.cuda.set_device(dev)
         owns = False
-        if not dist.is_initialized():
-            backend = "nccl" if dev.type == "cuda" else "gloo"
-            if size == 1:
-                store = dist.HashStore()
-            else:
-                store = dist.TCPStore(
-                    _config.controller_addr(), _config.controller_base_port(),
-                    world_size=size, is_master=rank == 0)
-            dist.init_process_group(backend, store=store, rank=rank,
-                                    world_size=size)
-            owns = True
-        _state.config = _config.RuntimeConfig.from_env()
-        _state.device = dev
-        _state.owns_group = owns
-        _state.size = dist.get_world_size()
-        _state.rank = dist.get_rank()
-        _state.local_rank = local_rank
-        _state.local_size = local_size
-        _state.cross_size = _config.cross_size(
-            max(1, _state.size // max(1, local_size)))
-        _state.cross_rank = _config.cross_rank(_state.rank // max(1, local_size))
-        _state.axis_sizes, _state.groups = build_groups(
-            _state.size, _state.rank, sp=sp, tp=tp, pp=pp,
-            local_size=local_size)
-        try:
-            _state.engine = EagerEngine(_state)
-        except BaseException:
-            if owns and dist.is_initialized():
-                dist.destroy_process_group()
-            _state.reset()
-            raise
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        with _nccl_error_handling(backend):
+            if not dist.is_initialized():
+                # Importing torch._dynamo (every torch.optim optimizer
+                # does) while a default group exists keeps that group, and
+                # with it its store's port, for the life of the process,
+                # so a re-init could not listen there again: import it
+                # before the group.
+                importlib.import_module("torch._dynamo")
+                try:
+                    if size == 1:
+                        store = dist.HashStore()
+                    else:
+                        store, token = _open_store(size, rank)
+                    dist.init_process_group(backend, store=store, rank=rank,
+                                            world_size=size)
+                    if size > 1:
+                        _last_token = token
+                        _state.store = store if rank == 0 else None
+                except (RuntimeError, OSError) as e:
+                    if dist.is_initialized():
+                        dist.destroy_process_group()
+                    raise HorovodInternalError(
+                        f"the world of {size} did not form at "
+                        f"{_config.controller_addr()}:"
+                        f"{_config.controller_base_port()}: {e}") from e
+                owns = True
+            _state.config = _config.RuntimeConfig.from_env()
+            _state.device = dev
+            _state.owns_group = owns
+            _state.size = dist.get_world_size()
+            _state.rank = dist.get_rank()
+            _state.local_rank = local_rank
+            _state.local_size = local_size
+            _state.cross_size = _config.cross_size(
+                max(1, _state.size // max(1, local_size)))
+            _state.cross_rank = _config.cross_rank(
+                _state.rank // max(1, local_size))
+            _state.axis_sizes, _state.groups = build_groups(
+                _state.size, _state.rank, sp=sp, tp=tp, pp=pp,
+                local_size=local_size)
+            try:
+                _state.engine = EagerEngine(_state)
+            except BaseException:
+                if owns and dist.is_initialized():
+                    dist.destroy_process_group()
+                _state.reset()
+                raise
+        core = _state.engine.native_core
+        if owns and _state.size > 1 and core is not None:
+            _state.watch = _CoreWatch(core, _on_world_lost)
         if _state.config.timeline_filename:
             from .timeline import Timeline
 
@@ -230,20 +512,56 @@ def _make_autotuner(core):
 
 
 def shutdown():
-    """Tear down the runtime: stops the eager engine (its metrics pump,
-    its native core, then its executor), closes the timeline, then
-    destroys the process group if ``init`` made it."""
+    """Tear down the runtime: stops the watch, then the eager engine (its
+    metrics pump, its native core, then its executor), closes the
+    timeline, then destroys the process group if ``init`` made it (a
+    world that lost a rank is aborted instead)."""
     with _state.lock:
         if not _state.initialized:
             return
         try:
+            if _state.watch is not None:
+                _state.watch.close()
+            _close_store()
             _state.engine.shutdown()
         finally:
             if _state.timeline is not None:
                 _state.timeline.close()
             if _state.owns_group and dist.is_initialized():
-                dist.destroy_process_group()
+                if _state.world_lost:
+                    from torch.distributed import distributed_c10d as c10d
+
+                    c10d._abort_process_group()
+                else:
+                    dist.destroy_process_group()
             _state.reset()
+            # A failed collective's error keeps the frames it was raised
+            # through, whose locals hold the groups (and so the store and
+            # its port), in a reference cycle through the pending entry
+            # that keeps the error: collect it for a re-init on that port.
+            gc.collect()
+
+
+def drain():
+    """A graceful departure: the DRAIN farewell on the native controller
+    (the coordinator logs a drain, not a crash), then ``shutdown``."""
+    with _state.lock:
+        core = (_state.engine.native_core
+                if _state.initialized and _state.engine is not None
+                else None)
+        if core is not None:
+            core.drain()
+    shutdown()
+
+
+def reinitialize():
+    """``shutdown``, then ``init`` with the arguments of the last
+    ``init``: the elastic retry loop's re-init. Under ``HOROVOD_ELASTIC``
+    the new world follows the driver's current plan. A world that does
+    not form raises ``HorovodInternalError``."""
+    args = dict(_init_args)
+    shutdown()
+    init(**args)
 
 
 def is_initialized() -> bool:

@@ -538,6 +538,7 @@ void TcpController::EvictRank(int rank, const char* reason,
                               double silence_ms) {
   shutdown_ranks_[rank] = true;
   peer_state_[rank] = kEvicted;
+  world_lost_ = true;
   // Close the socket: a wedged-but-alive peer errors out on its next
   // frame instead of waiting for a response that will never come.
   if (rank >= 1) worker_socks_[rank - 1].Close();
@@ -796,11 +797,18 @@ std::vector<Response> TcpController::WorkerCycle(std::vector<Request> reqs,
     sent = coord_sock_.SendFrame(frame);
   }
   if (!sent) {
+    world_lost_ = true;
     *world_shutdown = true;
     return {};
   }
   std::string bytes;
   if (!RecvFromCoordinator(&bytes)) {
+    world_lost_ = true;
+    *world_shutdown = true;
+    return {};
+  }
+  if (bytes == "LOST") {
+    world_lost_ = true;
     *world_shutdown = true;
     return {};
   }
@@ -822,6 +830,7 @@ std::vector<Response> TcpController::ApplyResponseBytes(
   if (!DeserializeResponseList(bytes, &resps, &synced_cycle,
                                &synced_fusion, &synced_hier,
                                &synced_stripes, &synced_epoch)) {
+    world_lost_ = true;
     *world_shutdown = true;
     return {};
   }
@@ -835,6 +844,7 @@ std::vector<Response> TcpController::ApplyResponseBytes(
     RecordLivenessEvent("EPOCH_MISMATCH rank=" + std::to_string(cfg_.rank) +
                         " ours=" + std::to_string(epoch_) +
                         " theirs=" + std::to_string(synced_epoch));
+    world_lost_ = true;
     *world_shutdown = true;
     return {};
   }
@@ -872,6 +882,7 @@ std::vector<Response> TcpController::MemberCycle(std::vector<Request> reqs,
   if (!ctrl_.send(leader,
                   BuildRequestFrame(std::move(reqs), my_shutdown,
                                     my_drain))) {
+    world_lost_ = true;
     *world_shutdown = true;
     return {};
   }
@@ -882,6 +893,12 @@ std::vector<Response> TcpController::MemberCycle(std::vector<Request> reqs,
     // for the elastic retry loop, mirroring a dead coordinator socket.
     RecordLivenessEvent("LEADER_LOST rank=" + std::to_string(cfg_.rank) +
                         " leader=" + std::to_string(leader));
+    world_lost_ = true;
+    *world_shutdown = true;
+    return {};
+  }
+  if (bytes == "LOST") {
+    world_lost_ = true;
     *world_shutdown = true;
     return {};
   }
@@ -915,6 +932,7 @@ std::vector<Response> TcpController::LeaderCycle(std::vector<Request> reqs,
       // let the coordinator's liveness machine evict the silent ranks.
       RecordLivenessEvent("MEMBER_LOST rank=" + std::to_string(cfg_.rank) +
                           " member=" + std::to_string(m));
+      world_lost_ = true;
       *world_shutdown = true;
       return {};
     }
@@ -939,11 +957,13 @@ std::vector<Response> TcpController::LeaderCycle(std::vector<Request> reqs,
     sent = coord_sock_.SendFrame(frame);
   }
   if (!sent) {
+    world_lost_ = true;
     *world_shutdown = true;
     return {};
   }
   std::string bytes;
   if (!RecvFromCoordinator(&bytes)) {
+    world_lost_ = true;
     *world_shutdown = true;
     return {};
   }
@@ -958,6 +978,11 @@ std::vector<Response> TcpController::LeaderCycle(std::vector<Request> reqs,
                   std::chrono::duration_cast<std::chrono::microseconds>(
                       std::chrono::steady_clock::now() - fan_start)
                       .count());
+  if (bytes == "LOST") {
+    world_lost_ = true;
+    *world_shutdown = true;
+    return {};
+  }
   if (bytes == "SHUTDOWN") {
     *world_shutdown = true;
     return {};
@@ -1107,6 +1132,7 @@ std::vector<Response> TcpController::CoordinatorCycle(
       std::string bytes;
       if (!worker_socks_[r - 1].RecvFrame(&bytes)) {
         shutdown_ranks_[r] = true;  // treat a dead socket as departed
+        world_lost_ = true;
         continue;
       }
       ingest_frame(r, bytes);
@@ -1117,6 +1143,7 @@ std::vector<Response> TcpController::CoordinatorCycle(
       std::string bytes;
       if (!worker_socks_[r - 1].RecvFrame(&bytes)) {
         shutdown_ranks_[r] = true;  // treat a dead socket as departed
+        world_lost_ = true;
         continue;
       }
       ingest_frame(r, bytes);
@@ -1270,6 +1297,25 @@ std::vector<Response> TcpController::CoordinatorCycle(
     any_down = any_down || shutdown_ranks_[r];
   }
   if (any_down || stall_shutdown) {
+    if (stall_shutdown) world_lost_ = true;
+    if (world_lost_) {
+      // A rank was lost rather than asked to leave: LOST in place of
+      // SHUTDOWN, on the same fan-out, so that every rank's binding
+      // aborts its communicators.
+      for (int r = 1; r < cfg_.size; ++r) {
+        if (hier_on_ && !leader_rank_[r]) continue;
+        if (worker_socks_[r - 1].valid()) {
+          worker_socks_[r - 1].SendFrame("LOST");
+        }
+      }
+      if (hier_on_) {
+        for (int m : my_members_) {
+          if (peer_state_[m] != kEvicted) ctrl_.send(m, "LOST");
+        }
+      }
+      *world_shutdown = true;
+      return {};
+    }
     // Hier mode: SHUTDOWN rides the same two-level fan-out as every
     // response — leaders relay it verbatim to their members; this
     // coordinator delivers host 0's members over ctrl directly (except

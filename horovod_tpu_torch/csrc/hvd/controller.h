@@ -183,6 +183,14 @@ class Controller {
   // before the background thread exists; read-only after.
   long long epoch() const { return epoch_; }
 
+  // True once this rank's world ended because a rank was lost (a closed
+  // or silent connection, an eviction, a stall shutdown, a frame that
+  // could not be read), not because a rank asked to leave. The
+  // coordinator tells the workers so with the LOST terminal frame.
+  bool world_lost() const {
+    return world_lost_.load(std::memory_order_relaxed);
+  }
+
   // Accumulated liveness events (SUSPECT / EVICT / DRAIN /
   // COORD_TIMEOUT lines; docs/liveness.md), drained like the stall
   // report: consumes at most max_bytes of whole lines per call so a
@@ -259,6 +267,7 @@ class Controller {
       EXCLUDES(liveness_mu_);
 
   ControllerConfig cfg_;
+  std::atomic<bool> world_lost_{false};
   std::atomic<int64_t> fusion_threshold_bytes_;
   std::atomic<double> cycle_hint_ms_{-1.0};
   std::atomic<double> synced_cycle_ms_{-1.0};

@@ -98,6 +98,8 @@ struct GlobalState {
   // coordinator records a clean departure instead of a crash.
   std::atomic<bool> drain_requested{false};
   std::atomic<bool> loop_done{false};
+  // The loop ended because a rank was lost (Controller::world_lost).
+  std::atomic<bool> world_lost{false};
 
   // Atomic: written by hvd_init (under init_mu) but read lock-free by the
   // topology getters and the enqueue path — a monitor thread polling
@@ -760,6 +762,9 @@ void BackgroundLoop(Controller* ctl, Ring* ring) {
   while (RunLoopOnce(ctl, ring, last)) {
   }
   auto* s = g();
+  // Published before the handles below resolve, so a waiter woken by
+  // "aborted" already sees why.
+  s->world_lost.store(ctl->world_lost());
   // Resolve every still-queued handle so no waiter blocks forever when a
   // peer failure (stall shutdown) or hvd_shutdown ends the loop.
   Status aborted = Status::Aborted("horovod_tpu runtime has been shut down");
@@ -815,6 +820,7 @@ int hvd_init(int rank, int size, int local_rank, int local_size,
   s->shutdown_requested.store(false);
   s->drain_requested.store(false);
   s->loop_done.store(false);
+  s->world_lost.store(false);
   s->tensor_queue.Reopen();  // re-arm after a prior world's final drain
 
   // New world incarnation: every successful init (first boot or elastic
@@ -1092,6 +1098,10 @@ long long hvd_get_fusion_threshold() {
 }
 
 int hvd_initialized() { return hvd::g()->initialized.load() ? 1 : 0; }
+// 1 once this rank's world ended because a rank was lost (died, was
+// evicted, or stalled past the shutdown window), 0 while it lives or when
+// it ended because a rank asked to leave.
+int hvd_world_lost() { return hvd::g()->world_lost.load() ? 1 : 0; }
 int hvd_rank() { return hvd::g()->rank.load(); }
 int hvd_size() { return hvd::g()->size.load(); }
 int hvd_local_rank() { return hvd::g()->local_rank.load(); }

@@ -21,6 +21,11 @@ wrong gradients), and the layout changes no value.
   value) and its running variance from the *biased* batch variance.
   ``F.batch_norm`` (cuDNN on a GPU) updates the running variance with the
   unbiased one, so ``flax_running_var`` corrects it in closed form.
+  With ``axis_name`` (the models' ``sync_bn_axis``), flax's
+  ``BatchNorm(axis_name=...)``: the batch's E[x] and E[x^2] in fp32 are
+  averaged over the named axis's group (``hvd.axis_group``), the
+  variance is flax's one-pass max(0, E[x^2] - E[x]^2), and the gradient
+  flows back through the average (``ops/collectives.mean_over``).
 - Initialization: ``lecun_normal`` (a normal truncated at two standard
   deviations, std sqrt(1/fan_in) over the truncation's 0.8796) for every
   conv and dense kernel, zero biases, batch-norm scale one (zero where
@@ -143,10 +148,11 @@ class BatchNorm(nn.Module):
 
     def __init__(self, features: int, epsilon: float = 1e-5,
                  momentum: float = 0.9, scale_init: float = 1.0,
-                 device=None):
+                 axis_name: Optional[str] = None, device=None):
         super().__init__()
         self.epsilon, self.momentum, self.scale_init = (epsilon, momentum,
                                                         scale_init)
+        self.axis_name = axis_name
         self.weight = nn.Parameter(torch.empty(features, device=device))
         self.bias = nn.Parameter(torch.empty(features, device=device))
         self.register_buffer("running_mean",
@@ -165,6 +171,8 @@ class BatchNorm(nn.Module):
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0,
                                 self.epsilon)
+        if self.axis_name is not None:
+            return self._synced(x)
         # F.batch_norm updates a copy: autograd keeps the running buffers it
         # was given, so the correction must not touch those in place.
         updated = self.running_var.clone()
@@ -173,6 +181,35 @@ class BatchNorm(nn.Module):
         flax_running_var(self.running_var, updated, x.numel() // x.shape[1],
                          self.momentum)
         return y
+
+
+    def _synced(self, x):
+        from ..common.state import axis_group
+        from ..ops.collectives import mean_over
+
+        xf = x.float()
+        dims = [0] + list(range(2, x.dim()))
+        stats = mean_over(torch.stack([xf.mean(dims), (xf * xf).mean(dims)]),
+                          axis_group(self.axis_name))
+        mean, mean2 = stats[0], stats[1]
+        var = (mean2 - mean * mean).clamp_min(0.0)
+        with torch.no_grad():
+            self.running_mean.mul_(self.momentum).add_(
+                mean.detach(), alpha=1.0 - self.momentum)
+            self.running_var.mul_(self.momentum).add_(
+                var.detach(), alpha=1.0 - self.momentum)
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        mul = torch.rsqrt(var + self.epsilon) * self.weight
+        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        return y.to(x.dtype)
+
+
+def set_sync_bn_axis(model: nn.Module, axis: Optional[str]) -> None:
+    """Give every ``BatchNorm`` of ``model`` the axis its training
+    statistics are averaged over (None: each shard's own)."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.axis_name = axis
 
 
 class Dense(nn.Module):

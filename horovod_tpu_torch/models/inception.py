@@ -23,7 +23,7 @@ import torch.nn.functional as F
 from ..common.state import resolve_device
 from .image_layers import (BatchNorm, Conv, Dense, avg_pool_same_3x3,
                            make_generator, max_pool, reset_parameters,
-                           to_nchw)
+                           set_sync_bn_axis, to_nchw)
 from .image_layers import params_from_jax  # noqa: F401
 
 
@@ -188,10 +188,6 @@ class InceptionV3(_Mixed):
     def __init__(self, num_classes: int = 1000, dtype=torch.bfloat16,
                  sync_bn_axis=None, device=None, seed: int = 0,
                  generator: Optional[torch.Generator] = None):
-        if sync_bn_axis is not None:
-            raise NotImplementedError(
-                "cross-replica batch norm (sync_bn_axis) comes with a later "
-                "slice of the port (the SyncBatchNorm surface)")
         device = resolve_device(device)
         super().__init__(dtype, device)
         self.dtype = dtype
@@ -221,6 +217,7 @@ class InceptionV3(_Mixed):
         self._blocks = [b for _, b in blocks]
         self.Dense_0 = Dense(c, num_classes, device=device)
         reset_parameters(self, make_generator(device, seed, generator))
+        set_sync_bn_axis(self, sync_bn_axis)
 
     def forward(self, x):
         u = self.unit

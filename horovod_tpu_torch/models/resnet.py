@@ -30,7 +30,8 @@ import torch.nn.functional as F
 
 from ..common.state import resolve_device
 from .image_layers import (BatchNorm, Conv, Dense, lecun_normal,
-                           make_generator, max_pool, to_nchw)
+                           make_generator, max_pool, set_sync_bn_axis,
+                           to_nchw)
 from .image_layers import params_from_jax  # noqa: F401
 
 
@@ -119,10 +120,6 @@ class ResNet(nn.Module):
                  sync_bn_axis=None, device=None, seed: int = 0,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if sync_bn_axis is not None:
-            raise NotImplementedError(
-                "cross-replica batch norm (sync_bn_axis) comes with a later "
-                "slice of the port (the SyncBatchNorm surface)")
         device = resolve_device(device)
         self.dtype = dtype
         self.space_to_depth_stem = space_to_depth_stem
@@ -145,6 +142,7 @@ class ResNet(nn.Module):
         self._blocks = blocks
         self.Dense_0 = Dense(channels, num_classes, device=device)
         self.reset_parameters(make_generator(device, seed, generator))
+        set_sync_bn_axis(self, sync_bn_axis)
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Draw every layer in registration order; the s2d stem draws the

@@ -45,7 +45,7 @@ from torch.utils.checkpoint import checkpoint
 from ..common import state as _state
 from ..common.state import resolve_device
 from ..ops.collectives import copy_to_tp, reduce_from_tp
-from ..parallel.mesh import REDUCE_ATTR
+from ..parallel.mesh import REDUCE_ATTR, SHARD_ATTR
 from ..parallel.moe import moe_layer
 from ..parallel.pipeline import spmd_pipeline
 from ..parallel.ulysses import (context_parallel_attention,
@@ -323,6 +323,12 @@ class Transformer(nn.Module):
             for layer in self.layers:
                 setattr(layer.we_in, REDUCE_ATTR, "sp")
                 setattr(layer.we_out, REDUCE_ATTR, "sp")
+        sizes = {"tp": tp, "dp": ep}
+        for layer in self.layers:
+            for leaf, p in layer.named_parameters():
+                axis = SHARDED.get(leaf, (None, None))[1]
+                if axis is not None and sizes[axis] > 1:
+                    setattr(p, SHARD_ATTR, axis)
         if generator is None:
             generator = torch.Generator(device=device).manual_seed(seed)
         self.reset_parameters(generator)

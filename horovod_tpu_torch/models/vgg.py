@@ -22,7 +22,7 @@ import torch.nn.functional as F
 
 from ..common.state import resolve_device
 from .image_layers import (BatchNorm, Conv, Dense, make_generator, max_pool,
-                           reset_parameters, to_nchw)
+                           reset_parameters, set_sync_bn_axis, to_nchw)
 from .image_layers import params_from_jax  # noqa: F401
 
 
@@ -43,10 +43,6 @@ class VGG(nn.Module):
                  image_size: int = 224, device=None, seed: int = 0,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if sync_bn_axis is not None:
-            raise NotImplementedError(
-                "cross-replica batch norm (sync_bn_axis) comes with a later "
-                "slice of the port (the SyncBatchNorm surface)")
         device = resolve_device(device)
         self.dtype = dtype
         self._layers = []
@@ -69,6 +65,7 @@ class VGG(nn.Module):
         self.fc1 = dense(dense_width, dense_width, dtype)
         self.head = dense(dense_width, num_classes, torch.float32)
         reset_parameters(self, make_generator(device, seed, generator))
+        set_sync_bn_axis(self, sync_bn_axis)
 
     def features(self, x):
         """The conv stack's output, NCHW (channels_last), from NHWC

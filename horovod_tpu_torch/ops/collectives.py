@@ -212,6 +212,14 @@ def allreduce(tensor, op: int = ReduceOp.AVERAGE, prescale_factor: float = 1.0,
                            compression, axis).wait()
 
 
+def guarded_allreduce(tensor, op: int = ReduceOp.AVERAGE, axis=None):
+    """``allreduce`` on a path the elastic retry loop recovers from: in a
+    world that lost a rank it raises ``HorovodInternalError``
+    (``state.direct_collective``)."""
+    with _state.direct_collective():
+        return allreduce(tensor, op=op, axis=axis)
+
+
 def fuse(flats: Sequence[torch.Tensor], indices: Sequence[int]):
     """One bucket's flat tensors concatenated into a fresh buffer."""
     if len(indices) == 1:
@@ -606,16 +614,17 @@ class _MeanOver(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axis):
         ctx.axis = axis
-        return allreduce(x, op=ReduceOp.AVERAGE, axis=axis)
+        return guarded_allreduce(x, op=ReduceOp.AVERAGE, axis=axis)
 
     @staticmethod
     def backward(ctx, g):
-        return allreduce(g, op=ReduceOp.AVERAGE, axis=ctx.axis), None
+        return guarded_allreduce(g, op=ReduceOp.AVERAGE, axis=ctx.axis), None
 
 
 def mean_over(x: torch.Tensor, axis) -> torch.Tensor:
     """``lax.pmean(x, axis)``: the mean over the group, differentiable
-    (its backward is the mean of the ranks' gradients)."""
+    (its backward is the mean of the ranks' gradients). In a world that
+    lost a rank it raises ``HorovodInternalError`` (``guarded_allreduce``)."""
     if axis is None or axis.size == 1:
         return x
     return _MeanOver.apply(x, axis)

@@ -149,6 +149,7 @@ class EagerEngine:
                 self._start_native()
         except BaseException:
             self._destroy_groups()
+            self._drop_groups()
             raise
         _metrics.maybe_start_pump()
 
@@ -176,8 +177,11 @@ class EagerEngine:
         return tuple(pair)
 
     def _destroy_groups(self):
-        for group in self._own_groups:
-            dist.destroy_process_group(group)
+        # A world whose peer died was aborted; ``state.shutdown`` clears
+        # its groups, these included.
+        if not self._state.world_lost:
+            for group in self._own_groups:
+                dist.destroy_process_group(group)
         self._own_groups = []
 
     def _start_native(self):
@@ -255,6 +259,14 @@ class EagerEngine:
             self._handle_names.clear()
             self._direct_handles.clear()
         self._destroy_groups()
+        self._drop_groups()
+
+    def _drop_groups(self):
+        # The core keeps its callback (and so this engine) for the life of
+        # the process, also when the core did not start: drop the groups,
+        # whose store would otherwise keep the world's port for a re-init
+        # to find taken.
+        self._group = self._axis = self._world = self._hosts = None
 
     # -- native callback + executor ------------------------------------------
 

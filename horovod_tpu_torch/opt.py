@@ -74,6 +74,10 @@ RESIDUAL_KEY = "error_feedback_residual"
 
 
 class _DistributedOptimizer(torch.optim.Optimizer):
+    # A wrapper's step reduces first (torch/functions._local_step skips
+    # it).
+    _hvd_wrapper = True
+
     def __init__(self, params, named_parameters=None, compression="auto",
                  op=_coll.Average, bucket_cap_bytes="auto",
                  backward_passes_per_step=1, gradient_predivide_factor=1.0,
@@ -300,6 +304,8 @@ class _DistributedAdasumOptimizer(torch.optim.Optimizer):
     each tensor with its own coefficients) and the combined delta is
     added to the start-of-step parameters. With a 16-bit compression the
     deltas travel in the wire dtype (the combination runs in fp32)."""
+
+    _hvd_wrapper = True
 
     def __init__(self, params, compression="auto"):
         super(self.__class__, self).__init__(params)

@@ -84,6 +84,10 @@ GROUPS = {"dp": ("dp",), "pp": ("pp",), "sp": ("sp",), "tp": ("tp",),
 # The parameter attribute that names the group its gradient is reduced
 # over (a name of ``GROUPS``); unset means "data".
 REDUCE_ATTR = "hvd_reduce"
+# A parameter that holds one slice of a leaf split over an axis (a tp
+# shard of a layer, an ep rank's experts) names that axis here; what
+# snapshots a model whole (``elastic.TensorState``) refuses such a leaf.
+SHARD_ATTR = "hvd_sharded"
 
 
 def reduce_group(p: torch.Tensor) -> str:

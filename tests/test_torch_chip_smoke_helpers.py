@@ -23,6 +23,12 @@ Phase (g)'s CPU-side helpers: ``gather_dense`` must put every rank's
 shard of a dense model back exactly (and notice a missing one), and
 ``expected_launches`` must equal the plain-path calls counted over one
 training step on the CPU, where remat recomputes the forward.
+
+Phase (k)'s: ``tensor_digest`` tells a one-ulp change apart,
+``swap_sync_bn`` replaces all 53 batch norms of the example's ResNet-50,
+and ``kill_and_respawn`` runs its own ``--elastic-worker`` on gloo: the
+SIGKILLed rank's peer raises within ``KILL_BOUND_S`` and the respawned
+rank rejoins and ends with rank 0's parameters.
 """
 
 import importlib.util
@@ -283,3 +289,93 @@ def test_loss_drift_holds_remat_to_the_plain_curve():
     assert broken[0] == plain[0]
     drift, tol = cs.loss_drift(broken, plain)
     assert drift > 2 * tol
+
+
+# ---- phase (k)'s helpers --------------------------------------------------------
+
+
+def test_tensor_digest_is_bitwise():
+    cs = _chip_smoke()
+    a = [torch.arange(6.0), torch.ones(2, 3, dtype=torch.bfloat16)]
+    b = [t.clone() for t in a]
+    assert cs.tensor_digest(a) == cs.tensor_digest(b)
+    b[0][3] = torch.nextafter(b[0][3], torch.tensor(10.0))
+    assert cs.tensor_digest(a) != cs.tensor_digest(b)
+
+
+def test_swap_sync_bn_keeps_every_batch_norm():
+    """The example's ResNet-50 gets a SyncBatchNorm in place of each of
+    its 53 BatchNorm2d, with the same statistics and parameters."""
+    import horovod_tpu_torch.torch as hvd
+    from horovod_tpu_torch.examples import pytorch_synthetic_benchmark as ex
+
+    cs = _chip_smoke()
+    model = ex.resnet50(num_classes=10)
+    with torch.no_grad():
+        model[0][1].running_mean.fill_(0.25)
+    swapped = cs.swap_sync_bn(model, hvd)
+    sbns = [m for m in swapped.modules() if isinstance(m, hvd.SyncBatchNorm)]
+    assert len(sbns) == 53
+    assert not any(type(m) is torch.nn.BatchNorm2d
+                   for m in swapped.modules())
+    assert torch.all(swapped[0][1].running_mean == 0.25)
+
+
+def test_kill_and_respawn_on_the_cpu():
+    """(k)(2)'s driver with its own worker on gloo: rank 1 is SIGKILLed
+    inside its allreduces, rank 0 raises within the bound, the respawned
+    rank 1 rejoins, and both end with rank 0's parameters."""
+    cs = _chip_smoke()
+    seconds, res = cs.kill_and_respawn(
+        2, {"CHIP_SMOKE_DEVICE": "cpu", "OMP_NUM_THREADS": "1"}, 240)
+    assert 0 <= seconds <= cs.KILL_BOUND_S
+    assert [r["rank"] for r in res] == [0, 1]
+    assert res[0]["resets"] and not res[0]["respawned"]
+    assert res[1]["respawned"] and not res[1]["resets"]
+    assert res[0]["batches"] == res[1]["batches"] == cs.KILL_TARGET
+    assert res[0]["digest"] == res[1]["digest"]
+
+
+def test_kill_and_respawn_with_sync_batch_norm_on_the_cpu():
+    """The same with a model of two ``SyncBatchNorm`` and no other
+    collective: rank 0 meets the dead peer in a batch norm's direct
+    all-reduce, raises ``HorovodInternalError`` there, restores, and
+    finishes beside the respawned rank 1."""
+    cs = _chip_smoke()
+    seconds, res = cs.kill_and_respawn(
+        2, {"CHIP_SMOKE_DEVICE": "cpu", "OMP_NUM_THREADS": "1",
+            "CHIP_SMOKE_KILL_SYNC_BN": "1"}, 240)
+    assert 0 <= seconds <= cs.KILL_BOUND_S
+    assert res[0]["resets"] and not res[0]["respawned"]
+    assert "sync_batch_norm.py" in res[0]["raised_in"][0]
+    assert res[1]["respawned"] and not res[1]["resets"]
+    assert res[0]["batches"] == res[1]["batches"] == cs.KILL_TARGET
+    assert res[0]["digest"] == res[1]["digest"]
+
+
+def test_negotiated_statistics_patches_the_sums_for_its_block_alone():
+    """(k)'s A/B routes ``SyncBatchNorm``'s sums through the named plane
+    inside its block and puts the direct path back after it."""
+    from horovod_tpu_torch.torch import sync_batch_norm
+
+    cs = _chip_smoke()
+    calls = []
+
+    class Hvd:
+        Sum = "sum"
+
+        @staticmethod
+        def allreduce_async(t, op, name):
+            calls.append((op, name))
+            return t
+
+        @staticmethod
+        def synchronize(h):
+            return h
+
+    direct = sync_batch_norm._world_sum
+    with cs.negotiated_statistics(Hvd):
+        out = sync_batch_norm._world_sum(torch.ones(3), "sync_batch_norm.fwd")
+    assert sync_batch_norm._world_sum is direct
+    assert calls == [("sum", "sync_batch_norm.fwd")]
+    assert torch.equal(out, torch.ones(3))

@@ -2,9 +2,9 @@
 (``common/host_staging.py``) in one 2-rank world, without ``hvd.init``
 or a ``torch.distributed`` world.
 
-- ``HOROVOD_ELASTIC=1``: ``init`` refuses (``NotImplementedError``): the
-  elastic re-rendezvous is not ported, and a fixed world must not run in
-  its place.
+- ``HOROVOD_ELASTIC=1`` without the elastic driver's rendezvous in the
+  environment: ``init`` refuses (``HorovodInternalError``): a fixed world
+  must not run in place of an elastic one.
 - A world with ``HOROVOD_HOST_VIA_XLA=1`` (threshold 1 KiB) and
   ``device="cpu"`` (staging through gloo): the numpy helpers against
   numpy, while ``host_world.enqueue`` fires on both ranks at its third
@@ -45,8 +45,8 @@ os.environ["HOROVOD_ELASTIC"] = "1"
 try:
     w.init()
     res["elastic_refused"] = np.array(False)
-except NotImplementedError as e:
-    res["elastic_refused"] = np.array("A17" in str(e))
+except HorovodInternalError as e:
+    res["elastic_refused"] = np.array("rendezvous" in str(e))
 os.environ.pop("HOROVOD_ELASTIC")
 
 

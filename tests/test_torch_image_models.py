@@ -354,8 +354,13 @@ def test_resnet_layout_and_names():
     # The block's last batch norm starts at scale 0, the others at 1.
     assert torch.all(model.BottleneckBlock_0.BatchNorm_2.weight == 0)
     assert torch.all(model.BottleneckBlock_0.BatchNorm_1.weight == 1)
-    with pytest.raises(NotImplementedError, match="sync_bn_axis"):
-        tr.ResNet18(sync_bn_axis="dp", device="cpu")
+    # sync_bn_axis names the axis of every batch norm (the statistics'
+    # average over it is held in tests/test_torch_binding.py).
+    synced = tr.ResNet18(sync_bn_axis="dp", device="cpu")
+    assert {m.axis_name for m in synced.modules()
+            if isinstance(m, image_layers.BatchNorm)} == {"dp"}
+    assert {m.axis_name for m in model.modules()
+            if isinstance(m, image_layers.BatchNorm)} == {None}
 
 
 def test_init_is_lecun_normal():

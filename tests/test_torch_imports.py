@@ -31,7 +31,13 @@ for name in ("parallel", "parallel.mesh", "parallel.ring_attention",
              "common.parameter_manager", "common.optim",
              "common.optim.gaussian_process",
              "common.optim.bayesian_optimization", "common.host_world",
-             "common.host_staging"):
+             "common.host_staging", "torch", "torch.mpi_ops",
+             "torch.compression", "torch.functions", "torch.optimizer",
+             "torch.sync_batch_norm", "torch.elastic", "elastic",
+             "elastic.state", "run", "run.http.http_client",
+             "run.common.util.network", "run.common.util.secret",
+             "run.elastic.rendezvous", "run.elastic.worker", "examples",
+             "examples.pytorch_synthetic_benchmark"):
     assert "horovod_tpu_torch." + name in names, name
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib",
                                                            "horovod_tpu"))

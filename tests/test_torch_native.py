@@ -4,10 +4,15 @@ copy of the C++ sources in ``horovod_tpu_torch/csrc/hvd``).
 - The library is built from the port's own sources into
   ``build/horovod_tpu_torch/``, named by a hash that an edited header
   changes; the sources are the JAX package's, code for code (only
-  comments differ).
+  comments differ), plus lines inserted for the world-lost verdict
+  (``hvd_world_lost``: the LOST terminal frame and the failures that set
+  it); no line of the JAX package's is changed or dropped.
 - The port's frame parsers read ``tests/golden_wire.json``'s frames as the
   JAX package's do, and accept or refuse (``FrameRejected``) every
   truncated, over-long and byte-flipped frame as those do.
+- Three processes through the port's ``NativeCore``: a rank that leaves
+  by ``shutdown`` ends the world without ``world_lost()``, one that exits
+  without it ends the world with ``world_lost()`` on every other rank.
 - Two processes through the port's ``NativeCore`` alone: the join of
   ``tests/test_native.py`` (a rank submits a tensor and joins without
   waiting for it, then contributes zeros to five more allreduces; an
@@ -17,6 +22,7 @@ copy of the C++ sources in ``horovod_tpu_torch/csrc/hvd``).
 """
 
 import dataclasses
+import difflib
 import json
 import os
 import re
@@ -40,6 +46,20 @@ def _code(path):
         return [re.sub(r"\s*//.*$", "", line.rstrip()) for line in f]
 
 
+def _port_insertions(port, jax):
+    """The hunks of code the port's file inserts into the JAX package's
+    (blank lines ignored); raises when the port changes or drops a line."""
+    a = [line for line in _code(jax) if line.strip()]
+    b = [line for line in _code(port) if line.strip()]
+    hunks = []
+    for tag, i1, i2, j1, j2 in difflib.SequenceMatcher(
+            None, a, b, autojunk=False).get_opcodes():
+        assert tag in ("equal", "insert"), (port, tag, a[i1:i2], b[j1:j2])
+        if tag == "insert":
+            hunks.append(b[j1:j2])
+    return hunks
+
+
 def test_library_builds_from_the_ports_own_sources():
     with open(os.path.join(JAX_CSRC, "Makefile")) as f:
         srcs = re.search(r"SRCS :=(.*?)\n# ", f.read(), re.S).group(1)
@@ -52,8 +72,17 @@ def test_library_builds_from_the_ports_own_sources():
         "horovod_tpu_torch", "") for p in paths)
     jax_files = sorted(os.listdir(os.path.join(JAX_CSRC, "hvd")))
     assert sorted(p.name for p in paths) == jax_files
+    verdict = {"controller.cc", "controller.h", "operations.cc"}
     for p in paths:
-        assert _code(p) == _code(os.path.join(JAX_CSRC, "hvd", p.name)), p
+        jax = os.path.join(JAX_CSRC, "hvd", p.name)
+        if p.name not in verdict:
+            assert _code(p) == _code(jax), p
+            continue
+        hunks = _port_insertions(p, jax)
+        assert hunks, p
+        for hunk in hunks:
+            assert any("world_lost" in line or '"LOST"' in line
+                       for line in hunk), (p, hunk)
     lib = tnative.build()
     assert lib == tnative.library_path() and lib.is_file()
     assert lib.parent == tnative.BUILD_DIR
@@ -222,6 +251,44 @@ _STALL_WORKER = textwrap.dedent(_PRELUDE.replace("STALL_WARNING", "0.5") + """
     core.shutdown()
     print(f"STALL_{rank}_OK")
 """)
+
+
+_LEAVE_WORKER = textwrap.dedent(
+    _PRELUDE.replace("STALL_WARNING", "60.0").replace("size=2", "size=3")
+    + """
+    leave = sys.argv[3]
+    x = np.full(4, float(rank + 1), np.float32)
+    allreduce("l.0", x)
+    assert np.allclose(x, 6.0), x
+    if rank == 2:
+        print("LEAVE_2_OK", flush=True)
+        if leave == "exit":
+            os._exit(0)            # no farewell: its sockets just close
+        core.shutdown()
+        sys.exit(0)
+    # The world ends with rank 2's departure: this submission resolves
+    # as aborted on rank 0 (the coordinator) and on rank 1 (a worker).
+    h = core.enqueue("l.1", hn.OP_ALLREDUCE, 1, 7, x.shape,
+                     data_ptr=x.ctypes.data, output_ptr=x.ctypes.data,
+                     plane=hn.PLANE_HOST)
+    r, err = core.wait(h) if h >= 0 else (-1, "refused")
+    assert r == -1, (r, err)
+    assert core.world_lost() == (leave == "exit"), leave
+    core.shutdown()
+    print(f"LEAVE_{rank}_OK")
+""")
+
+
+@pytest.mark.parametrize("leave", ["shutdown", "exit"])
+def test_world_lost_tells_a_lost_rank_from_a_departure(tmp_path, leave):
+    """Three ranks; rank 2 leaves by ``shutdown`` (a departure: the
+    others' ``world_lost()`` stays false) or exits without it (a lost
+    rank: true on the coordinator, and on the other worker through the
+    LOST frame)."""
+    from proc_harness import run_world
+
+    run_world(tmp_path, _LEAVE_WORKER, "LEAVE", size=3, timeout=120,
+              args_for_rank=lambda rank, port: [port, leave])
 
 
 def test_join_zero_contribution_two_process(tmp_path):
