@@ -4,8 +4,8 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --time-tree DIR   # kernel times of one checkout
 
-Phases, in order (a, b, c, e, f, g, h, i, j, k, l, m, d); any failure
-exits nonzero:
+Phases, in order (a, b, c, e, f, g, h, i, j, k, l, m, n, d); any
+failure exits nonzero:
 
 (a) device and build: the card, its power limit, the torch and CUDA
     versions; every kernel of ``horovod_tpu_torch/csrc`` built with nvcc
@@ -54,9 +54,9 @@ exits nonzero:
     ``lo``). A small fp32 model with packed segment ids at sp=2, ring and
     Ulysses, against the same weights at sp=1 on the CPU; then the
     GPT-2-small-class trainer at sp=2 over T=4096 (``--sp 2 --seq-len
-    4096``), with its loss, launch counts and bucket all-reduces checked
-    on both ranks. The two ranks share one card: its step time is a
-    correctness run, not a throughput figure.
+    4096``, 1 + 1 steps), with its loss, launch counts and bucket
+    all-reduces checked on both ranks. The two ranks share one card: its
+    step time is a correctness run, not a throughput figure.
 (f) images (cuDNN and PyTorch ops; no kernel of the port): a small fp32
     ResNet18 on the card against the same weights on the CPU (loss,
     gradients, updated batch-norm statistics, rel 1e-4, TF32 off); then
@@ -67,7 +67,7 @@ exits nonzero:
     group; loss finite (falling for ResNet-50), a bucket all-reduce run.
     Then dp=2 on cuda:0 as in (e) (``--dp-worker``): the small model on
     each rank's half batch, world-averaged, against the CPU's mean over
-    the halves; ResNet-50 at full width for 2 + 3 steps with fp16 and
+    the halves; ResNet-50 at full width for 1 + 2 steps with fp16 and
     with ef16 compression, the loss, parameters and batch-norm buffers
     equal on both ranks after every step.
 (g) tensor, pipeline and expert parallelism: two ranks on cuda:0 in one
@@ -80,7 +80,7 @@ exits nonzero:
     hierarchical_allreduce (local=2/cross=1 and local=1/cross=2) against
     their CPU values; backward_passes_per_step=2 with ef16 at dp=2,
     equal on both ranks and to k=1 on the joined rows. Then the
-    GPT-2-small decoder at full width, bf16, 2 + 3 steps each:
+    GPT-2-small decoder at full width, bf16, 1 + 1 steps each:
     ``transformer_bench --tp 2``, pp=2 (two stages of 6 layers, M=2) and
     a MoE FFN at ep=2 (8 experts, d_expert 3072, top-2, capacity factor
     2.0), through the model's API: loss finite, falling and equal on both
@@ -92,7 +92,7 @@ exits nonzero:
 (h) ZeRO, checkpoints and Adasum: two ranks on cuda:0 in one NCCL world
     as in (e) (``--zero-worker``), deterministic kernels (cuDNN's and
     PyTorch's), TF32 off. ResNet-50 at 224 px, batch 32 a rank, bf16, SGD
-    0.01 with momentum 0.9, at ZeRO stages 1, 2 and 3 (``zero.py``), 2 + 3
+    0.01 with momentum 0.9, at ZeRO stages 1, 2 and 3 (``zero.py``), 1 + 2
     steps each: the loss and the sha256 of the gathered parameters and
     the batch-norm buffers equal on both ranks after every step, stage 1
     equal to stage 2 bitwise, stage 3's losses within ``loss_drift`` of
@@ -101,14 +101,14 @@ exits nonzero:
     with step ms and peak memory. The stage-3 state saved
     (``checkpoint.py``), restored into a fresh template and stepped once
     beside the original: bitwise equal. The flagship decoder with
-    ``transformer_bench --zero`` (dp=2, batch 8 global, 2 + 3 steps): the
+    ``transformer_bench --zero`` (dp=2, batch 8 global, 1 + 2 steps): the
     attention kernels launched as the layers and steps say, losses equal
     on both ranks and within ``loss_drift`` of (c)'s size-1 run, the
     optimizer state per rank about half the unsharded run's; its state
     saved, restored and stepped: bitwise equal. Adasum: a 64x32 fp32
     model's delta step (``DistributedOptimizer(op=Adasum)``) over NCCL
     against ``adasum_reference`` on the CPU (rel 1e-5), then ResNet-50 with
-    ``op=Adasum`` for 2 + 3 steps, equal on both ranks after every step.
+    ``op=Adasum`` for 1 + 2 steps, equal on both ranks after every step.
 (i) the negotiated eager plane: two ranks on cuda:0 in one NCCL world as
     in (e) (``--eager-worker``), ``hvd.init`` with the native core live
     (its controller on the base port + 1; direct mode fails the phase).
@@ -202,6 +202,25 @@ exits nonzero:
     the host ring, then staged through NCCL (``HOROVOD_HOST_VIA_XLA=1``,
     1 KiB threshold); ``keras_mnist`` at two ranks (four batches). No
     kernel of the port runs here.
+(n) the Spark integration and the MXNet binding: one line says which of
+    pyspark, pandas, pyarrow, cloudpickle, keras and mxnet are installed.
+    The Spark transport without Spark: a ``SparkDriverService``, two
+    ``task_main`` processes (``--spark-task``) and
+    ``run_via_task_services`` run ``spark_task_fn`` at two ranks on
+    cuda:0 through the torch binding (each rank its own ``NCCL_HOSTID``):
+    a 64 MiB fp32 Sum allreduce exact against its closed form and 5 steps
+    of (k)'s 256-wide MLP under ``DistributedOptimizer``, the results in
+    rank order and the parameters equal bitwise on both ranks (sha256);
+    beside it a function that raises on every rank, which must be
+    reported with its text, and a task that registers after its driver
+    gave up, which must stop within ``DRIVER_LOST_BOUND_S``. Where pandas
+    and pyarrow are installed, ``TorchEstimator.fit`` on the card
+    (``--estimator-worker``: ``pytorch_spark_mnist``'s model without
+    dropout, 4096 rows, 1 epoch) against the same fit with
+    ``device="cpu"`` (normwise 1e-4, TF32 off) and ``transform`` on the
+    card; where Keras is too, ``keras_spark_mnist`` for an epoch; where
+    mxnet is, the MXNet binding at one rank. What is absent is named on a
+    line and not run. No kernel of the port runs here.
 (d) the kernel table as one JSON line, the card's name and power limit,
     and last the result line ``{"ok": true, "device": {...}}``.
 """
@@ -973,6 +992,7 @@ def small_model_check():
 
 
 SP = 2                # ranks of the sp phase, both on cuda:0
+SP_STEPS = (1, 1)     # (e)'s sp trainer: warm-up and timed steps
 SP_TIMEOUT_S = 600
 
 
@@ -1058,8 +1078,9 @@ def sp_worker(out_path):
     out = {"rank": hvd.rank(), "small": {
         s: small_sp_check(s, ref) for s in ("ring", "ulysses")}}
     args = transformer_bench.parse_args([
-        "--sp", str(SP), "--seq-len", "4096", "--num-warmup", "2",
-        "--num-iters", "2", "--device", "cuda:0"])
+        "--sp", str(SP), "--seq-len", "4096", "--num-warmup",
+        str(SP_STEPS[0]), "--num-iters", str(SP_STEPS[1]), "--device",
+        "cuda:0"])
     fa.reset_launches()
     run = transformer_bench.run(args)
     launches = dict(fa.LAUNCHES)
@@ -1175,6 +1196,7 @@ IMAGE_TOL = 1e-4     # fp32 through cuDNN (TF32 off) against the CPU
 # less than a hundredth.
 S2D_LOSS_TOL = 1e-2
 DP = 2               # ranks of the image dp phase, both on cuda:0
+DP_STEPS = (1, 2)    # its ResNet-50 runs: warm-up and timed steps
 DP_TIMEOUT_S = 420
 # (model, extra flags, timed steps) of the full-width runs, 2 warm-up each.
 IMAGE_RUNS = (("resnet50", (), 10), ("resnet50", ("--space-to-depth",), 10),
@@ -1263,13 +1285,13 @@ def small_image_check():
                               gpu, images, labels), ref)
 
 
-def run_image_bench(model, flags, iters, device=None):
-    """``image_bench.run`` of ``model`` at its full width with 2 warm-up
+def run_image_bench(model, flags, iters, device=None, warmup=2):
+    """``image_bench.run`` of ``model`` at its full width with ``warmup``
     and ``iters`` timed steps; returns the run."""
     from horovod_tpu_torch import image_bench
 
-    argv = ["--model", model, "--num-warmup", "2", "--num-iters", str(iters),
-            *flags]
+    argv = ["--model", model, "--num-warmup", str(warmup), "--num-iters",
+            str(iters), *flags]
     if device is not None:
         argv += ["--device", device]
     return image_bench.run(image_bench.parse_args(argv))
@@ -1332,7 +1354,7 @@ def image_phase(gpu):
             if not rr["allreduces"] >= 1:
                 raise AssertionError(f"dp {mode}: no bucket all-reduce ran")
         traces = [r[mode]["trace"] for r in res]
-        if len(traces[0]) != 5 or traces[0] != traces[1]:
+        if len(traces[0]) != sum(DP_STEPS) or traces[0] != traces[1]:
             raise AssertionError(f"dp {mode}: the ranks' losses, parameters "
                                  f"or batch-norm buffers differ: {traces}")
         log(f"    {mode}: after each of {len(traces[0])} steps both ranks "
@@ -1344,7 +1366,7 @@ def dp_worker(out_path):
     """One rank of the image dp phase (run as ``chip_smoke.py
     --dp-worker``): the small model on this rank's half batch, its
     world-averaged loss, gradients and statistics against the CPU's mean
-    over the two halves; then ResNet-50 at full width, 2 + 3 steps with
+    over the two halves; then ResNet-50 at full width, 1 + 2 steps with
     fp16 and then ef16 compression, with a digest of the loss, the
     parameters and the batch-norm buffers after every step."""
     import hashlib
@@ -1409,8 +1431,9 @@ def dp_worker(out_path):
 
         training.make_train_step = traced
         try:
-            run = run_image_bench("resnet50", ("--compression", mode), 3,
-                                  device="cuda:0")
+            run = run_image_bench("resnet50", ("--compression", mode),
+                                  DP_STEPS[1], device="cuda:0",
+                                  warmup=DP_STEPS[0])
         finally:
             training.make_train_step = make_step
         out[mode] = {"trace": trace, "result": run.result,
@@ -1425,6 +1448,7 @@ def dp_worker(out_path):
 # ---- (g) tensor, pipeline and expert parallelism ---------------------------
 
 MP = 2                # ranks of the model-parallel phase, both on cuda:0
+MP_STEPS = (1, 1)     # its full-width runs: warm-up and timed steps
 MP_TIMEOUT_S = 420
 SMALL = dict(vocab=512, d_model=256, n_heads=4, d_head=64, d_ff=1024,
              n_layers=2, max_seq=128)
@@ -1677,8 +1701,8 @@ def timed_run(step, warmup=2, iters=3):
 
 def model_run(name, kw, mesh, microbatches, batch):
     """The full-width decoder through the model's API on ``mesh``: AdamW
-    3e-4 as the bench, bf16, seed 0, 2 + 3 steps on this rank's rows of a
-    ``batch`` x 1024 batch from RandomState(0)."""
+    3e-4 as the bench, bf16, seed 0, ``MP_STEPS`` steps on this rank's rows
+    of a ``batch`` x 1024 batch from RandomState(0)."""
     import numpy as np
     import torch
 
@@ -1702,11 +1726,11 @@ def model_run(name, kw, mesh, microbatches, batch):
     x = torch.as_tensor(tokens[rows], device="cuda:0")
     y = torch.roll(x, -1, 1)
     fa.reset_launches()
-    losses, ms, peak = timed_run(lambda: step(x, y))
+    losses, ms, peak = timed_run(lambda: step(x, y), *MP_STEPS)
     out = {"name": name, "mesh": hvd.axis_sizes(), "losses": losses,
            "step_ms": ms, "tokens_per_s": batch * 1024 / (ms / 1e3),
            "peak_gib": peak / 2**30, "launches": dict(fa.LAUNCHES),
-           "expected": expected_launches(len(model.layers), 5,
+           "expected": expected_launches(len(model.layers), sum(MP_STEPS),
                                          microbatches=microbatches),
            "batch": batch, "same_as_slice": kw is GPT2}
     del model, opt, step
@@ -1744,8 +1768,8 @@ def mp_worker(out_path):
     runs = []
     fa.reset_launches()
     bench = transformer_bench.run(transformer_bench.parse_args([
-        "--tp", str(MP), "--num-warmup", "2", "--num-iters", "3",
-        "--device", "cuda:0"]))
+        "--tp", str(MP), "--num-warmup", str(MP_STEPS[0]), "--num-iters",
+        str(MP_STEPS[1]), "--device", "cuda:0"]))
     res = bench.result
     runs.append({"name": "tp2 (transformer_bench --tp 2)",
                  "mesh": res["mesh"], "losses": bench.losses,
@@ -1754,7 +1778,8 @@ def mp_worker(out_path):
                  / (res["step_ms"] / 1e3),
                  "peak_gib": bench.peak_mem_bytes / 2**30,
                  "launches": dict(fa.LAUNCHES),
-                 "expected": expected_launches(res["n_layers"], 5),
+                 "expected": expected_launches(res["n_layers"],
+                                               sum(MP_STEPS)),
                  "batch": res["global_batch"], "same_as_slice": True})
     del bench
     import horovod_tpu_torch as hvd
@@ -1816,6 +1841,7 @@ def mp_phase(gpu, slice_losses):
 # ---- (h) ZeRO, checkpoints and Adasum -----------------------------------------
 
 ZERO = 2              # ranks of phase (h), both on cuda:0
+ZERO_STEPS = (1, 2)   # its ResNet-50 and decoder runs: warm-up and timed
 ZERO_TIMEOUT_S = 480
 
 
@@ -1829,7 +1855,8 @@ def tensor_digest(tensors):
     return hashlib.sha256(flat.cpu().numpy().tobytes()).hexdigest()
 
 
-def zero_image_run(stage, x, y, seed=0, warmup=2, iters=3):
+def zero_image_run(stage, x, y, seed=0, warmup=ZERO_STEPS[0],
+                   iters=ZERO_STEPS[1]):
     """ResNet-50 (bf16, 1000 classes) in a ZeRO state of ``stage`` over
     the world, SGD 0.01 with momentum 0.9: ``warmup + iters`` steps, each
     followed by the loss and the digests of the gathered parameters and
@@ -1962,8 +1989,8 @@ def zero_worker(out_path):
     # The transformer with its optimizer state over dp, then without.
     torch.cuda.empty_cache()
     fa.reset_launches()
-    args = ["--batch-size", "8", "--num-warmup", "2", "--num-iters", "3",
-            "--device", "cuda:0"]
+    args = ["--batch-size", "8", "--num-warmup", str(ZERO_STEPS[0]),
+            "--num-iters", str(ZERO_STEPS[1]), "--device", "cuda:0"]
     bench = transformer_bench.run(transformer_bench.parse_args(
         ["--zero"] + args))
     out["tf_zero"] = {"losses": bench.losses, "launches": dict(fa.LAUNCHES),
@@ -2030,7 +2057,7 @@ def zero_worker(out_path):
         "rel": float(np.linalg.norm(got - want) / np.linalg.norm(want)),
         "digest": tensor_digest([model.weight])}
     del model, opt
-    # ResNet-50 with op=Adasum, 2 + 3 steps.
+    # ResNet-50 with op=Adasum, ZERO_STEPS steps.
     model = resnet.ResNet50(num_classes=1000, dtype=torch.bfloat16,
                             device="cuda:0", seed=0)
     opt = hvd.DistributedOptimizer(
@@ -2038,12 +2065,12 @@ def zero_worker(out_path):
         op=hvd.Adasum, compression="none")
     step = training.make_train_step(model, opt)
     trace, times = [], []
-    for i in range(5):
+    for i in range(sum(ZERO_STEPS)):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         loss = step(x, y)
         torch.cuda.synchronize()
-        if i >= 2:
+        if i >= ZERO_STEPS[0]:
             times.append(time.perf_counter() - t0)
         trace.append([loss.item(), tensor_digest(model.parameters()),
                       tensor_digest(model.buffers())])
@@ -2112,7 +2139,7 @@ def zero_phase(gpu, slice_losses):
             f"uninterrupted one on both ranks (loss {r0[key]['next_loss']})")
     for rr in res:
         tf = rr["tf_zero"]
-        want_l = expected_launches(tf["layers"], 5)
+        want_l = expected_launches(tf["layers"], sum(ZERO_STEPS))
         got_l = {k: tf["launches"][k] for k in want_l}
         log(f"    rank {rr['rank']} transformer --zero at dp={ZERO}: losses "
             f"{[round(v, 4) for v in tf['losses']]}, step "
@@ -2969,7 +2996,7 @@ KILL_LOG_TAIL = 40      # lines of each worker's log on stderr when (k)(2) fails
 ELASTIC_FAULT = "xla.exec:rank=1:step=3"
 ELASTIC_BATCHES = 8     # (k)(1): committed batches of the small model
 KILL_TARGET, KILL_READY = 20, 5     # (k)(2): batches, and when to kill
-SBN_STEPS = (1, 2)      # warm-up and timed steps of (k)'s batch-norm runs
+SBN_STEPS = (1, 1)      # warm-up and timed steps of (k)'s batch-norm runs
 
 
 def binding_checks(hvd, rank, dev):
@@ -4076,6 +4103,392 @@ def tf_keras_phase(gpu):
     log(f"    (m) took {time.perf_counter() - t0:.1f} s")
 
 
+SPARK = 2                   # ranks of (n)'s transport, both on cuda:0
+SPARK_TIMEOUT_S = 240
+SPARK_BIG = 1 << 24         # fp32 elements of (n)'s allreduce: 64 MiB
+SPARK_MLP_STEPS = 5         # (k)'s 256-wide MLP under DistributedOptimizer
+SPARK_LOG_TAIL = 40         # lines of each task's log on stderr on failure
+ESTIMATOR_ROWS = 4096       # pytorch_spark_mnist's DataFrame
+ESTIMATOR_TOL = 1e-4        # the fit on the card against the fit on the CPU
+PROBED = ("pyspark", "pandas", "pyarrow", "cloudpickle", "keras", "mxnet")
+
+
+def probe_packages():
+    """Which of ``PROBED`` this machine has (``importlib.util.find_spec``;
+    nothing is installed for (n))."""
+    import importlib.util
+
+    return {m: importlib.util.find_spec(m) is not None for m in PROBED}
+
+
+def spark_task_fn(steps):
+    """(n)'s function, run once a rank by the Spark transport's
+    ``task_exec`` subprocess (a module-level function: plain pickle, where
+    cloudpickle is missing, carries it by name, and the subprocess imports
+    ``chip_smoke`` from the repo root, its working directory). Its own
+    ``NCCL_HOSTID`` from ``HOROVOD_RANK``; ``horovod_tpu_torch.torch`` on
+    ``CHIP_SMOKE_DEVICE`` (cuda:0 by default): a 64 MiB fp32 Sum allreduce
+    held exactly to its closed form, then ``steps`` steps of (k)'s
+    256-wide MLP under ``DistributedOptimizer`` on this rank's batches.
+    Returns the world's view, the allreduce's largest error, the losses
+    and the parameters' sha256."""
+    import torch
+
+    rank = int(os.environ["HOROVOD_RANK"])
+    os.environ["NCCL_HOSTID"] = f"chip-smoke-spark-rank{rank}"
+    import horovod_tpu_torch.torch as hvd
+
+    dev = os.environ.get("CHIP_SMOKE_DEVICE", "cuda:0")
+    hvd.init(device=dev)
+    size = hvd.size()
+    pattern = torch.arange(SPARK_BIG, device=dev) % 1024
+    got = hvd.allreduce(pattern.float() * (hvd.rank() + 1), op=hvd.Sum,
+                        name="n.big")
+    # Sum over the ranks of (r + 1) * pattern: exact in fp32.
+    err = float((got - pattern.float() * (size * (size + 1) // 2))
+                .abs().max())
+    gen = torch.Generator().manual_seed(11)
+    data = torch.randn(steps, size, 16, 256, generator=gen).to(dev)
+    torch.manual_seed(3 + hvd.rank())    # the ranks differ until broadcast
+    model = torch.nn.Sequential(torch.nn.Linear(256, 256), torch.nn.ReLU(),
+                                torch.nn.Linear(256, 10)).to(dev)
+    hvd.broadcast_parameters(model.state_dict(), root_rank=0)
+    opt = hvd.DistributedOptimizer(
+        torch.optim.SGD(model.parameters(), lr=0.05, momentum=0.9),
+        named_parameters=model.named_parameters())
+    losses = []
+    for step in range(steps):
+        opt.zero_grad()
+        loss = model(data[step, hvd.rank()]).square().mean()
+        loss.backward()
+        opt.step()
+        losses.append(float(loss.detach()))
+    out = {"rank": hvd.rank(), "size": size, "device": str(dev),
+           "local_rank": int(os.environ["HOROVOD_LOCAL_RANK"]),
+           "allreduce_err": err, "losses": losses,
+           "digest": tensor_digest(list(model.parameters()))}
+    hvd.shutdown()
+    return out
+
+
+def spark_failing_fn():
+    """(n)'s function that raises on every rank."""
+    raise RuntimeError("(n) planted failure in the task function")
+
+
+def spark_task(index, addresses, key_hex):
+    """``chip_smoke.py --spark-task INDEX ADDRESSES KEY``: one Spark task's
+    body (``spark.exec.task_main``) against the driver at ADDRESSES (JSON),
+    with the job's key in hex; prints its final state and its seconds."""
+    sys.path.insert(0, str(REPO))
+    from horovod_tpu_torch.spark.exec import task_main
+
+    t0 = time.perf_counter()
+    state = task_main(int(index), [tuple(a) for a in json.loads(addresses)],
+                      bytes.fromhex(key_hex))
+    print("TASK " + json.dumps({"state": state,
+                                "seconds": time.perf_counter() - t0}),
+          flush=True)
+    return 0
+
+
+class SparkTasks:
+    """``n`` ``--spark-task`` processes against ``driver``, each in a
+    session of its own (``stop()`` ends them and their functions'
+    subprocesses), their output in ``DIR/task.<i>.txt``."""
+
+    def __init__(self, name, driver, key, n):
+        self.name = name
+        self.tmp = Path(tempfile.mkdtemp(prefix=f"chip_smoke_{name}_"))
+        self.procs = []
+        for i in range(n):
+            with open(self.tmp / f"task.{i}.txt", "w") as f:
+                self.procs.append(subprocess.Popen(
+                    [sys.executable, str(Path(__file__).resolve()),
+                     "--spark-task", str(i), json.dumps(driver.addresses()),
+                     key.hex()],
+                    cwd=str(REPO), env=dict(os.environ, PYTHONPATH=str(REPO)),
+                    stdout=f, stderr=subprocess.STDOUT,
+                    start_new_session=True))
+
+    def finish(self, timeout_s):
+        """Each task's final record; a task that outlives ``timeout_s``,
+        exits nonzero or printed no state fails the phase."""
+        t0 = time.perf_counter()
+        for p in self.procs:
+            try:
+                p.wait(timeout=max(1.0, timeout_s - (time.perf_counter() -
+                                                     t0)))
+            except subprocess.TimeoutExpired:
+                self.fail("a task kept serving")
+        records = []
+        for i, p in enumerate(self.procs):
+            lines = [x for x in (self.tmp / f"task.{i}.txt").read_text()
+                     .splitlines() if x.startswith("TASK ")]
+            if p.returncode != 0 or not lines:
+                self.fail(f"task {i} exited {p.returncode}")
+            records.append(json.loads(lines[-1][len("TASK "):]))
+        return records
+
+    def stop(self):
+        import signal
+
+        for p in self.procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+        shutil.rmtree(self.tmp, ignore_errors=True)
+
+    def fail(self, why):
+        for i in range(len(self.procs)):
+            for line in (self.tmp / f"task.{i}.txt").read_text() \
+                    .splitlines()[-SPARK_LOG_TAIL:]:
+                print(f"    [{self.name} {i}] {line}", file=sys.stderr,
+                      flush=True)
+        raise AssertionError(f"(n) {self.name}: {why}")
+
+
+def estimator_worker(out_path):
+    """``chip_smoke.py --estimator-worker OUT``: ``TorchEstimator.fit`` of
+    ``pytorch_spark_mnist``'s model without its dropout (784-128-10, Adam
+    1e-3, cross-entropy) over its 4096-row DataFrame, batch 128, 1 epoch,
+    on the LocalBackend: on the card (no ``device``: ``cuda:<local
+    rank>``) and with ``device="cpu"`` from the same weights, TF32 off;
+    the trainer's batch order is the reader's permutation seeded by the
+    epoch, the same on both. Then ``transform`` of 64 rows on the card
+    and on the CPU. Writes the histories, the normwise relative errors of
+    the trained parameters and of the predictions, the devices and the
+    seconds of each fit."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    from horovod_tpu_torch.examples.pytorch_spark_mnist import make_dataframe
+    from horovod_tpu_torch.spark import LocalStore, TorchEstimator
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card_dev = os.environ.get("CHIP_SMOKE_DEVICE")   # cpu in a rehearsal
+    torch.manual_seed(0)
+    model = torch.nn.Sequential(torch.nn.Linear(784, 128), torch.nn.ReLU(),
+                                torch.nn.Linear(128, 10))
+
+    def ce_loss(output, target):
+        return torch.nn.functional.cross_entropy(output, target.long())
+
+    df = make_dataframe(ESTIMATOR_ROWS)
+    fits, seconds = {}, {}
+    for name, device in (("card", card_dev), ("cpu", "cpu")):
+        est = TorchEstimator(
+            model=model,
+            optimizer=torch.optim.Adam(model.parameters(), lr=0.001),
+            loss=ce_loss, feature_cols=["features"], label_cols=["label"],
+            batch_size=128, epochs=1, device=device,
+            store=LocalStore(str(Path(out_path).parent / name)))
+        t0 = time.perf_counter()
+        fits[name] = est.fit(df)
+        seconds[name] = time.perf_counter() - t0
+    card, cpu = fits["card"], fits["cpu"]
+    params = {k: rel_err(v.float().cpu(), cpu.model.state_dict()[k].float())
+              for k, v in card.model.state_dict().items()}
+    probe = make_dataframe(64)
+    preds = [torch.as_tensor(np.stack(m.transform(probe)["label__output"]
+                                      .to_numpy())) for m in (card, cpu)]
+    out = {"history": {k: m.history["loss"] for k, m in fits.items()},
+           "param_rel": params, "pred_rel": rel_err(*preds),
+           "devices": {k: str(next(m.model.parameters()).device)
+                       for k, m in fits.items()},
+           "seconds": seconds}
+    Path(out_path).write_text(json.dumps(out))
+    return 0
+
+
+def spark_mxnet_phase(gpu):
+    """(n): the Spark integration, the task services' driver and the MXNet
+    binding. A probe line of the optional packages. Always, the
+    transport without Spark: a ``SparkDriverService``, two ``task_main``
+    processes and ``run_via_task_services`` run ``spark_task_fn`` at two
+    ranks on cuda:0 through the torch binding (results in rank order,
+    the allreduce exact, the parameters equal bitwise on both ranks);
+    beside it a round whose function raises on every rank, which must
+    be reported with its text, and a task that registers after its driver
+    gave up, which must stop within ``DRIVER_LOST_BOUND_S``. Where pandas
+    and pyarrow are installed, ``estimator_worker``; where Keras (with
+    pandas and pyarrow) is, the port's ``keras_spark_mnist`` for one
+    epoch; where mxnet is, the binding at one rank. No kernel of the port
+    runs here."""
+    import threading
+
+    import torch
+
+    from horovod_tpu_torch.run.common.util import secret
+    from horovod_tpu_torch.spark.exec import (DRIVER_LOST_BOUND_S,
+                                              SparkDriverService,
+                                              run_via_task_services)
+
+    t0 = time.perf_counter()
+    have = probe_packages()
+    log("    (n) installed: " + ", ".join(
+        f"{m} {'yes' if ok else 'no'}" for m, ok in have.items()))
+    device = os.environ.get("CHIP_SMOKE_DEVICE", "cuda:0")
+    if device != "cpu":
+        torch.cuda.empty_cache()    # leave the card to the tasks
+    estimator = None
+    if have["pandas"] and have["pyarrow"]:
+        # It runs beside the transport's rounds.
+        est_tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_estimator_"))
+        estimator = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()),
+             "--estimator-worker", str(est_tmp / "out.json")], cwd=str(REPO),
+            env=dict(os.environ, PYTHONPATH=str(REPO)),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    keys = [secret.make_secret_key() for _ in range(3)]
+    drivers = [SparkDriverService(SPARK, keys[0]),
+               SparkDriverService(SPARK, keys[1]),
+               SparkDriverService(1, keys[2])]
+    try:
+        drivers[2].wait_for_initial_registration(0.01)
+    except TimeoutError:
+        pass    # the driver gave up before its task started
+    else:
+        raise AssertionError("(n) a driver with no task did not time out")
+    groups = [SparkTasks(name, d, k, n) for name, d, k, n in zip(
+        ("spark_run", "spark_failing", "spark_late"), drivers, keys,
+        (SPARK, SPARK, 1))]
+    env = {"NCCL_IB_DISABLE": "1", "NCCL_SOCKET_IFNAME": "lo",
+           "CHIP_SMOKE_DEVICE": device}
+    import importlib
+
+    # The functions by the module name that task_exec imports (not
+    # __main__'s).
+    sys.path.insert(0, str(REPO))
+    cs = importlib.import_module("chip_smoke")
+    failed = {}
+
+    def failing_round():
+        try:
+            drivers[1].wait_for_initial_registration(SPARK_TIMEOUT_S)
+            run_via_task_services(drivers[1], cs.spark_failing_fn, (), {},
+                                  SPARK, keys[1])
+        except RuntimeError as e:
+            failed["error"] = str(e)
+
+    side = threading.Thread(target=failing_round, daemon=True)
+    side.start()
+    try:
+        drivers[0].wait_for_initial_registration(SPARK_TIMEOUT_S)
+        t1 = time.perf_counter()
+        results = run_via_task_services(
+            drivers[0], cs.spark_task_fn, (SPARK_MLP_STEPS,), {}, SPARK,
+            keys[0], exec_timeout=SPARK_TIMEOUT_S, env=env)
+        exec_s = time.perf_counter() - t1
+        states = groups[0].finish(60)
+        side.join(SPARK_TIMEOUT_S)
+        bad_states = groups[1].finish(60)
+        late = groups[2].finish(60)
+        if estimator is not None:
+            est_out = estimator.communicate(timeout=SPARK_TIMEOUT_S)[0]
+    finally:
+        for g in groups:
+            g.stop()
+        for d in drivers:
+            d.shutdown()
+        if estimator is not None and estimator.poll() is None:
+            estimator.kill()
+            estimator.wait()
+    if [r["rank"] for r in results] != list(range(SPARK)) or \
+            any(r["size"] != SPARK for r in results):
+        raise AssertionError(f"(n) results out of rank order: {results}")
+    for r in results:
+        log(f"    rank {r['rank']} (local rank {r['local_rank']}) on "
+            f"{r['device']}: 64 MiB Sum allreduce error "
+            f"{r['allreduce_err']}, MLP losses "
+            f"{[round(x, 5) for x in r['losses']]}, parameters "
+            f"{r['digest'][:16]}")
+        if r["allreduce_err"] != 0.0:
+            raise AssertionError("(n) the allreduce is not exact")
+        if not all(math.isfinite(x) for x in r["losses"]):
+            raise AssertionError("(n) non-finite MLP loss")
+    if len({r["digest"] for r in results}) != 1:
+        raise AssertionError("(n) the ranks' parameters differ")
+    if [s["state"] for s in states] != ["done"] * SPARK:
+        raise AssertionError(f"(n) the tasks ended {states}")
+    log(f"    run_via_task_services at {SPARK} ranks: results in rank "
+        f"order, parameters equal bitwise after {SPARK_MLP_STEPS} steps, "
+        f"exec round {exec_s:.1f} s, tasks served "
+        f"{[round(s['seconds'], 1) for s in states]} s on {gpu}")
+    error = failed.get("error", "")
+    if "(n) planted failure" not in error or "spark tasks failed" not in \
+            error:
+        raise AssertionError(f"(n) the failing round was not reported: "
+                             f"{error!r}")
+    log(f"    the raising function: reported as {error.splitlines()[0]!r}"
+        f" ...; its tasks ended {[s['state'] for s in bad_states]}")
+    if late[0]["state"] != "refused" or \
+            not late[0]["seconds"] <= DRIVER_LOST_BOUND_S:
+        raise AssertionError(f"(n) the late registrant: {late}")
+    log(f"    a task that registered after its driver gave up: "
+        f"{late[0]['state']}, stopped {late[0]['seconds']:.2f} s after it "
+        f"started (bound {DRIVER_LOST_BOUND_S:.0f} s)")
+
+    if estimator is not None:
+        if estimator.returncode != 0:
+            print(est_out[-6000:], file=sys.stderr)
+            raise AssertionError("(n) the estimator worker failed")
+        est = json.loads((est_tmp / "out.json").read_text())
+        shutil.rmtree(est_tmp, ignore_errors=True)
+        worst = max(est["param_rel"].values())
+        log(f"    TorchEstimator.fit ({ESTIMATOR_ROWS} rows, 1 epoch, batch "
+            f"128) on {est['devices']['card']} in "
+            f"{est['seconds']['card']:.1f} s and on the CPU in "
+            f"{est['seconds']['cpu']:.1f} s: loss {est['history']}, "
+            f"parameters within {worst:.2e} (normwise), transform within "
+            f"{est['pred_rel']:.2e} (tolerance {ESTIMATOR_TOL:g}) on {gpu}")
+        if not (worst <= ESTIMATOR_TOL and est["pred_rel"] <= ESTIMATOR_TOL):
+            raise AssertionError("(n) the fit on the card leaves the CPU's")
+        if device != "cpu" and not est["devices"]["card"].startswith("cuda"):
+            raise AssertionError("(n) the estimator did not train on the "
+                                 "card")
+    else:
+        log("    (n) torch estimator: pandas and pyarrow not installed on "
+            "this machine; not run")
+    if have["keras"] and have["pandas"] and have["pyarrow"]:
+        proc = subprocess.run(
+            [sys.executable, "-m", "horovod_tpu_torch.examples."
+             "keras_spark_mnist", "--epochs", "1"], cwd=str(REPO),
+            env=dict(os.environ, PYTHONPATH=str(REPO)), capture_output=True,
+            text=True, timeout=SPARK_TIMEOUT_S)
+        if proc.returncode != 0 or "history:" not in proc.stdout:
+            print(proc.stdout[-3000:] + proc.stderr[-3000:], file=sys.stderr)
+            raise AssertionError("(n) keras_spark_mnist failed")
+        log("    keras_spark_mnist (1 epoch): " + [
+            x for x in proc.stdout.splitlines() if x.startswith("history:")
+        ][0])
+    else:
+        log("    (n) keras estimator: keras, pandas or pyarrow not "
+            "installed on this machine; not run")
+    if have["mxnet"]:
+        proc = subprocess.run(
+            [sys.executable, "-c",
+             "import numpy as np, mxnet as mx\n"
+             "import horovod_tpu_torch.mxnet as hvd\n"
+             "hvd.init()\n"
+             "x = mx.nd.array(np.arange(8, dtype=np.float32))\n"
+             "assert (hvd.allreduce(x).asnumpy() == x.asnumpy()).all()\n"
+             "assert (hvd.broadcast(x, 0).asnumpy() == x.asnumpy()).all()\n"
+             "hvd.shutdown()\nprint(mx.__version__)\n"],
+            cwd=str(REPO), env=dict(os.environ, PYTHONPATH=str(REPO)),
+            capture_output=True, text=True, timeout=SPARK_TIMEOUT_S)
+        if proc.returncode != 0:
+            print(proc.stderr[-3000:], file=sys.stderr)
+            raise AssertionError("(n) the MXNet binding failed")
+        log(f"    mxnet {proc.stdout.strip()}: the binding's allreduce and "
+            f"broadcast at one rank")
+    else:
+        log("    (n) mxnet: not installed on this machine; not run")
+    log(f"    (n) took {time.perf_counter() - t0:.1f} s")
+
+
 def time_tree(tree):
     """``chip_smoke.py --time-tree DIR``: kernel times of the checkout DIR
     (say, a parent commit unpacked with ``git archive``; it builds its own
@@ -4327,6 +4740,12 @@ def main():
     log(f"(m) tf/keras: the TF and Keras bindings {since()}")
     tf_keras_phase(gpu)
 
+    # (n) Spark and MXNet: the host, NCCL and the torch binding, no kernel
+    # of the port
+    log(f"(n) spark/mxnet: the Spark transport, its driver and the MXNet "
+        f"binding {since()}")
+    spark_mxnet_phase(gpu)
+
     # (d) result
     log(f"(d) result {since()}")
     for name, row in table.items():
@@ -4362,6 +4781,10 @@ if __name__ == "__main__":
         sys.exit(launcher_worker(sys.argv[2]))
     if sys.argv[1:2] == ["--tf-worker"]:
         sys.exit(tf_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--spark-task"]:
+        sys.exit(spark_task(*sys.argv[2:5]))
+    if sys.argv[1:2] == ["--estimator-worker"]:
+        sys.exit(estimator_worker(sys.argv[2]))
     if sys.argv[1:2] == ["--time-tree"]:
         sys.exit(time_tree(sys.argv[2]))
     sys.exit(main())

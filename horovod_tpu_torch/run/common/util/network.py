@@ -65,17 +65,20 @@ class AckResponse:
 
 
 def dumps(obj: Any) -> bytes:
-    """A protocol-2 pickle of a registered wire object under its wire
+    """A protocol-3 pickle of a registered wire object under its wire
     class path: the class by GLOBAL, an empty NEWOBJ, and its ``__dict__``
     by BUILD (what ``pickle.dumps`` writes for such an object, with the
-    class path named rather than looked up)."""
+    class path named rather than looked up). Protocol 3 writes ``bytes``
+    as BINBYTES (protocol 2 calls ``_codecs.encode``, a global that
+    ``loads`` refuses) and, unlike protocol 4, writes no frames, so the
+    state's opcodes splice in whole."""
     path = _BY_CLASS.get(type(obj))
     if path is None:
         raise TypeError(f"{type(obj).__name__} is not a wire class")
-    state = pickle.dumps(dict(vars(obj)), protocol=2)
+    state = pickle.dumps(dict(vars(obj)), protocol=3)
     module, name = path
     # state[2:-1] drops the dict pickle's PROTO header and its STOP.
-    return (b"\x80\x02c" + f"{module}\n{name}\n".encode() + b")\x81"
+    return (b"\x80\x03c" + f"{module}\n{name}\n".encode() + b")\x81"
             + state[2:-1] + b"b.")
 
 

@@ -13,7 +13,8 @@ from typing import Iterable, Optional
 import numpy as np
 import tensorflow as tf
 
-from .mpi_ops import _np_allgather, _np_broadcast, _world, broadcast, size
+from ..common import host_ops as _host_ops
+from .mpi_ops import _world, broadcast, size
 
 
 def broadcast_variables(variables: Iterable[tf.Variable],
@@ -28,23 +29,8 @@ def broadcast_object(obj, root_rank: int = 0,
                      name: Optional[str] = None):
     """Broadcast a picklable object from ``root_rank``: its length, then
     its bytes."""
-    w = _world()
-    w.require_init()
-    if size() == 1:
-        return obj
-    name = name or "tf.bcast.obj"
-    if w.rank == root_rank:
-        payload = pickle.dumps(obj)
-        n = np.asarray([len(payload)], np.int64)
-    else:
-        payload = b""
-        n = np.zeros(1, np.int64)
-    n = _np_broadcast(n, root_rank, name + ".len")
-    buf = np.zeros(int(n[0]), np.uint8)
-    if w.rank == root_rank:
-        buf[:] = np.frombuffer(payload, np.uint8)
-    buf = _np_broadcast(buf, root_rank, name + ".data")
-    return pickle.loads(buf.tobytes())
+    return _host_ops.np_broadcast_object(obj, root_rank,
+                                         name or "tf.bcast.obj")
 
 
 def broadcast_object_fn(root_rank: int = 0, name: Optional[str] = None):
@@ -62,9 +48,9 @@ def allgather_object(obj, name: Optional[str] = None):
         return [obj]
     name = name or "tf.allgather.obj"
     payload = np.frombuffer(pickle.dumps(obj), np.uint8)
-    gathered = _np_allgather(payload, name)
-    sizes = _np_allgather(np.asarray([len(payload)], np.int64),
-                          name + ".sizes")
+    gathered = _host_ops.np_allgather(payload, name)
+    sizes = _host_ops.np_allgather(np.asarray([len(payload)], np.int64),
+                                   name + ".sizes")
     out, off = [], 0
     for s in sizes.reshape(-1):
         out.append(pickle.loads(gathered[off: off + int(s)].tobytes()))

@@ -28,9 +28,8 @@ from typing import Optional
 import numpy as np
 import tensorflow as tf
 
-from ..common import native as _native
-from ..common.exceptions import HorovodInternalError
-from ..common.host_world import NUMPY_DTYPE_CODES, world as _world
+from ..common import host_ops as _host_ops
+from ..common.host_world import world as _world
 from ..ops.collectives import (Adasum, Average, Max, Min,  # noqa: F401
                                ReduceOp, Sum)
 from . import native_ops as _native_ops
@@ -132,49 +131,8 @@ def ccl_built() -> bool:
 
 # ---- numpy-level collectives on the host plane ------------------------------
 
-
-def _np_code(arr: np.ndarray) -> int:
-    code = NUMPY_DTYPE_CODES.get(str(arr.dtype))
-    if code is None:
-        raise ValueError(f"unsupported dtype {arr.dtype}")
-    return code
-
-
-def _np_allreduce(arr: np.ndarray, name: str, op: int, prescale: float,
-                  postscale: float) -> np.ndarray:
-    w = _world()
-    w.require_init()
-    arr = np.asarray(arr, order="C")
-    if w.size == 1:
-        scale = prescale * (postscale if op not in (Min, Max) else 1.0)
-        if scale == 1.0:
-            # The identity: an integer never goes through a float.
-            return arr.copy()
-        return (arr.astype(np.float64) * scale).astype(arr.dtype)
-    out = np.empty_like(arr)
-    h = w.enqueue(name, _native.OP_ALLREDUCE, op, _np_code(arr), arr.shape,
-                  arr.ctypes.data, out.ctypes.data, prescale=prescale,
-                  postscale=postscale)
-    r, err = w.wait(h)
-    if r < 0:
-        raise HorovodInternalError(err)
-    return out
-
-
-def _np_allgather(arr: np.ndarray, name: str) -> np.ndarray:
-    """Ragged allgather on dim 0 (MPI_Allgatherv): the ranks' sizes ride
-    the response, with no size exchange and no padding."""
-    out, _sizes = _world().allgatherv_np(np.asarray(arr), name)
-    return out
-
-
-def _np_broadcast(arr: np.ndarray, root_rank: int, name: str) -> np.ndarray:
-    w = _world()
-    w.require_init()
-    arr = np.asarray(arr, order="C")
-    if w.size == 1:
-        return arr.copy()
-    return w.broadcast_np(arr, root_rank, name)
+# Also the Keras callbacks' (``_keras/callbacks.py``).
+_np_allreduce = _host_ops.np_allreduce
 
 
 # ---- TF op wrappers with gradients ------------------------------------------

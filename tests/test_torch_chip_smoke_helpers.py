@@ -410,3 +410,44 @@ def test_tf_keras_phase_on_the_cpu(monkeypatch, capsys):
     out = capsys.readouterr().out
     assert "tf_ring: every check" in out and "tf_staged: every check" in out
     assert "keras_mnist at two ranks" in out
+
+
+def test_spark_probe_reads_the_installed_set(monkeypatch):
+    """(n)'s probe line: one entry a package, from ``find_spec`` alone."""
+    cs = _chip_smoke()
+    assert list(cs.probe_packages()) == list(cs.PROBED)
+    real = {m: importlib.util.find_spec(m) is not None for m in cs.PROBED}
+    assert cs.probe_packages() == real
+    present = ("pandas", "cloudpickle")
+    monkeypatch.setattr(importlib.util, "find_spec", lambda name, *a: (
+        object() if name in present else None))
+    assert cs.probe_packages() == {m: m in present for m in cs.PROBED}
+
+
+def test_spark_task_fn_holds_a_world_of_one(monkeypatch):
+    """(n)'s task function on the CPU at one rank: the allreduce is exact
+    and the MLP's losses are finite (the parameters' digest is the one
+    of a fresh run)."""
+    monkeypatch.setenv("CHIP_SMOKE_DEVICE", "cpu")
+    monkeypatch.setenv("HOROVOD_RANK", "0")
+    monkeypatch.setenv("HOROVOD_LOCAL_RANK", "0")
+    cs = _chip_smoke()
+    a = cs.spark_task_fn(2)
+    b = cs.spark_task_fn(2)
+    assert (a["rank"], a["size"], a["allreduce_err"]) == (0, 1, 0.0)
+    assert len(a["losses"]) == 2 and all(np.isfinite(a["losses"]))
+    assert a["digest"] == b["digest"]
+    with pytest.raises(RuntimeError, match="planted failure"):
+        cs.spark_failing_fn()
+
+
+@pytest.mark.slow
+def test_spark_mxnet_phase_on_the_cpu(monkeypatch, capsys):
+    monkeypatch.setenv("CHIP_SMOKE_DEVICE", "cpu")
+    _chip_smoke().spark_mxnet_phase("cpu")
+    out = capsys.readouterr().out
+    assert "(n) installed: pyspark " in out
+    assert "results in rank order, parameters equal bitwise" in out
+    assert "the raising function: reported" in out
+    assert "registered after its driver gave up: refused" in out
+    assert "(n) mxnet: not installed" in out

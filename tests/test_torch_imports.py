@@ -88,7 +88,17 @@ for name in ("parallel", "parallel.mesh", "parallel.ring_attention",
              "examples.keras_imagenet_resnet50",
              "examples.elastic.tensorflow2_synthetic_elastic",
              "examples.elastic.tensorflow2_mnist_elastic",
-             "examples.elastic.tensorflow2_keras_mnist_elastic"):
+             "examples.elastic.tensorflow2_keras_mnist_elastic",
+             "run.driver", "run.driver.driver_service", "common.host_ops",
+             "spark", "spark.exec", "spark.task_exec", "spark.common",
+             "spark.common.backend", "spark.common.estimator",
+             "spark.common.reader", "spark.common.store",
+             "spark.common.util", "spark.torch", "spark.torch.remote",
+             "spark.torch.estimator", "spark.keras", "spark.keras.remote",
+             "spark.keras.util", "spark.keras.estimator", "mxnet",
+             "examples.pytorch_spark_mnist", "examples.keras_spark_mnist",
+             "examples.keras_spark_rossmann_estimator",
+             "examples.mxnet_mnist", "examples.mxnet_imagenet_resnet50"):
     assert "horovod_tpu_torch." + name in names, name
 bad = sorted(m for m in sys.modules if m.split(".")[0] in (
     "jax", "jaxlib", "horovod_tpu"))
@@ -106,6 +116,37 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
     assert n_modules >= 18, proc.stdout
+
+
+_WITHOUT_TENSORFLOW = torch_worlds.REFUSE_JAX.replace(
+    '("jax", "jaxlib", "horovod_tpu")',
+    '("jax", "jaxlib", "horovod_tpu", "tensorflow")') + r"""
+import horovod_tpu_torch.mxnet as hvd
+import horovod_tpu_torch.spark.torch
+import horovod_tpu_torch.spark.exec
+
+assert not hvd._MXNET_AVAILABLE
+hvd.init()
+assert hvd.broadcast_object({"a": 1}) == {"a": 1}
+hvd.shutdown()
+bad = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "jax", "jaxlib", "horovod_tpu", "tensorflow", "keras"))
+assert not bad, bad
+print("OK")
+"""
+
+
+def test_mxnet_binding_needs_no_tensorflow():
+    """The MXNet binding, the Spark transport and the torch estimator
+    import, and the binding's world runs, in an interpreter that refuses
+    ``tensorflow``."""
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("JAX_PLATFORMS", "HVD_PALLAS_INTERPRET")}
+    proc = subprocess.run([sys.executable, "-c", _WITHOUT_TENSORFLOW],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip() == "OK", \
+        proc.stdout + proc.stderr
 
 
 @pytest.fixture
