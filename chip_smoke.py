@@ -4,7 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --time-tree DIR   # kernel times of one checkout
 
-Phases, in order (a, b, c, e, f, g, h, i, j, k, l, m, n, d); any
+Phases, in order (a, b, c, e, f, g, h, i, j, k, l, m, n, o, d); any
 failure exits nonzero:
 
 (a) device and build: the card, its power limit, the torch and CUDA
@@ -173,8 +173,10 @@ failure exits nonzero:
     SIGKILLed inside its 64 MiB allreduces, and between the batches of a
     model of ``SyncBatchNorm`` (direct all-reduces only), rank 0 raising
     within ``KILL_BOUND_S`` (the seconds printed), rank 1 respawned with
-    its rank, both ending with rank 0's parameters. Last the example at one rank, full size
-    (img/s a device). No kernel of the port runs here.
+    its rank, both ending with rank 0's parameters; each kill run prints
+    each group's abort seconds (``state.abort_report``). Last the example
+    at one rank, full size (img/s a device). No kernel of the port runs
+    here.
 (l) the launcher and the elastic driver, ``python -m
     horovod_tpu_torch.run`` with two slots on cuda:0 as two hosts of one
     (``-H localhost:1,127.0.0.1:1``; each worker command wrapped to set
@@ -221,6 +223,22 @@ failure exits nonzero:
     card; where Keras is too, ``keras_spark_mnist`` for an epoch; where
     mxnet is, the MXNet binding at one rank. What is absent is named on a
     line and not run. No kernel of the port runs here.
+(o) the port's native core on this machine: one probe line (g++, libc,
+    kernel, the production core, and whether g++ builds a sound
+    ``-fsanitize=thread``). Two worlds of four ranks (two hosts of two)
+    on cuda:0 at once, while the TSan core and the stress harness
+    (``csrc/testing/stress_core.cc``) build: a host world
+    (``--heal-worker``: ``HOROVOD_HIER_CONTROL=1``, two stripes, the
+    hierarchical allreduce, staging through NCCL) whose leader 0 cuts its
+    cross link mid-allreduce (``HVD_FAULT_CROSS_DROP``): every allreduce
+    bitwise the closed form striped, single-socket across the cut and
+    striped again, and staged, ``link.reconnects`` >= 1 on both leaders,
+    ``world_lost()`` false on every rank; and a torch-binding world on
+    NCCL (``--lost-worker``) whose member rank 1 SIGKILLs itself between
+    16 MiB allreduces: every survivor raises ``HorovodInternalError``
+    within ``KILL_BOUND_S``, printed with each group's abort seconds.
+    Then the harness, under TSan where it was built (zero reports),
+    else on the production core. No kernel of the port runs here.
 (d) the kernel table as one JSON line, the card's name and power limit,
     and last the result line ``{"ok": true, "device": {...}}``.
 """
@@ -1106,6 +1124,13 @@ def run_workers(flag, n, timeout_s, inputs=None, local_size=None,
     object) is saved beside their results as ``inputs.pt``. Their logs are
     printed and each rank's JSON result returned. Any worker that fails or
     outlives ``timeout_s`` fails the phase."""
+    procs, tmp = spawn_workers(flag, n, inputs, local_size, env)
+    return finish_workers(flag, procs, tmp, timeout_s)
+
+
+def spawn_workers(flag, n, inputs=None, local_size=None, env=None):
+    """Start ``run_workers``'s processes without waiting for them;
+    returns (the processes, their directory)."""
     import torch
 
     from horovod_tpu_torch.common.config import free_port_pair
@@ -1131,6 +1156,14 @@ def run_workers(flag, n, timeout_s, inputs=None, local_size=None,
                 [sys.executable, str(Path(__file__).resolve()), flag,
                  str(tmp / f"rank{r}.json")], env=renv,
                 stdout=logf, stderr=subprocess.STDOUT))
+    return procs, tmp
+
+
+def finish_workers(flag, procs, tmp, timeout_s, codes=None):
+    """Wait for ``spawn_workers``'s processes (killing those that outlive
+    ``timeout_s``), print their logs and return each rank's JSON result
+    (None for a rank without one). The exit codes must be ``codes``
+    (default every one 0)."""
     t0 = time.perf_counter()
     try:
         for p in procs:
@@ -1145,10 +1178,12 @@ def run_workers(flag, n, timeout_s, inputs=None, local_size=None,
     for r, p in enumerate(procs):
         for line in (tmp / f"log{r}.txt").read_text().splitlines():
             log(f"    [rank {r}] {line}")
-    codes = [p.returncode for p in procs]
-    if codes != [0] * n:
-        raise AssertionError(f"{flag} processes exited {codes}")
-    res = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(n)]
+    got = [p.returncode for p in procs]
+    if got != (codes or [0] * len(procs)):
+        raise AssertionError(f"{flag} processes exited {got}")
+    res = [json.loads((tmp / f"rank{r}.json").read_text())
+           if (tmp / f"rank{r}.json").exists() else None
+           for r in range(len(procs))]
     shutil.rmtree(tmp, ignore_errors=True)
     return res
 
@@ -3405,9 +3440,12 @@ def elastic_worker(out_path):
         return state.batch
 
     batches = train(state)
+    from horovod_tpu_torch.common import state as hstate
+
     out = {"rank": rank, "batches": batches, "respawned": respawned,
            "resets": resets, "raised_in": raised_in,
-           "digest": tensor_digest(list(model.parameters()))}
+           "digest": tensor_digest(list(model.parameters())),
+           "aborts": hstate.abort_report()}
     hvd.shutdown()
     Path(out_path).write_text(json.dumps(out))
     return 0
@@ -3579,7 +3617,8 @@ def binding_phase(gpu):
         for r in kres:
             log(f"    rank {r['rank']} (respawned {r['respawned']}): "
                 f"{r['batches']} batches, reset at {r['resets']} (raised "
-                f"through {r['raised_in']}), parameters {r['digest'][:12]}")
+                f"through {r['raised_in']}), parameters {r['digest'][:12]}; "
+                f"group aborts {abort_text(r['aborts'])}")
         if not (kres[0]["resets"] and kres[1]["respawned"] and
                 kres[0]["batches"] == kres[1]["batches"] == KILL_TARGET and
                 kres[0]["digest"] == kres[1]["digest"]):
@@ -4489,6 +4528,235 @@ def spark_mxnet_phase(gpu):
     log(f"    (n) took {time.perf_counter() - t0:.1f} s")
 
 
+# ---- (o) the port's native core on the card's machine -----------------------
+
+CORE_RANKS, CORE_LOCAL = 4, 2   # (o)'s worlds: two hosts of two ranks
+CORE_TIMEOUT_S = 150
+HEAL_COUNT = 1 << 14            # fp32 elements of each ring allreduce
+# (o)'s self-heal world: the hierarchical control plane, two stripes, the
+# hierarchical allreduce (its leaders' cross leg is what is cut) and
+# staging through NCCL.
+HEAL_ENV = {"HOROVOD_HIER_CONTROL": "1", "HOROVOD_STRIPES": "2",
+            "HOROVOD_HIERARCHICAL_ALLREDUCE": "1",
+            "HOROVOD_HOST_VIA_XLA": "1",
+            "HOROVOD_HOST_VIA_XLA_THRESHOLD": str(STAGE_THRESHOLD)}
+# Leader 0 cuts its cross link before its 3rd single-socket cross duplex:
+# the second allreduce's reduce-scatter (two duplexes an allreduce at two
+# hosts). The cut and the heal live on the single-socket carrier, so the
+# world runs striped, then single-socket across the cut, then striped.
+HEAL_DROP = "0:3"
+LOST_VICTIM = 1                 # a member of host 0, whose leader is rank 0
+LOST_AFTER = 3                  # allreduces before the victim's SIGKILL
+TSAN_OPTIONS = "exitcode=66 halt_on_error=0"
+
+
+def heal_worker(out_path):
+    """One rank of (o)'s self-heal world (run as ``chip_smoke.py
+    --heal-worker``; two hosts of two, no ``hvd.init``): ring allreduces
+    of ``HEAL_COUNT`` small integers striped, then single-socket across
+    leader 0's cut, then striped again, and one staged through NCCL, each
+    held bitwise to the closed form; the healing counters and the
+    world-lost verdict after."""
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    from horovod_tpu_torch.common import host_world, native
+
+    rank = int(os.environ["HOROVOD_RANK"])
+    dev = os.environ.get("CHIP_SMOKE_DEVICE", "cuda:0")
+    if rank == 0:
+        os.environ["HVD_FAULT_CROSS_DROP"] = HEAL_DROP
+    if dev.startswith("cuda"):
+        torch.cuda.set_device(0)
+    w = host_world.world()
+    w.init(device=dev)
+    if w.staging is None:
+        raise AssertionError("(o) staging did not activate")
+    core, size = w._core, w.size
+    base = (torch.arange(HEAL_COUNT) % 13).float()
+    want = (base * size + size * (size - 1) // 2).view(torch.int32)
+    equal, stripes = [], []
+
+    def allreduce(name, ring=True):
+        with (w.ring_only() if ring else contextlib.nullcontext()):
+            out = host_op(w, native.OP_ALLREDUCE, base + rank, name)
+        equal.append(torch.equal(out.view(torch.int32), want))
+        stripes.append(core.ring_stripe_count())
+
+    def set_stripes(k):
+        if rank == 0:
+            core.set_stripes(k)
+        w.barrier(f"o.stripes.{k}")
+
+    t0 = time.perf_counter()
+    for i in range(2):
+        allreduce(f"o.striped.{i}")
+    set_stripes(1)
+    for i in range(4):
+        allreduce(f"o.cut.{i}")
+    set_stripes(2)
+    allreduce("o.striped.2")
+    allreduce("o.staged", ring=False)
+    counters = core.metrics_snapshot().get("counters", {})
+    out = {"rank": rank, "equal": equal, "stripes": stripes,
+           "reconnects": int(counters.get("link.reconnects", 0)),
+           "stale": int(counters.get("link.stale_epoch_rejected", 0)),
+           "stripe_bytes": core.ring_stripe_bytes(),
+           "staged": w.staging is not None, "lost": core.world_lost(),
+           "s": time.perf_counter() - t0}
+    w.shutdown()
+    Path(out_path).write_text(json.dumps(out))
+    return 0
+
+
+def lost_worker(out_path):
+    """One rank of (o)'s lost-member world (run as ``chip_smoke.py
+    --lost-worker``; two hosts of two, the torch binding, its groups
+    on NCCL): 16 MiB allreduces until ``LOST_VICTIM`` SIGKILLs itself
+    after ``LOST_AFTER`` of them; every survivor must raise
+    ``HorovodInternalError``. Writes the time of the raise and each
+    group's abort seconds."""
+    import faulthandler
+    import signal
+
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    import horovod_tpu_torch.torch as hvd
+    from horovod_tpu_torch.common import state as hstate
+
+    faulthandler.register(signal.SIGUSR1, all_threads=True)
+    dev = os.environ.get("CHIP_SMOKE_DEVICE", "cuda:0")
+    hvd.init(device=dev)
+    rank = hvd.rank()
+    x = torch.ones(1 << 22, device=dev)
+    deadline = time.time() + CORE_TIMEOUT_S / 2
+    i = 0
+    try:
+        while time.time() < deadline:
+            if rank == LOST_VICTIM and i == LOST_AFTER:
+                (Path(out_path).parent / "killed").write_text(
+                    repr(time.time()))
+                os.kill(os.getpid(), signal.SIGKILL)
+            hvd.allreduce(x, name=f"o.lost.{i}")
+            i += 1
+        raise AssertionError(f"(o) rank {rank} did not raise")
+    except hvd.HorovodInternalError:
+        raised = time.time()
+    hvd.shutdown()     # after the watch's abort, which the raise may beat
+    out = {"rank": rank, "raised": raised, "allreduces": i,
+           "aborts": hstate.abort_report(),
+           "killed": float((Path(out_path).parent / "killed").read_text())}
+    Path(out_path).write_text(json.dumps(out))
+    return 0
+
+
+def abort_text(aborts):
+    """Each group's abort of a lost world (``state.abort_report``) on one
+    line."""
+    return ", ".join(f"{a['name']} {a['ranks']} ({a['backend']}) "
+                     + ("still out" if a["seconds"] is None
+                        else f"{a['seconds']:.3f} s")
+                     for a in aborts) or "none"
+
+
+def tsan_harness(tmp):
+    """Build the TSan variant of the core and the stress harness against
+    it where this host's g++ gives a sound TSan, else the harness against
+    the production core: (why not TSan, or ""; harness; build
+    seconds)."""
+    from horovod_tpu_torch.common import native
+
+    t0 = time.perf_counter()
+    why = native.probe_sanitizer("tsan", tmp)
+    harness = native.build_stress_harness("" if why else "tsan", tmp)
+    return why, harness, time.perf_counter() - t0
+
+
+def core_phase(gpu):
+    """(o): the port's native core on this machine. The TSan variant and
+    the stress harness build while two worlds of four ranks (two hosts of
+    two on cuda:0) run: a host world whose cut cross leg heals in place,
+    and a torch-binding world that loses a member. Then the harness runs
+    under TSan."""
+    import platform
+    from concurrent.futures import ThreadPoolExecutor
+
+    from horovod_tpu_torch.common import native
+    from horovod_tpu_torch.common.state import ELASTIC_NCCL_ENV
+
+    t0 = time.perf_counter()
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_core_"))
+    gxx = subprocess.run([native._compiler(), "--version"],
+                         capture_output=True, text=True).stdout
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        tsan = pool.submit(tsan_harness, tmp)
+        heal = spawn_workers("--heal-worker", CORE_RANKS,
+                             local_size=CORE_LOCAL, env=HEAL_ENV)
+        lost = spawn_workers("--lost-worker", CORE_RANKS,
+                             local_size=CORE_LOCAL, env=ELASTIC_NCCL_ENV)
+        heal_res = finish_workers("--heal-worker", *heal, CORE_TIMEOUT_S)
+        codes = [0] * CORE_RANKS
+        codes[LOST_VICTIM] = -9
+        lost_res = finish_workers("--lost-worker", *lost, CORE_TIMEOUT_S,
+                                  codes=codes)
+        why, harness, build_s = tsan.result()
+    worlds_s = time.perf_counter() - t0
+    why_line = why.replace("\n", " | ")
+    log(f"    (o) probe: {gxx.splitlines()[0]}, {platform.machine()}, "
+        f"{' '.join(platform.libc_ver())}, kernel {platform.release()}; "
+        f"production core {native.library_path('').name}; TSan "
+        + (f"not available ({why_line}): the harness runs on the "
+           f"production core, built in {build_s:.1f} s" if why else
+           f"sound, {native.library_path('tsan').name} and the harness "
+           f"built in {build_s:.1f} s"))
+    leaders = {0, CORE_LOCAL}
+    for r in heal_res:
+        log(f"    heal rank {r['rank']}: allreduces bitwise the closed form "
+            f"{r['equal']}, stripes in use {r['stripes']}, link.reconnects "
+            f"{r['reconnects']}, stale epochs {r['stale']}, stripe bytes "
+            f"{r['stripe_bytes']}, world_lost {r['lost']}, "
+            f"{r['s']:.2f} s on {gpu}")
+        healed = r["reconnects"] >= 1 if r["rank"] in leaders else \
+            r["reconnects"] == 0
+        if not (all(r["equal"]) and len(r["equal"]) == 8 and healed and
+                not r["lost"] and r["stale"] == 0):
+            raise AssertionError(f"(o) heal rank {r['rank']}: {r}")
+        if r["rank"] in leaders and not (r["stripes"][0] == 2 and
+                                         r["stripes"][2:6] == [0] * 4):
+            raise AssertionError(f"(o) heal rank {r['rank']}: the carrier "
+                                 f"was not striped, single, striped")
+    for r in [x for x in lost_res if x is not None]:
+        secs = r["raised"] - r["killed"]
+        log(f"    lost member: rank {r['rank']} raised HorovodInternalError "
+            f"{secs:.3f} s after rank {LOST_VICTIM}'s SIGKILL (bound "
+            f"{KILL_BOUND_S} s), after {r['allreduces']} allreduces; group "
+            f"aborts {abort_text(r['aborts'])} on {gpu}")
+        if not 0 <= secs <= KILL_BOUND_S:
+            raise AssertionError(f"(o) rank {r['rank']} raised {secs:.3f} s "
+                                 f"after the kill")
+    if sum(x is not None for x in lost_res) != CORE_RANKS - 1:
+        raise AssertionError("(o) a survivor wrote no result")
+    t1 = time.perf_counter()
+    r = subprocess.run([str(harness)], capture_output=True, text=True,
+                       timeout=300,
+                       env=dict(os.environ, TSAN_OPTIONS=TSAN_OPTIONS))
+    report = r.stdout + r.stderr
+    lines = [x for x in r.stdout.splitlines()
+             if x.startswith(("LIVENESS", "WORLDLOST", "STRESS_OK"))]
+    log(f"    stress harness ({'production core' if why else 'TSan'}): "
+        f"exit {r.returncode}, {report.count('WARNING: ThreadSanitizer')} "
+        f"TSan reports, {time.perf_counter() - t1:.2f} s; "
+        f"{'; '.join(lines)}")
+    if r.returncode != 0 or "STRESS_OK" not in r.stdout or \
+            "WARNING: ThreadSanitizer" in report:
+        print(report[-4000:], file=sys.stderr, flush=True)
+        raise AssertionError("(o) the stress harness failed")
+    shutil.rmtree(tmp, ignore_errors=True)
+    log(f"    (o) took {time.perf_counter() - t0:.1f} s (the worlds and the "
+        f"build {worlds_s:.1f} s)")
+
+
 def time_tree(tree):
     """``chip_smoke.py --time-tree DIR``: kernel times of the checkout DIR
     (say, a parent commit unpacked with ``git archive``; it builds its own
@@ -4746,6 +5014,12 @@ def main():
         f"binding {since()}")
     spark_mxnet_phase(gpu)
 
+    # (o) the port's native core on this machine: host C++, NCCL and the
+    # host, no kernel of the port
+    log(f"(o) the native core: its TSan build and harness, a healed cut "
+        f"and a lost member, {CORE_RANKS} ranks on cuda:0 {since()}")
+    core_phase(gpu)
+
     # (d) result
     log(f"(d) result {since()}")
     for name, row in table.items():
@@ -4785,6 +5059,10 @@ if __name__ == "__main__":
         sys.exit(spark_task(*sys.argv[2:5]))
     if sys.argv[1:2] == ["--estimator-worker"]:
         sys.exit(estimator_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--heal-worker"]:
+        sys.exit(heal_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--lost-worker"]:
+        sys.exit(lost_worker(sys.argv[2]))
     if sys.argv[1:2] == ["--time-tree"]:
         sys.exit(time_tree(sys.argv[2]))
     sys.exit(main())

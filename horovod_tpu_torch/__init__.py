@@ -49,7 +49,9 @@ from .common.compression import Compression  # noqa: F401
 from .common.exceptions import (  # noqa: F401
     DuplicateTensorNameError,
     HorovodInternalError,
+    HostsUpdatedInterrupt,
     NotInitializedError,
+    TensorShapeMismatchError,
 )
 from .common.state import (  # noqa: F401
     axis_group,
@@ -60,6 +62,7 @@ from .common.state import (  # noqa: F401
     dp_rank,
     dp_size,
     init,
+    is_homogeneous,
     is_initialized,
     local_rank,
     local_size,
@@ -87,6 +90,8 @@ from .ops.collectives import (  # noqa: F401
     hierarchical_allreduce,
 )
 from .opt import DistributedOptimizer  # noqa: F401
+from .version import __version__  # noqa: F401
+from . import version  # noqa: F401
 
 
 def _engine():
@@ -298,3 +303,19 @@ def broadcast_object(obj, root_rank: int = 0, name: Optional[str] = None):
         buf[:] = np.frombuffer(payload, dtype=np.uint8)
     buf = broadcast(buf, root_rank, name=(name or "bcast.obj") + ".data")
     return pickle.loads(buf.tobytes())
+
+
+# Last, since they import this module: the backends the torch binding
+# reports (NCCL and gloo as torch was built with them, the others never)
+# and the elastic state and retry loop.
+from .torch import (  # noqa: F401,E402
+    ccl_built,
+    ddl_built,
+    gloo_built,
+    gloo_enabled,
+    mpi_built,
+    mpi_enabled,
+    mpi_threads_supported,
+    nccl_built,
+)
+from . import elastic  # noqa: F401,E402

@@ -34,6 +34,7 @@ HOROVOD_ZERO_STAGE = "HOROVOD_ZERO_STAGE"
 HOROVOD_ZERO_PREFETCH = "HOROVOD_ZERO_PREFETCH"
 # The native core of the eager plane (common/native.py, ops/eager.py).
 HOROVOD_NATIVE = "HOROVOD_NATIVE"
+HOROVOD_NATIVE_SANITIZE = "HOROVOD_NATIVE_SANITIZE"
 HOROVOD_CYCLE_TIME = "HOROVOD_CYCLE_TIME"
 HOROVOD_CACHE_CAPACITY = "HOROVOD_CACHE_CAPACITY"
 HOROVOD_HIERARCHICAL_ALLREDUCE = "HOROVOD_HIERARCHICAL_ALLREDUCE"
@@ -320,6 +321,32 @@ def native_enabled() -> bool:
     ``HOROVOD_NATIVE=0`` asks for direct mode: every eager collective runs
     at once on the caller's thread, with no negotiation."""
     return _get_bool(HOROVOD_NATIVE, default=True)
+
+
+NATIVE_SANITIZE_CHOICES = ("tsan", "asan")
+
+
+def native_sanitize() -> str:
+    """The sanitizer variant of the native core to build and load, ""
+    for the production library. ``HOROVOD_NATIVE_SANITIZE=tsan`` or
+    ``asan`` selects ``libhvdcore-<hash>-{tsan,asan}.so``
+    (``common/native.py``), built beside the production library, never
+    in its place; "", "0", "none" and "off" mean the production library,
+    and any other value warns and is ignored. Read when the process first
+    loads the library. An instrumented library needs its sanitizer's
+    runtime loaded first: ``LD_PRELOAD=$(g++ -print-file-name=libtsan.so)``
+    (or ``libasan.so``)."""
+    v = os.environ.get(HOROVOD_NATIVE_SANITIZE, "").strip().lower()
+    if v in ("", "0", "none", "off"):
+        return ""
+    if v in NATIVE_SANITIZE_CHOICES:
+        return v
+    from . import logging as _log
+
+    _log.warning(f"{HOROVOD_NATIVE_SANITIZE}={v!r} is not one of "
+                 f"{sorted(NATIVE_SANITIZE_CHOICES)}; ignoring "
+                 f"(loading the production library)")
+    return ""
 
 
 def heartbeat_ms() -> int:

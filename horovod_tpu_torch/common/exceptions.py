@@ -22,6 +22,12 @@ class HorovodInternalError(HorovodTpuError):
     execution raised. Raised at ``synchronize``."""
 
 
+class TensorShapeMismatchError(HorovodTpuError):
+    """The ranks submitted one collective with shapes that do not agree.
+    Every rank of the collective gets it, where the collective would
+    otherwise hang (``ops/eager._check_same_shape``)."""
+
+
 class DuplicateTensorNameError(HorovodTpuError):
     """A tensor name was submitted again before its first submission
     completed (the tensor queue's duplicate-name rejection)."""

@@ -18,6 +18,14 @@ It runs under a file lock (processes that start together build once) and
 renames the library into place. Nothing is built when the module is
 imported. A failed build or load raises: there is no quiet fallback, and
 only ``HOROVOD_NATIVE=0`` turns the core off.
+
+``HOROVOD_NATIVE_SANITIZE=tsan`` or ``asan`` (``config.native_sanitize``)
+builds and loads an instrumented variant beside the production library,
+``libhvdcore-<hash>-{tsan,asan}.so`` (``-O1 -g`` and
+``-fsanitize=thread`` or ``-fsanitize=address,undefined``; the hash
+covers those flags). Its sanitizer's runtime must be in the process
+before it loads: ``LD_PRELOAD=$(g++ -print-file-name=libtsan.so)`` (or
+``libasan.so``); a variant that does not load raises with that recipe.
 """
 
 from __future__ import annotations
@@ -51,6 +59,13 @@ SOURCES = ("message.cc", "tensor_queue.cc", "socket.cc", "controller.cc",
            "shm_transport.cc", "stripe_transport.cc", "ring_ops.cc",
            "metrics.cc", "operations.cc")
 CXXFLAGS = ["-O2", "-std=c++17", "-fPIC", "-pthread"]
+# The sanitizer variants' flags, -O1 -g in place of -O2: enough
+# optimization to keep timings realistic, full line info for the reports.
+SANITIZE_FLAGS = {
+    san: ["-O1", "-g", *CXXFLAGS[1:], f"-fsanitize={what}"]
+    for san, what in (("tsan", "thread"), ("asan", "address,undefined"))}
+# The runtime each variant needs loaded first (LD_PRELOAD).
+SANITIZE_RUNTIME = {"tsan": "libtsan.so", "asan": "libasan.so"}
 # librt: shm_open/shm_unlink live there on pre-2.34 glibc.
 LDLIBS = ["-lrt"]
 
@@ -62,16 +77,32 @@ def source_paths() -> List[Path]:
             + sorted(CSRC_DIR.glob("*.h")))
 
 
-def library_path() -> Path:
+def _sanitize(sanitize: Optional[str]) -> str:
+    return _config.native_sanitize() if sanitize is None else sanitize
+
+
+def cxxflags(sanitize: Optional[str] = None) -> List[str]:
+    """The compiler's flags for the production library ("") or a
+    sanitizer variant ("tsan", "asan"; None reads
+    ``HOROVOD_NATIVE_SANITIZE``)."""
+    san = _sanitize(sanitize)
+    return SANITIZE_FLAGS[san] if san else CXXFLAGS
+
+
+def library_path(sanitize: Optional[str] = None) -> Path:
     """Where the library lives: named by a hash of every source and
-    header (names and bytes), the flags and the toolchain."""
+    header (names and bytes), the flags and the toolchain, with the
+    sanitizer's name after it for a variant (``sanitize`` as in
+    ``cxxflags``)."""
+    san = _sanitize(sanitize)
     digest = hashlib.sha256()
     for path in source_paths():
         digest.update(path.name.encode())
         digest.update(path.read_bytes())
-    digest.update(" ".join(CXXFLAGS + LDLIBS).encode())
+    digest.update(" ".join(cxxflags(san) + LDLIBS).encode())
     digest.update(_toolchain().encode())
-    return BUILD_DIR / f"libhvdcore-{digest.hexdigest()[:16]}.so"
+    suffix = f"-{san}" if san else ""
+    return BUILD_DIR / f"libhvdcore-{digest.hexdigest()[:16]}{suffix}.so"
 
 
 def _compiler() -> str:
@@ -93,10 +124,13 @@ def _toolchain() -> str:
                       " ".join(platform.libc_ver())])
 
 
-def build() -> Path:
-    """Build the library unless it exists; returns its path. Raises with
-    the compiler's output when a step fails."""
-    out = library_path()
+def build(sanitize: Optional[str] = None) -> Path:
+    """Build the library unless it exists; returns its path. ``sanitize``
+    as in ``cxxflags``: a variant is built beside the production library
+    under its own name. Raises with the compiler's output when a step
+    fails."""
+    flags = cxxflags(sanitize)
+    out = library_path(sanitize)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -109,18 +143,19 @@ def build() -> Path:
             cxx = _compiler()
             objs = [tmp / (name[:-3] + ".o") for name in SOURCES]
             procs = [subprocess.Popen(
-                [cxx, *CXXFLAGS, "-c", str(CSRC_DIR / name), "-o", str(obj)],
+                [cxx, *flags, "-c", str(CSRC_DIR / name), "-o", str(obj)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
                 for name, obj in zip(SOURCES, objs)]
             logs = [p.communicate()[0] for p in procs]
             failed = [f"{name}:\n{log}" for name, p, log
                       in zip(SOURCES, procs, logs) if p.returncode != 0]
             if failed:
-                raise RuntimeError("native core build failed:\n"
+                raise RuntimeError(f"native core build failed "
+                                   f"({' '.join(flags)}):\n"
                                    + "\n".join(failed))
             lib = tmp / out.name
             link = subprocess.run(
-                [cxx, *CXXFLAGS, "-shared", "-o", str(lib),
+                [cxx, *flags, "-shared", "-o", str(lib),
                  *map(str, objs), *LDLIBS],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
             if link.returncode != 0:
@@ -129,6 +164,77 @@ def build() -> Path:
             os.replace(lib, out)
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+# The sanitizer stress harness of the core (its phases are in the
+# source's header). Built only by ``build_stress_harness``, which the
+# tests and chip_smoke.py call.
+STRESS_SOURCE = PACKAGE_DIR / "csrc" / "testing" / "stress_core.cc"
+
+
+# A minimal, correct concurrent program: a report on it means the
+# sanitizer's runtime is unsound on this host (an older libtsan without
+# the pthread_cond_clockwait interceptor reports races on correct mutex
+# code), so no harness run there can be trusted.
+SANITIZE_PROBE = r"""
+#include <atomic>
+#include <cstdio>
+#include <mutex>
+#include <thread>
+#include <vector>
+std::mutex mu; long counter = 0; std::atomic<bool> stop{false};
+void work(int n) { for (int i = 0; i < n; ++i) { std::lock_guard<std::mutex> lk(mu); ++counter; } }
+void poll() { while (!stop.load()) { std::lock_guard<std::mutex> lk(mu); (void)counter; } }
+int main() {
+  std::thread p(poll);
+  std::vector<std::thread> ts;
+  for (int t = 0; t < 3; ++t) ts.emplace_back(work, 20000);
+  for (auto& t : ts) t.join();
+  stop.store(true); p.join();
+  std::puts("PROBE_OK");
+  return counter == 60000 ? 0 : 1;
+}
+"""
+
+
+def probe_sanitizer(sanitize: str, out_dir) -> str:
+    """"" when the ``sanitize`` variant can be trusted on this host: the
+    compiler builds ``SANITIZE_PROBE`` with the variant's flags and it
+    runs without a report; else why not."""
+    src = Path(out_dir) / "sanitize_probe.cc"
+    src.write_text(SANITIZE_PROBE)
+    exe = Path(out_dir) / f"sanitize_probe_{sanitize}"
+    try:
+        r = subprocess.run([_compiler(), *SANITIZE_FLAGS[sanitize],
+                            str(src), "-o", str(exe)], capture_output=True,
+                           text=True, timeout=300)
+    except OSError as e:
+        return f"no compiler: {e}"
+    if r.returncode != 0:
+        return f"{_compiler()} {SANITIZE_FLAGS[sanitize][-1]} does not " \
+               f"build: {r.stderr.strip()[-300:]}"
+    r = subprocess.run([str(exe)], capture_output=True, text=True,
+                       timeout=300)
+    if r.returncode != 0 or "Sanitizer" in r.stderr:
+        return f"the runtime reports on a correct program: " \
+               f"{r.stderr.strip()[-300:]}"
+    return ""
+
+
+def build_stress_harness(sanitize: str, out_dir) -> Path:
+    """Build the stress harness against the ``sanitize`` variant of the
+    core ("" the production core; built first) into ``out_dir``, with
+    the variant's flags; returns the binary. Raises with the compiler's
+    output when the build fails."""
+    lib = build(sanitize)
+    out = Path(out_dir) / f"stress_core_{sanitize or 'production'}"
+    r = subprocess.run(
+        [_compiler(), *cxxflags(sanitize), str(STRESS_SOURCE),
+         str(lib), *LDLIBS, "-o", str(out)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if r.returncode != 0:
+        raise RuntimeError(f"stress harness build failed:\n{r.stdout}")
     return out
 
 
@@ -203,8 +309,38 @@ def load_library():
     if _lib is None:
         with _load_lock:
             if _lib is None:
-                _bind_prototypes(ctypes.CDLL(str(build())))
+                _bind_prototypes(_open(_config.native_sanitize()))
     return _lib
+
+
+def _runtime_loaded(sanitize: str) -> bool:
+    """Whether the variant's sanitizer runtime is mapped in this process
+    (``/proc/self/maps``)."""
+    name = "/" + SANITIZE_RUNTIME[sanitize]
+    with open("/proc/self/maps") as f:
+        return any(name in line for line in f)
+
+
+def _open(sanitize: str):
+    """``ctypes.CDLL`` of the library (built first). A sanitizer variant
+    whose runtime the process lacks raises with the recipe before it is
+    built or loaded: ASan's runtime would end the process at the load,
+    and TSan's would not find its static TLS."""
+    if sanitize and not _runtime_loaded(sanitize):
+        why = f"{SANITIZE_RUNTIME[sanitize]} is not loaded in this process"
+    else:
+        try:
+            return ctypes.CDLL(str(build(sanitize)))
+        except OSError as e:
+            if not sanitize:
+                raise
+            why = str(e)
+    raise RuntimeError(
+        f"native core: the {sanitize} library "
+        f"{library_path(sanitize).name} does not load "
+        f"({why}); its sanitizer's runtime must be loaded first: run the "
+        f"process with LD_PRELOAD=$(g++ "
+        f"-print-file-name={SANITIZE_RUNTIME[sanitize]})")
 
 
 def _bind_prototypes(lib):

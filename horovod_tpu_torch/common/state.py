@@ -31,10 +31,12 @@ groups turns its failure into that error through ``direct_collective``.
 from __future__ import annotations
 
 import contextlib
+import faulthandler
 import gc
 import importlib
 import os
 import socket
+import sys
 import threading
 import time
 from typing import Optional
@@ -60,6 +62,7 @@ class _GlobalState:
         self.local_rank = 0
         self.cross_size = 0
         self.cross_rank = 0
+        self.is_homogeneous = True  # every host holds as many ranks
         self.axis_sizes = None   # {"dp", "pp", "sp", "tp"} sizes
         self.groups = None       # name -> this rank's AxisGroup
         self.engine = None       # the eager engine (ops/eager.py)
@@ -85,9 +88,14 @@ WATCH_PERIOD_S = 0.01
 # Seconds a failed direct collective waits for the core's verdict: the
 # communicator may see a dead peer a cycle before the core does.
 VERDICT_WAIT_S = 2.0
-# Seconds a rank that found its world lost waits for the watch's abort
-# to return before it raises.
-ABORT_WAIT_S = 60.0
+# Seconds each group's abort may take. Past it the watch names every
+# group whose abort is still out in the log, dumps the Python stacks
+# once (faulthandler), and lets ``check_world`` raise.
+ABORT_GROUP_BOUND_S = 5.0
+# Seconds a rank that found its world lost waits for the watch's abort:
+# the group bound and slack for the watch's own thread. ``check_world``
+# raises within this of the core's verdict.
+ABORT_WAIT_S = ABORT_GROUP_BOUND_S + 5.0
 
 
 class _CoreWatch:
@@ -201,6 +209,49 @@ def _close_store():
             pass
 
 
+# Each group's abort in the last lost world (``abort_report``); kept
+# across ``shutdown``, which resets the rest of the state.
+_abort_log: list = []
+
+
+def abort_report() -> list:
+    """Each group's abort in the last world this process lost: its
+    ``name``, ``backend``, ``desc`` (torch's group description) and
+    ``ranks`` (global), and ``seconds`` from the abort's start to its
+    return, or None while it is still out."""
+    return [{"name": a["name"], "backend": a["backend"], "desc": a["desc"],
+             "ranks": a["ranks"],
+             "seconds": None if a["end"] is None else a["end"] - a["start"]}
+            for a in _abort_log]
+
+
+def _label(a) -> str:
+    desc = "" if a["desc"] in ("", "undefined") else f", {a['desc']}"
+    return f"{a['name']!r} (ranks {a['ranks']}, {a['backend']}{desc})"
+
+
+def _forget_groups(c10d) -> None:
+    """Take every group out of torch's tables without aborting it again:
+    what ``c10d._abort_process_group()`` does after its own aborts. A
+    step that takes over a second is logged: dropping the last reference
+    to an aborted NCCL group runs its destructor, which waits for torch's
+    own threads (59.4 s once on an H100)."""
+    world = c10d._world
+    steps = [("the default group", lambda: c10d._update_default_pg(None))]
+    steps += [(f"torch's {name}", getattr(world, name).clear)
+              for name in ("pg_map", "pg_names", "pg_group_ranks",
+                           "pg_backend_config", "pg_to_tag", "tags_to_pg",
+                           "pg_coalesce_state")]
+    steps.append(("the registry", c10d._unregister_all_process_groups))
+    for name, step in steps:
+        t0 = time.monotonic()
+        step()
+        if time.monotonic() - t0 > 1.0:
+            _log.warning(f"dropping the lost world's groups: {name} took "
+                         f"{time.monotonic() - t0:.1f} s")
+    world.group_count = 0
+
+
 def _on_world_lost():
     if _state.world_lost:
         return
@@ -211,26 +262,56 @@ def _on_world_lost():
     # Every group of the process, so that a kernel waiting for the dead
     # peer returns (a gloo group raises by itself when a peer's connection
     # drops; aborting it does nothing). Each group's abort runs on a
-    # thread of its own, so that no group's abort waits for another's:
-    # torch's one call for every group never returned on an H100 when
-    # the kernel that waited for the peer was the world group's. Then the
-    # groups leave torch's tables.
+    # thread of its own, so that no group's abort waits for another's,
+    # and is timed and bounded (``ABORT_GROUP_BOUND_S``). Then the groups
+    # leave torch's tables without torch's one call for every group
+    # (``c10d._abort_process_group()``): it aborts every group again, and
+    # on an H100 it once never returned when the world group's kernel
+    # waited for the peer.
     from torch.distributed import distributed_c10d as c10d
 
-    def abort(pg):
+    def abort(pg, rec):
         try:
             pg.abort()
         except RuntimeError as e:
-            _log.warning(f"aborting a group of the world failed: {e}")
+            _log.warning(f"aborting group {rec['name']!r} failed: {e}")
+        finally:
+            rec["end"] = time.monotonic()
 
     try:
-        aborts = [threading.Thread(target=abort, args=(pg,), daemon=True)
-                  for pg in list(c10d._world.pg_map)]
-        for t in aborts:
-            t.start()
-        for t in aborts:
-            t.join()
-        c10d._abort_process_group()
+        _abort_log.clear()
+        threads = []
+        for pg in list(c10d._world.pg_map):
+            rec = {"name": c10d._world.pg_names.get(pg, "?"),
+                   "backend": str(c10d._world.pg_map[pg][0]),
+                   "desc": getattr(pg, "group_desc", "") or "",
+                   "ranks": sorted(c10d._world.pg_group_ranks.get(pg, {})),
+                   "start": time.monotonic(), "end": None}
+            _abort_log.append(rec)
+            threads.append(threading.Thread(
+                target=abort, args=(pg, rec), daemon=True,
+                name=f"hvd-abort-{rec['name']}"))
+            threads[-1].start()
+        deadline = time.monotonic() + ABORT_GROUP_BOUND_S
+        for t in threads:
+            t.join(max(0.0, deadline - time.monotonic()))
+        _log.warning("the world's aborts: " + ", ".join(
+            f"{_label(a)} " + ("still out" if a["seconds"] is None
+                               else f"{a['seconds']:.3f} s")
+            for a in abort_report()))
+        out = [(rec, t) for rec, t in zip(_abort_log, threads)
+               if t.is_alive()]
+        if out:
+            for rec, t in out:
+                _log.warning(
+                    f"the abort of group {_label(rec)} did not return "
+                    f"within {ABORT_GROUP_BOUND_S} s (thread {t.ident:#x})")
+            faulthandler.dump_traceback(file=sys.stderr, all_threads=True)
+        # The raise need not wait for the groups to leave torch's tables;
+        # a re-init does, through ``shutdown``, which joins this thread
+        # (the old world's store, and so its port, goes with them).
+        _state.aborted.set()
+        _forget_groups(c10d)
     except (RuntimeError, ValueError) as e:
         _log.warning(f"aborting the world's groups failed: {e}")
     finally:
@@ -242,7 +323,9 @@ def check_world() -> None:
     watch's abort has returned: a kernel of the world's groups that
     waited for the dead peer has then ended, so what the caller does
     next on the card (the retry loop's restore) does not queue behind
-    one."""
+    one. A group whose abort does not return holds it
+    ``ABORT_GROUP_BOUND_S`` at most: the raise comes within
+    ``ABORT_WAIT_S`` of the core's verdict."""
     if _state.world_lost:
         if not _state.aborted.wait(ABORT_WAIT_S):
             _log.warning(f"the world's abort did not return within "
@@ -434,9 +517,12 @@ def init(device=None, sp: int = 1, tp: int = 1, pp: int = 1, comm=None):
                 max(1, _state.size // max(1, local_size)))
             _state.cross_rank = _config.cross_rank(
                 _state.rank // max(1, local_size))
+            # Hosts of different sizes get no local and cross groups, on
+            # every rank alike.
+            _state.is_homogeneous = _homogeneous(local_size, dev)
             _state.axis_sizes, _state.groups = build_groups(
                 _state.size, _state.rank, sp=sp, tp=tp, pp=pp,
-                local_size=local_size)
+                local_size=local_size if _state.is_homogeneous else 0)
             try:
                 _state.engine = EagerEngine(_state)
             except BaseException:
@@ -456,6 +542,17 @@ def init(device=None, sp: int = 1, tp: int = 1, pp: int = 1, comm=None):
         if _state.config.autotune:
             _state.autotuner = _make_autotuner(_state.engine.native_core)
         _state.initialized = True
+
+
+def _homogeneous(local_size: int, dev: torch.device) -> bool:
+    """Whether every host of the world holds the same number of ranks:
+    each rank's local size, gathered over the world group."""
+    if dist.get_world_size() == 1:
+        return True
+    mine = torch.tensor([local_size], dtype=torch.int64, device=dev)
+    every = [torch.empty_like(mine) for _ in range(dist.get_world_size())]
+    dist.all_gather(every, mine)
+    return len({int(t) for t in every}) == 1
 
 
 def _make_autotuner(core):
@@ -534,7 +631,7 @@ def shutdown():
     """Tear down the runtime: stops the watch, then the eager engine (its
     metrics pump, its native core, then its executor), closes the
     timeline, then destroys the process group if ``init`` made it (a
-    world that lost a rank is aborted instead)."""
+    world that lost a rank was aborted instead)."""
     with _state.lock:
         if not _state.initialized:
             return
@@ -548,9 +645,10 @@ def shutdown():
                 _state.timeline.close()
             if _state.owns_group and dist.is_initialized():
                 if _state.world_lost:
+                    # The watch aborted each group already.
                     from torch.distributed import distributed_c10d as c10d
 
-                    c10d._abort_process_group()
+                    _forget_groups(c10d)
                 else:
                     dist.destroy_process_group()
             _state.reset()
@@ -616,6 +714,12 @@ def cross_size() -> int:
 
 def cross_rank() -> int:
     return _require_init("cross_rank").cross_rank
+
+
+def is_homogeneous() -> bool:
+    """Whether every host holds the same number of ranks (the local
+    sizes of the world ``init`` formed)."""
+    return _require_init("is_homogeneous").is_homogeneous
 
 
 def device() -> torch.device:

@@ -70,7 +70,8 @@ from ..common import metrics as _metrics
 from ..common import native as _native
 from ..common import timeline as _timeline
 from ..common.compression import resolve_compression
-from ..common.exceptions import DuplicateTensorNameError, HorovodInternalError
+from ..common.exceptions import (DuplicateTensorNameError, HorovodInternalError,
+                                 TensorShapeMismatchError)
 from ..parallel.mesh import AxisGroup, host_ranks
 from . import collectives as _coll
 from .collectives import ReduceOp
@@ -156,11 +157,12 @@ class EagerEngine:
     def _make_hosts(self, backend):
         """The engine's own (local, cross) groups, so that a hierarchical
         response never runs on a communicator of the caller's thread; None
-        when the local size does not divide the world. Every rank makes
-        every group in the same order."""
+        when the local size does not divide the world or the hosts hold
+        different numbers of ranks. Every rank makes every group in the
+        same order."""
         st = self._state
         lines = host_ranks(st.size, st.local_size)
-        if lines is None:
+        if lines is None or not st.is_homogeneous:
             return None
         pair = []
         for groups in lines:
@@ -779,8 +781,8 @@ def _check_same_shape(kind, t, axis):
     if not bool((table == table[0]).all()):
         shapes = [tuple(int(d) for d in row[1:1 + int(row[0])])
                   for row in table.cpu()]
-        raise ValueError(f"Mismatched shapes submitted for {kind}: "
-                         f"{shapes} by rank")
+        raise TensorShapeMismatchError(
+            f"Mismatched shapes submitted for {kind}: {shapes} by rank")
 
 
 def _is_pow2(n: int) -> bool:

@@ -125,12 +125,14 @@ def build_groups(world_size: int, rank: int, sp: int = 1, tp: int = 1,
                  ) -> Tuple[Dict[str, int], Dict[str, AxisGroup]]:
     """Axis sizes (dp = world / (sp * tp * pp)) and this rank's group of
     each entry of ``GROUPS``, plus ``local`` and ``cross`` when
-    ``local_size`` divides the world. Collective: every rank of the world
+    ``local_size`` divides the world (None: one host; 0: no host groups,
+    for a world whose hosts hold different numbers of ranks). Collective: every rank of the world
     calls it, and creates every group in the same order, members or not."""
     sizes = factor_devices(world_size, tp=tp, pp=pp, sp=sp)
     sizes = {a: sizes[a] for a in AXES}   # the JAX mesh's axis order
     lines = {name: axis_ranks(sizes, axes) for name, axes in GROUPS.items()}
-    hosts = host_ranks(world_size, local_size or world_size)
+    hosts = host_ranks(world_size,
+                       world_size if local_size is None else local_size)
     if hosts is not None:
         lines["local"], lines["cross"] = hosts
     groups = {}

@@ -30,6 +30,8 @@ and ``kill_and_respawn`` runs its own ``--elastic-worker`` on gloo: the
 SIGKILLed rank's peer raises within ``KILL_BOUND_S`` and the respawned
 rank rejoins and ends with rank 0's parameters.
 
+Phase (o) runs whole on the CPU (``CHIP_SMOKE_DEVICE=cpu``), ~10 s.
+
 Phase (m)'s: where TensorFlow or Keras is not installed it prints one
 line and starts nothing; where both are (here), the whole phase runs on
 the CPU (``CHIP_SMOKE_DEVICE=cpu``: staging on gloo), a rehearsal of
@@ -451,3 +453,24 @@ def test_spark_mxnet_phase_on_the_cpu(monkeypatch, capsys):
     assert "the raising function: reported" in out
     assert "registered after its driver gave up: refused" in out
     assert "(n) mxnet: not installed" in out
+
+
+def test_core_phase_on_the_cpu(monkeypatch, capsys):
+    """Phase (o) on the CPU (``CHIP_SMOKE_DEVICE=cpu``: staging and the
+    binding's groups on gloo): the probe line, the healed cut with its
+    counters and verdicts, every survivor's raise with each group's abort
+    seconds, and the stress harness (under TSan here)."""
+    monkeypatch.setenv("CHIP_SMOKE_DEVICE", "cpu")
+    _chip_smoke().core_phase("cpu")
+    out = capsys.readouterr().out
+    assert "(o) probe: " in out and "TSan sound" in out, out
+    for rank, reconnects in ((0, 1), (1, 0), (2, 1), (3, 0)):
+        assert (f"heal rank {rank}: allreduces bitwise the closed form "
+                f"[True, True, True, True, True, True, True, True]") in out
+        assert f"link.reconnects {reconnects}, stale epochs 0" in out
+    assert out.count("world_lost False") == 4, out
+    for rank in (0, 2, 3):
+        assert f"lost member: rank {rank} raised HorovodInternalError" in out
+    assert "group aborts 0 [0, 1, 2, 3] (gloo)" in out, out
+    assert "stress harness (TSan): exit 0, 0 TSan reports" in out, out
+    assert "STRESS_OK" in out

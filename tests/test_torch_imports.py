@@ -13,6 +13,7 @@ branch, and a port module that imported any of them fails. The entry points defa
 raise when no GPU is there, unless the caller passes ``device="cpu"``.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -25,7 +26,21 @@ import torch_worlds
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PURITY = torch_worlds.REFUSE_JAX + r"""
-import importlib, os, pkgutil
+import importlib, os, pkgutil, subprocess
+
+# No import builds anything: the native core, the kernels and the
+# sanitizer stress harness (csrc/testing) are built by calls only.
+_popen = subprocess.Popen.__init__
+
+
+def _no_compiler(self, args, *a, **k):
+    argv = [args] if isinstance(args, (str, bytes)) else list(args)
+    tool = os.path.basename(str(argv[0])) if argv else ""
+    assert not tool.endswith(("g++", "gcc", "nvcc", "c++", "clang++")), argv
+    _popen(self, args, *a, **k)
+
+
+subprocess.Popen.__init__ = _no_compiler
 
 
 def walk(path, prefix):
@@ -104,6 +119,8 @@ bad = sorted(m for m in sys.modules if m.split(".")[0] in (
     "jax", "jaxlib", "horovod_tpu"))
 print(len(names), bad)
 assert not bad, bad
+assert os.path.isfile(os.path.join(horovod_tpu_torch.__path__[0], "csrc",
+                                   "testing", "stress_core.cc"))
 """
 
 
@@ -237,3 +254,98 @@ def test_bench_runs_on_the_cpu_when_asked(capsys):
     assert line["mesh"] == {"dp": 1, "pp": 1, "sp": 1, "tp": 1}
     assert set(line) >= {"metric", "value", "unit", "device_kind", "n_params",
                          "n_matmul_params", "loss", "step_ms"}
+
+
+def _by_design():
+    """The public names of ``horovod_tpu`` that ROADMAP.md lists as not
+    ported by design (the backticked names of its "Public names" line)."""
+    import re
+
+    with open(os.path.join(REPO, "ROADMAP.md")) as f:
+        text = f.read()
+    line = re.search(r"^Public names of `horovod_tpu` not in.*?(?=\n\n)",
+                     text, re.M | re.S).group(0)
+    return {m.group(1) for m in re.finditer(r"`(\w+)` \(", line)}
+
+
+def _public_names(package):
+    """The public names a fresh import of ``package`` gives (a process
+    that imported submodules since has them as attributes too)."""
+    code = (f"import json, {package}; print(json.dumps(sorted(n for n in "
+            f"dir({package}) if not n.startswith('_'))))")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    return set(json.loads(proc.stdout.splitlines()[-1]))
+
+
+def test_every_public_name_of_the_jax_package_is_ported_or_listed():
+    listed = _by_design()
+    assert listed == {"mesh", "hierarchical_mesh", "xla", "xla_built",
+                      "tpu_available"}, listed
+    reference = _public_names("horovod_tpu")
+    port = _public_names("horovod_tpu_torch")
+    assert reference - port == listed, sorted(reference - port - listed)
+    assert not listed & port, listed & port
+
+
+def test_the_added_public_names_answer():
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import torch as binding
+    from horovod_tpu_torch.common import exceptions
+
+    for name in ("nccl_built", "gloo_built", "mpi_built", "mpi_enabled",
+                 "mpi_threads_supported", "ccl_built", "ddl_built",
+                 "gloo_enabled"):
+        assert getattr(hvd, name)() == getattr(binding, name)(), name
+    assert hvd.gloo_built() == torch.distributed.is_gloo_available()
+    assert hvd.nccl_built() == torch.distributed.is_nccl_available()
+    assert not hvd.mpi_built() and not hvd.gloo_enabled()
+    assert hvd.HostsUpdatedInterrupt is exceptions.HostsUpdatedInterrupt
+    assert issubclass(exceptions.TensorShapeMismatchError,
+                      exceptions.HorovodTpuError)
+    assert hvd.version.__version__ == hvd.__version__
+    assert hvd.elastic.run is not None
+    with pytest.raises(hvd.NotInitializedError):
+        hvd.is_homogeneous()
+
+
+_HOMOGENEOUS = torch_worlds.REFUSE_JAX + r"""
+import sys
+sys.path.insert(0, sys.argv[1])
+import horovod_tpu_torch as hvd
+hvd.init(device="cpu")
+print("HOMOGENEOUS", hvd.rank(), hvd.is_homogeneous(), flush=True)
+hvd.shutdown()
+"""
+
+
+@pytest.mark.parametrize("local_sizes,want", [((1, 1), True),
+                                              ((2, 2, 1), False)])
+def test_is_homogeneous_reads_the_world(local_sizes, want):
+    """Every rank reads the same answer: whether every host holds as many
+    ranks (two hosts of one; a host of two beside a host of one)."""
+    from horovod_tpu_torch.common.config import free_port_pair
+
+    port = free_port_pair()
+    size = len(local_sizes)
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _HOMOGENEOUS, REPO], cwd=REPO,
+        env=dict(os.environ, HOROVOD_RANK=str(r), HOROVOD_SIZE=str(size),
+                 HOROVOD_LOCAL_RANK=str(r % 2 if ls == 2 else 0),
+                 HOROVOD_LOCAL_SIZE=str(ls),
+                 HOROVOD_CONTROLLER_ADDR="127.0.0.1",
+                 HOROVOD_CONTROLLER_PORT=str(port), OMP_NUM_THREADS="1"),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r, ls in enumerate(local_sizes)]
+    try:
+        outs = [p.communicate(timeout=120)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, out
+        assert f"HOMOGENEOUS {r} {want}" in out, out
