@@ -173,8 +173,11 @@ failure exits nonzero:
     SIGKILLed inside its 64 MiB allreduces, and between the batches of a
     model of ``SyncBatchNorm`` (direct all-reduces only), rank 0 raising
     within ``KILL_BOUND_S`` (the seconds printed), rank 1 respawned with
-    its rank, both ending with rank 0's parameters; each kill run prints
-    each group's abort seconds (``state.abort_report``). Last the example
+    its rank, the re-formed world committing its first batch within
+    ``REFORM_BOUND_S`` of the kill (the seconds printed), both ending
+    with rank 0's parameters; each kill run prints each group's abort
+    seconds (``state.abort_report``) and the lost world's teardown, off
+    the re-init's path (``state.teardown_report``). Last the example
     at one rank, full size (img/s a device). No kernel of the port runs
     here.
 (l) the launcher and the elastic driver, ``python -m
@@ -238,7 +241,9 @@ failure exits nonzero:
     16 MiB allreduces: every survivor raises ``HorovodInternalError``
     within ``KILL_BOUND_S``, printed with each group's abort seconds.
     Then the harness, under TSan where it was built (zero reports),
-    else on the production core. No kernel of the port runs here.
+    else on the production core; its ``departure`` phase (a rank that
+    dies after its frame in the cycle of another rank's departure) must
+    end all 9 rounds on LOST. No kernel of the port runs here.
 (d) the kernel table as one JSON line, the card's name and power limit,
     and last the result line ``{"ok": true, "device": {...}}``.
 """
@@ -3027,6 +3032,13 @@ BINDING_TIMEOUT_S = 360
 # its peer's SIGKILL (the native core's closed connection, then the
 # communicators' abort); past it the phase fails as a hang.
 KILL_BOUND_S = 30.0
+# (k): the survivor commits its first batch in the re-formed world (the
+# respawned rank 1 beside it) within this many seconds of the kill; past
+# it the phase fails. The slowest of 22 kill runs on an NVIDIA H100 80GB
+# HBM3 at 700 W (25.08 s, 11 of them between SyncBatchNorm batches;
+# PERF.md) x 1.5, below the 59.4 s that torch's destructor of a lost
+# world's NCCL group once took on its own.
+REFORM_BOUND_S = 37.6
 KILL_LOG_TAIL = 40      # lines of each worker's log on stderr when (k)(2) fails
 ELASTIC_FAULT = "xla.exec:rank=1:step=3"
 ELASTIC_BATCHES = 8     # (k)(1): committed batches of the small model
@@ -3376,8 +3388,10 @@ def elastic_worker(out_path):
     ``SyncBatchNorm`` under a plain optimizer, whose only collectives are
     the batch norms' direct all-reduces (the same data on every rank).
     Rank 1 marks batch ``KILL_READY`` (``ready``); rank 0 writes the time
-    it raised ``HorovodInternalError`` (``raised``). The device is
-    ``CHIP_SMOKE_DEVICE`` (cuda:0 by default)."""
+    it raised ``HorovodInternalError`` (``raised``), and each rank the
+    time of its first batch committed in the re-formed world
+    (``reformed``). The device is ``CHIP_SMOKE_DEVICE`` (cuda:0 by
+    default)."""
     import faulthandler
     import signal
     import traceback
@@ -3428,6 +3442,9 @@ def elastic_worker(out_path):
                     hvd.allreduce(big, name=f"big.{state.batch}")
                 state.batch += 1
                 state.commit()
+                mark = tmp / f"reformed.{rank}"
+                if (resets or respawned) and not mark.exists():
+                    mark.write_text(repr(time.time()))
             except hvd.HorovodInternalError as e:
                 resets.append(state.batch)
                 raised_in.append(sorted({
@@ -3445,18 +3462,22 @@ def elastic_worker(out_path):
     out = {"rank": rank, "batches": batches, "respawned": respawned,
            "resets": resets, "raised_in": raised_in,
            "digest": tensor_digest(list(model.parameters())),
-           "aborts": hstate.abort_report()}
+           "aborts": hstate.abort_report(),
+           "teardown": hstate.teardown_report()}
     hvd.shutdown()
     Path(out_path).write_text(json.dumps(out))
     return 0
 
 
-def kill_and_respawn(n, env, timeout_s, bound_s=KILL_BOUND_S):
+def kill_and_respawn(n, env, timeout_s, bound_s=KILL_BOUND_S,
+                     reform_bound_s=REFORM_BOUND_S):
     """(k)(2)'s driver: ``n`` ``--elastic-worker`` ranks; once rank 1
     marks ``ready``, SIGKILL it and time rank 0's ``raised`` mark (a
     failure past ``bound_s``: the survivor hung), then start rank 1 again
-    with the same rank. Returns (seconds from the kill to the raise, each
-    rank's result). Every process is stopped before it returns."""
+    with the same rank and time rank 0's ``reformed`` mark (a failure past
+    ``reform_bound_s`` from the kill). Returns (seconds from the kill to
+    the raise, from the kill to the re-formed world, each rank's result).
+    Every process is stopped before it returns."""
     import signal
 
     from horovod_tpu_torch.common.config import free_port_pair
@@ -3511,6 +3532,11 @@ def kill_and_respawn(n, env, timeout_s, bound_s=KILL_BOUND_S):
                  procs[:1])
         kill_to_raise = float((tmp / "raised.0").read_text()) - t_kill
         procs[1] = spawn(1, {"CHIP_SMOKE_RESPAWNED": "1"})
+        wait_for(tmp / "reformed.0",
+                 time.perf_counter() + reform_bound_s - (time.time() - t_kill),
+                 f"the world to re-form within {reform_bound_s} s of the "
+                 f"kill", procs)
+        kill_to_reform = float((tmp / "reformed.0").read_text()) - t_kill
         for p in procs:
             try:
                 p.wait(timeout=max(1.0,
@@ -3539,7 +3565,7 @@ def kill_and_respawn(n, env, timeout_s, bound_s=KILL_BOUND_S):
         raise AssertionError(f"(k) elastic workers exited {codes}")
     res = [json.loads((tmp / f"rank{r}.json").read_text()) for r in range(n)]
     shutil.rmtree(tmp, ignore_errors=True)
-    return kill_to_raise, res
+    return kill_to_raise, kill_to_reform, res
 
 
 def binding_phase(gpu):
@@ -3608,17 +3634,21 @@ def binding_phase(gpu):
                         ("between SyncBatchNorm batches",
                          {"CHIP_SMOKE_KILL_SYNC_BN": "1"})):
         t1 = time.perf_counter()
-        kill_to_raise, kres = kill_and_respawn(
+        kill_to_raise, kill_to_reform, kres = kill_and_respawn(
             BINDING, dict(kill_env, **extra), BINDING_TIMEOUT_S)
         log(f"    SIGKILL of rank 1 {what}: rank 0 raised "
             f"HorovodInternalError {kill_to_raise:.3f} s after it (bound "
-            f"{KILL_BOUND_S} s); the respawned rank 1 rejoined; "
+            f"{KILL_BOUND_S} s); the respawned rank 1 rejoined and the "
+            f"re-formed world committed a batch {kill_to_reform:.3f} s "
+            f"after the kill (bound {REFORM_BOUND_S} s); "
             f"{time.perf_counter() - t1:.1f} s in all on {gpu}")
         for r in kres:
             log(f"    rank {r['rank']} (respawned {r['respawned']}): "
                 f"{r['batches']} batches, reset at {r['resets']} (raised "
                 f"through {r['raised_in']}), parameters {r['digest'][:12]}; "
-                f"group aborts {abort_text(r['aborts'])}")
+                f"group aborts {abort_text(r['aborts'])}; the lost world's "
+                f"teardown, off the re-init's path, "
+                f"{abort_text(r['teardown'])}")
         if not (kres[0]["resets"] and kres[1]["respawned"] and
                 kres[0]["batches"] == kres[1]["batches"] == KILL_TARGET and
                 kres[0]["digest"] == kres[1]["digest"]):
@@ -4652,8 +4682,8 @@ def lost_worker(out_path):
 
 
 def abort_text(aborts):
-    """Each group's abort of a lost world (``state.abort_report``) on one
-    line."""
+    """Each group's abort of a lost world (``state.abort_report``), or its
+    teardown (``state.teardown_report``), on one line."""
     return ", ".join(f"{a['name']} {a['ranks']} ({a['backend']}) "
                      + ("still out" if a["seconds"] is None
                         else f"{a['seconds']:.3f} s")
@@ -4743,13 +4773,15 @@ def core_phase(gpu):
                        env=dict(os.environ, TSAN_OPTIONS=TSAN_OPTIONS))
     report = r.stdout + r.stderr
     lines = [x for x in r.stdout.splitlines()
-             if x.startswith(("LIVENESS", "WORLDLOST", "STRESS_OK"))]
+             if x.startswith(("LIVENESS", "WORLDLOST", "DEPARTURE",
+                              "STRESS_OK"))]
     log(f"    stress harness ({'production core' if why else 'TSan'}): "
         f"exit {r.returncode}, {report.count('WARNING: ThreadSanitizer')} "
         f"TSan reports, {time.perf_counter() - t1:.2f} s; "
         f"{'; '.join(lines)}")
     if r.returncode != 0 or "STRESS_OK" not in r.stdout or \
-            "WARNING: ThreadSanitizer" in report:
+            "WARNING: ThreadSanitizer" in report or \
+            "DEPARTURE lost 9 of 9 rounds" not in r.stdout:
         print(report[-4000:], file=sys.stderr, flush=True)
         raise AssertionError("(o) the stress harness failed")
     shutil.rmtree(tmp, ignore_errors=True)

@@ -26,13 +26,29 @@ _pylogging.addLevelName(5, "TRACE")
 _logger = None
 
 
+class _StderrHandler(_pylogging.StreamHandler):
+    """Writes each record to the ``sys.stderr`` of its moment.
+
+    A handler that kept the stream of its first use would go on writing to
+    whatever had replaced ``sys.stderr`` then (a test's capture, a
+    redirection since undone), and later records would never reach fd 2.
+    """
+
+    def __init__(self) -> None:
+        _pylogging.Handler.__init__(self)
+
+    @property
+    def stream(self):
+        return sys.stderr
+
+
 def get_logger() -> _pylogging.Logger:
     global _logger
     if _logger is None:
         _logger = _pylogging.getLogger("horovod_tpu_torch.log")
         level_name = _config.log_level_name()
         _logger.setLevel(_LEVELS.get(level_name, _pylogging.WARNING))
-        handler = _pylogging.StreamHandler(sys.stderr)
+        handler = _StderrHandler()
         hide_time = _config.log_hide_time()
         fmt = "[%(levelname)s] %(message)s" if hide_time else (
             "%(asctime)s [%(levelname)s] %(message)s"

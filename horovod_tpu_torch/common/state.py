@@ -26,10 +26,16 @@ communicators, and the collectives in flight and the next ones raise
 ``HorovodInternalError``, which the elastic retry loop answers with a
 restore and ``reinitialize()``. A direct collective of the world's
 groups turns its failure into that error through ``direct_collective``.
+The lost world's groups are torn down on a thread of their own after
+``shutdown`` (``_tear_down``): an aborted NCCL group's destructor can
+wait for torch's threads, and the re-formed world does not wait for it.
+Rank 0 keeps its store's server apart from the groups, so the new world
+listens on the same port while an old group is still alive.
 """
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import faulthandler
 import gc
@@ -71,7 +77,10 @@ class _GlobalState:
         self.watch = None        # _CoreWatch of a world init made
         self.world_lost = False  # a rank was lost; the groups are aborted
         self.aborted = threading.Event()  # set once that abort returned
-        self.store = None        # rank 0's TCPStore of a world init made
+        self.store = None        # rank 0's TCPStore server of a world
+        # The lost world's groups, out of torch's tables and still
+        # referenced, for ``_tear_down`` once ``shutdown`` is over.
+        self.lost_groups = []
 
     def reset(self):
         self.__init__()
@@ -96,6 +105,11 @@ ABORT_GROUP_BOUND_S = 5.0
 # the group bound and slack for the watch's own thread. ``check_world``
 # raises within this of the core's verdict.
 ABORT_WAIT_S = ABORT_GROUP_BOUND_S + 5.0
+# Seconds the teardown of a lost world's groups (``_tear_down``, on a
+# thread of its own after ``shutdown``) may take. Past it the log names
+# every group whose destructor is still running or that something
+# outside torch's tables still holds.
+TEARDOWN_BOUND_S = 5.0
 
 
 class _CoreWatch:
@@ -232,11 +246,19 @@ def _label(a) -> str:
 
 def _forget_groups(c10d) -> None:
     """Take every group out of torch's tables without aborting it again:
-    what ``c10d._abort_process_group()`` does after its own aborts. A
-    step that takes over a second is logged: dropping the last reference
-    to an aborted NCCL group runs its destructor, which waits for torch's
-    own threads (59.4 s once on an H100)."""
+    what ``c10d._abort_process_group()`` does after its own aborts. The
+    groups are not dropped here: the last reference to an aborted NCCL
+    group runs its destructor, which waits for torch's own threads (59.4
+    s once on an H100). They move, still referenced, to
+    ``lost_groups``, which ``shutdown`` hands to ``_tear_down``."""
     world = c10d._world
+    for pg in list(world.pg_map):
+        _state.lost_groups.append({
+            "box": [pg], "name": world.pg_names.get(pg, "?"),
+            "backend": str(world.pg_map[pg][0]),
+            "desc": getattr(pg, "group_desc", "") or "",
+            "ranks": sorted(world.pg_group_ranks.get(pg, {})),
+            "start": None, "end": None})
     steps = [("the default group", lambda: c10d._update_default_pg(None))]
     steps += [(f"torch's {name}", getattr(world, name).clear)
               for name in ("pg_map", "pg_names", "pg_group_ranks",
@@ -250,6 +272,92 @@ def _forget_groups(c10d) -> None:
             _log.warning(f"dropping the lost world's groups: {name} took "
                          f"{time.monotonic() - t0:.1f} s")
     world.group_count = 0
+
+
+# Each group's teardown after the last lost world (``teardown_report``);
+# kept across ``shutdown``.
+_teardown_log: list = []
+
+
+def teardown_report() -> list:
+    """Each group's teardown after the last world this process lost:
+    ``name``, ``backend``, ``desc``, ``ranks`` and ``seconds`` from the
+    drop of its last reference to its destructor's return, or None while
+    something else still holds it or its destructor still runs."""
+    return [{"name": a["name"], "backend": a["backend"], "desc": a["desc"],
+             "ranks": a["ranks"],
+             "seconds": None if a["end"] is None else a["end"] - a["start"]}
+            for a in _teardown_log]
+
+
+def _drop(rec) -> None:
+    rec["box"].clear()      # the last reference: the destructor runs here
+    rec["end"] = time.monotonic()
+
+
+def _tear_down(recs) -> None:
+    """Drop a lost world's groups, each on a thread of its own once the
+    reference in ``rec["box"]`` is the group's last (a reference held
+    elsewhere is waited out, so no destructor runs on the thread that
+    drops that one). Past ``TEARDOWN_BOUND_S`` the log names each group
+    not yet torn down, once."""
+    t0 = time.monotonic()
+    named = False
+    threads = {}
+    while any(rec["end"] is None for rec in recs):
+        for i, rec in enumerate(recs):
+            # The box's reference and getrefcount's argument: no other.
+            if i not in threads and sys.getrefcount(rec["box"][0]) <= 2:
+                rec["start"] = time.monotonic()
+                threads[i] = threading.Thread(
+                    target=_drop, args=(rec,), daemon=True,
+                    name=f"hvd-teardown-{rec['name']}")
+                threads[i].start()
+        if not named and time.monotonic() - t0 > TEARDOWN_BOUND_S:
+            named = True
+            for i, rec in enumerate(recs):
+                if rec["end"] is not None:
+                    continue
+                if i in threads:
+                    _log.warning(
+                        f"the teardown of lost group {_label(rec)} did not "
+                        f"end within {TEARDOWN_BOUND_S} s (thread "
+                        f"{threads[i].ident:#x})")
+                else:
+                    _log.warning(
+                        f"lost group {_label(rec)} is still held outside "
+                        f"torch's tables after {TEARDOWN_BOUND_S} s; its "
+                        f"teardown waits for that reference")
+        time.sleep(0.05 if not named else 0.5)
+    took = time.monotonic() - t0
+    if took > 1.0:
+        _log.warning(f"the lost world's groups were torn down in "
+                     f"{took:.1f} s, off the re-init's path")
+
+
+def _release_lost_groups(recs) -> None:
+    """Start ``_tear_down`` on ``recs`` on a daemon thread."""
+    if not recs:
+        return
+    _teardown_log[:] = recs
+    threading.Thread(target=_tear_down, args=(recs,), daemon=True,
+                     name="hvd-lost-world-teardown").start()
+
+
+@atexit.register
+def _await_teardowns() -> None:
+    """At exit, wait up to ``TEARDOWN_BOUND_S`` for the destructors of a
+    lost world's groups that are running, and name every group still
+    out (a group held elsewhere goes with the interpreter)."""
+    deadline = time.monotonic() + TEARDOWN_BOUND_S
+    while time.monotonic() < deadline and any(
+            a["start"] is not None and a["end"] is None
+            for a in _teardown_log):
+        time.sleep(0.01)
+    out = [_label(a) for a in _teardown_log if a["end"] is None]
+    if out:
+        _log.warning(f"exiting with the teardown of lost groups still out: "
+                     f"{', '.join(out)}")
 
 
 def _on_world_lost():
@@ -308,8 +416,8 @@ def _on_world_lost():
                     f"within {ABORT_GROUP_BOUND_S} s (thread {t.ident:#x})")
             faulthandler.dump_traceback(file=sys.stderr, all_threads=True)
         # The raise need not wait for the groups to leave torch's tables;
-        # a re-init does, through ``shutdown``, which joins this thread
-        # (the old world's store, and so its port, goes with them).
+        # a re-init does, through ``shutdown``, which joins this thread.
+        # Leaving them destroys nothing (``_forget_groups``).
         _state.aborted.set()
         _forget_groups(c10d)
     except (RuntimeError, ValueError) as e:
@@ -372,9 +480,15 @@ def direct_collective():
 # Torch's NCCL error handling for the groups an elastic ``init`` makes:
 # the watch, not torch's watchdog, answers a lost rank (the watchdog would
 # end the survivor), and a lost rank, an expected event there, does not
-# set off the flight recorder's dump of every rank's collectives.
+# set off the flight recorder's dump of every rank's collectives. When
+# the watchdog itself sees the dead peer's error first, it waits for that
+# dump before it goes on (60 s by default, even with the dump off: the
+# first "signal dumping" of a rank, then "Some NCCL operations have
+# failed" 60.0 s later in torch 2.11's log on the H100), and a group's
+# destructor joins the watchdog: the dump wait is cut to 100 ms.
 ELASTIC_NCCL_ENV = {"TORCH_NCCL_ASYNC_ERROR_HANDLING": "0",
-                    "TORCH_NCCL_DUMP_ON_TIMEOUT": "0"}
+                    "TORCH_NCCL_DUMP_ON_TIMEOUT": "0",
+                    "TORCH_NCCL_WAIT_TIMEOUT_DUMP_MILSEC": "100"}
 
 
 @contextlib.contextmanager
@@ -483,21 +597,30 @@ def init(device=None, sp: int = 1, tp: int = 1, pp: int = 1, comm=None):
         with _nccl_error_handling(backend):
             if not dist.is_initialized():
                 # Importing torch._dynamo (every torch.optim optimizer
-                # does) while a default group exists keeps that group, and
-                # with it its store's port, for the life of the process,
-                # so a re-init could not listen there again: import it
-                # before the group.
+                # does) while a default group exists keeps that group for
+                # the life of the process, so a lost world's teardown
+                # would wait for it: import it before the group.
                 importlib.import_module("torch._dynamo")
                 try:
+                    server = None
                     if size == 1:
                         store = dist.HashStore()
                     else:
                         store, token = _open_store(size, rank)
+                    if rank == 0 and size > 1:
+                        # The groups get a client of their own: the server
+                        # stays with the state alone, so ``shutdown``
+                        # closes it (and frees the port) whatever still
+                        # holds the old groups.
+                        server, store = store, dist.TCPStore(
+                            _config.controller_addr(),
+                            _config.controller_base_port(), world_size=size,
+                            is_master=False, wait_for_workers=False)
                     dist.init_process_group(backend, store=store, rank=rank,
                                             world_size=size)
                     if size > 1:
                         _last_token = token
-                        _state.store = store if rank == 0 else None
+                        _state.store = server
                 except (RuntimeError, OSError) as e:
                     if dist.is_initialized():
                         dist.destroy_process_group()
@@ -631,7 +754,8 @@ def shutdown():
     """Tear down the runtime: stops the watch, then the eager engine (its
     metrics pump, its native core, then its executor), closes the
     timeline, then destroys the process group if ``init`` made it (a
-    world that lost a rank was aborted instead)."""
+    world that lost a rank was aborted instead, and its groups are torn
+    down on a thread of their own once this returns: ``_tear_down``)."""
     with _state.lock:
         if not _state.initialized:
             return
@@ -651,12 +775,14 @@ def shutdown():
                     _forget_groups(c10d)
                 else:
                     dist.destroy_process_group()
+            lost = _state.lost_groups
             _state.reset()
             # A failed collective's error keeps the frames it was raised
-            # through, whose locals hold the groups (and so the store and
-            # its port), in a reference cycle through the pending entry
-            # that keeps the error: collect it for a re-init on that port.
+            # through, whose locals hold the groups, in a reference cycle
+            # through the pending entry that keeps the error: collect it,
+            # so that the teardown's references are the last ones.
             gc.collect()
+            _release_lost_groups(lost)
 
 
 def drain():

@@ -1296,6 +1296,28 @@ std::vector<Response> TcpController::CoordinatorCycle(
   for (int r = 0; r < cfg_.size; ++r) {
     any_down = any_down || shutdown_ranks_[r];
   }
+  // A rank whose frame this cycle gathered can die before the verdict
+  // while another rank departs: the departure alone would answer
+  // SHUTDOWN. So before a departure's verdict, look without blocking at
+  // the connection of every rank that is not leaving (each rank, a
+  // member behind its host's leader too, holds its own connection to the
+  // coordinator): a closed one is a death, and the verdict is LOST. A
+  // death after this look, once the verdict is on the wire, is a death
+  // in a world that had already ended.
+  if (any_down && !world_lost_) {
+    for (int r = 1; r < cfg_.size; ++r) {
+      if (shutdown_ranks_[r] || !worker_socks_[r - 1].valid()) continue;
+      struct pollfd look;
+      look.fd = worker_socks_[r - 1].fd();
+      look.events = POLLRDHUP;
+      look.revents = 0;
+      if (::poll(&look, 1, 0) > 0 &&
+          (look.revents & (POLLRDHUP | POLLHUP | POLLERR))) {
+        shutdown_ranks_[r] = true;
+        world_lost_ = true;
+      }
+    }
+  }
   if (any_down || stall_shutdown) {
     if (stall_shutdown) world_lost_ = true;
     if (world_lost_) {

@@ -5,7 +5,7 @@
 //
 //   g++ -O1 -g -std=c++17 -pthread -fsanitize=thread stress_core.cc \
 //       build/horovod_tpu_torch/libhvdcore-<hash>-tsan.so -lrt
-//   ./a.out [world ring shm stripe reconnect liveness worldlost]
+//   ./a.out [world ring shm stripe reconnect liveness worldlost departure]
 //
 // With no argument every phase runs, in that order. The phases:
 //
@@ -30,7 +30,20 @@
 //     hvd_world_lost() throughout, as the binding's watch does. Rank 1
 //     exits without a farewell (the verdict turns 1) or leaves by
 //     hvd_shutdown (it stays 0); then rank 0 shuts down and re-inits a
-//     world of one, where the verdict reads 0 again.
+//     world of one, where the verdict reads 0 again;
+//   - departure: a death in the cycle of another rank's departure. The
+//     coordinator and the leaving rank are TcpControllers of this
+//     process; rank 1 is this binary again ("--death <port> <cross>
+//     <frame>"), which joins, sends its cycle's frame and _exits. Only
+//     then does the leaving rank send its farewell, in the same cycle,
+//     so the coordinator holds rank 1's frame and a closed connection
+//     when it gives its verdict, which must be LOST: every survivor ends
+//     with world_lost() true. The order is forced, not timed, so every
+//     round must see it. Rounds: flat (3 ranks), flat with heartbeats,
+//     and hierarchical (2 hosts x 2, HOROVOD_HIER_CONTROL's protocol over
+//     an in-process channel): there rank 1 is the coordinator's member,
+//     whose frame is put on the channel for it before it exits, and the
+//     leaving rank is the other host's member.
 //
 // The harness itself must stay race-free: every stop flag is atomic and
 // threads are joined before each world teardown completes. Exits 0 and
@@ -43,9 +56,14 @@
 
 #include <atomic>
 #include <chrono>
+#include <condition_variable>
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
+#include <deque>
+#include <map>
+#include <memory>
+#include <mutex>
 #include <set>
 #include <string>
 #include <thread>
@@ -824,11 +842,177 @@ void WorldLostPhase(const char* self) {
   CHECK(polls.load() > 0, "worldlost phase: the poller ran");
 }
 
+// Rank 1 of the departure phase, in a process of its own: the bootstrap
+// hello (host group `cross`), the endpoint map, then (flat rounds) one
+// request frame of the cycle, then an exit without a farewell.
+int DeathRank(int port, int cross, bool frame) {
+  hvd::Socket s = hvd::Socket::Connect("127.0.0.1", port, 30000);
+  std::string hello = "1 127.0.0.1 0 - " + std::to_string(cross) + " 0";
+  std::string map;
+  if (!s.valid() || !s.SendFrame(hello) || !s.RecvFrame(&map)) {
+    std::fprintf(stderr, "FAIL: departure phase: rank 1 bootstrap\n");
+    return 1;
+  }
+  if (frame && !s.SendFrame(hvd::SerializeRequestList({}, {}, false))) {
+    std::fprintf(stderr, "FAIL: departure phase: rank 1 frame\n");
+    return 1;
+  }
+  _exit(0);
+}
+
+// The hierarchical control channel between in-process ranks: one queue
+// of frames for each (from, to) pair; a receive waits up to 10 s.
+class Mailbox {
+ public:
+  bool Send(int from, int to, const std::string& frame) {
+    {
+      std::lock_guard<std::mutex> lk(mu_);
+      q_[{from, to}].push_back(frame);
+    }
+    cv_.notify_all();
+    return true;
+  }
+  bool Recv(int from, int to, std::string* frame) {
+    std::unique_lock<std::mutex> lk(mu_);
+    auto& q = q_[{from, to}];
+    if (!cv_.wait_for(lk, std::chrono::seconds(10),
+                      [&] { return !q.empty(); })) {
+      return false;
+    }
+    *frame = q.front();
+    q.pop_front();
+    return true;
+  }
+  hvd::TcpController::CtrlChannel For(int rank) {
+    hvd::TcpController::CtrlChannel ch;
+    ch.send = [this, rank](int peer, const std::string& f) {
+      return Send(rank, peer, f);
+    };
+    ch.recv = [this, rank](int peer, std::string* f) {
+      return Recv(peer, rank, f);
+    };
+    return ch;
+  }
+
+ private:
+  std::mutex mu_;
+  std::condition_variable cv_;
+  std::map<std::pair<int, int>, std::deque<std::string>> q_;
+};
+
+// A rank that dies after its frame, in the cycle in which another rank
+// leaves: the coordinator's verdict must be LOST on every survivor.
+void DeparturePhase(const char* self) {
+  const char* kinds[] = {"flat", "flat+heartbeats", "hier"};
+  int rounds = 0, lost_rounds = 0;
+  // Every round runs, a failed one too, so the count says how many of
+  // them ended on LOST.
+  for (int round = 0; round < 9; ++round) {
+    std::string kind = kinds[round % 3];
+    bool hier = kind == "hier";
+    int size = hier ? 4 : 3;
+    int port = 0;
+    {
+      hvd::Listener probe;
+      if (!probe.Listen(0)) {
+        CHECK(false, "departure phase: port probe");
+        break;
+      }
+      port = probe.port();
+    }
+    Mailbox mail;
+    // Rank 1's frame to its leader (the coordinator), sent before it dies.
+    if (hier) mail.Send(1, 0, hvd::SerializeRequestList({}, {}, false));
+    std::string port_s = std::to_string(port);
+    std::string cross_s = hier ? "0" : "1";
+    std::string frame_s = hier ? "0" : "1";
+    char* argv[] = {const_cast<char*>(self), const_cast<char*>("--death"),
+                    const_cast<char*>(port_s.c_str()),
+                    const_cast<char*>(cross_s.c_str()),
+                    const_cast<char*>(frame_s.c_str()), nullptr};
+    pid_t child = -1;
+    if (posix_spawn(&child, self, nullptr, nullptr, argv, environ) != 0) {
+      CHECK(false, "departure phase: spawn rank 1");
+      break;
+    }
+    // Ranks 0 and 2 (flat), or 0, 2 and 3 (hier: 2 leads host 1, 3 is
+    // its member); the last one leaves.
+    std::vector<int> mine = hier ? std::vector<int>{0, 2, 3}
+                                 : std::vector<int>{0, 2};
+    std::vector<std::unique_ptr<hvd::TcpController>> ctl;
+    for (int r : mine) {
+      hvd::ControllerConfig c;
+      c.rank = r;
+      c.size = size;
+      c.cross_rank = hier ? r / 2 : r;
+      c.coordinator_port = port;
+      if (kind == "flat+heartbeats") {
+        c.heartbeat_ms = 1;
+        c.liveness_timeout_ms = 5000;
+      }
+      ctl.emplace_back(new hvd::TcpController(c, /*data_port=*/1 + r,
+                                              "127.0.0.1"));
+    }
+    std::atomic<bool> dead{false};
+    std::vector<int> ended(mine.size(), 0);
+    std::vector<std::thread> threads;
+    for (size_t i = 0; i < mine.size(); ++i) {
+      threads.emplace_back([&, i] {
+        hvd::TcpController& c = *ctl[i];
+        if (!c.Initialize().ok()) {
+          CHECK(false, "departure phase: controller init");
+          return;
+        }
+        if (hier) c.EnableHierControl(mail.For(mine[i]));
+        bool leaves = i + 1 == mine.size();
+        if (leaves) {
+          while (!dead.load()) {
+            std::this_thread::sleep_for(std::chrono::milliseconds(1));
+          }
+        }
+        bool down = false;
+        for (int cyc = 0; cyc < 50 && !down; ++cyc) {
+          c.ComputeResponseList({}, leaves, false, &down);
+        }
+        ended[i] = down ? 1 : 0;
+        c.Finalize();
+      });
+    }
+    int status = 0;
+    waitpid(child, &status, 0);
+    CHECK(WIFEXITED(status) && WEXITSTATUS(status) == 0,
+          "departure phase: rank 1 sent its frame and exited");
+    // Its connection's close reaches the coordinator before the farewell.
+    std::this_thread::sleep_for(std::chrono::milliseconds(20));
+    dead.store(true);
+    for (auto& t : threads) t.join();
+    std::string verdicts;
+    bool all_lost = true;
+    for (size_t i = 0; i < mine.size(); ++i) {
+      CHECK(ended[i], "departure phase: the world ended");
+      all_lost = all_lost && ctl[i]->world_lost();
+      verdicts += (i ? "," : "") + std::to_string(ctl[i]->world_lost());
+    }
+    CHECK(all_lost,
+          "departure phase: a death in a departure's cycle must set "
+          "world_lost on every survivor");
+    ++rounds;
+    lost_rounds += all_lost ? 1 : 0;
+    std::printf("DEPARTURE round=%d kind=%s world_lost=%s\n", round,
+                kind.c_str(), verdicts.c_str());
+  }
+  std::printf("DEPARTURE lost %d of %d rounds\n", lost_rounds, rounds);
+}
+
 }  // namespace
 
 int main(int argc, char** argv) {
   if (argc == 4 && std::strcmp(argv[1], "--rank1") == 0) {
     return Rank1(std::atoi(argv[2]), argv[3]);
+  }
+  if (argc == 5 && std::strcmp(argv[1], "--death") == 0) {
+    return DeathRank(std::atoi(argv[2]), std::atoi(argv[3]),
+                     std::atoi(argv[4]) != 0);
   }
   std::set<std::string> want(argv + 1, argv + argc);
   auto on = [&](const char* phase) {
@@ -843,6 +1027,7 @@ int main(int argc, char** argv) {
   if (on("reconnect")) ReconnectPhase();
   if (on("liveness")) LivenessControllerPhase();
   if (on("worldlost")) WorldLostPhase("/proc/self/exe");
+  if (on("departure")) DeparturePhase("/proc/self/exe");
   if (failures) return 1;
   std::puts("STRESS_OK");
   return 0;

@@ -331,11 +331,13 @@ def test_swap_sync_bn_keeps_every_batch_norm():
 def test_kill_and_respawn_on_the_cpu():
     """(k)(2)'s driver with its own worker on gloo: rank 1 is SIGKILLed
     inside its allreduces, rank 0 raises within the bound, the respawned
-    rank 1 rejoins, and both end with rank 0's parameters."""
+    rank 1 rejoins, the re-formed world commits a batch within its bound,
+    and both end with rank 0's parameters."""
     cs = _chip_smoke()
-    seconds, res = cs.kill_and_respawn(
+    seconds, reform, res = cs.kill_and_respawn(
         2, {"CHIP_SMOKE_DEVICE": "cpu", "OMP_NUM_THREADS": "1"}, 240)
     assert 0 <= seconds <= cs.KILL_BOUND_S
+    assert seconds < reform <= cs.REFORM_BOUND_S
     assert [r["rank"] for r in res] == [0, 1]
     assert res[0]["resets"] and not res[0]["respawned"]
     assert res[1]["respawned"] and not res[1]["resets"]
@@ -349,10 +351,11 @@ def test_kill_and_respawn_with_sync_batch_norm_on_the_cpu():
     all-reduce, raises ``HorovodInternalError`` there, restores, and
     finishes beside the respawned rank 1."""
     cs = _chip_smoke()
-    seconds, res = cs.kill_and_respawn(
+    seconds, reform, res = cs.kill_and_respawn(
         2, {"CHIP_SMOKE_DEVICE": "cpu", "OMP_NUM_THREADS": "1",
             "CHIP_SMOKE_KILL_SYNC_BN": "1"}, 240)
     assert 0 <= seconds <= cs.KILL_BOUND_S
+    assert seconds < reform <= cs.REFORM_BOUND_S
     assert res[0]["resets"] and not res[0]["respawned"]
     assert "sync_batch_norm.py" in res[0]["raised_in"][0]
     assert res[1]["respawned"] and not res[1]["resets"]

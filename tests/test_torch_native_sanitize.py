@@ -9,9 +9,12 @@
   process lacks raises with the ``LD_PRELOAD`` recipe.
 - The port's stress harness (``csrc/testing/stress_core.cc``: the JAX
   package's phases plus the world-lost verdict across DRAIN and EVICT
-  rounds, a lost rank, a departure, a shutdown and a re-init) runs
-  against the TSan and the ASan+UBSan variant with zero reports, and
-  leaves no shm segment behind.
+  rounds, a lost rank, a departure, a shutdown and a re-init, and a
+  death in the cycle of another rank's departure) runs against the TSan
+  and the ASan+UBSan variant with zero reports, and leaves no shm
+  segment behind. Its ``departure`` phase alone ends every round on LOST
+  (flat, with heartbeats, and through the hosts' leaders), under TSan
+  and on the production core.
 - The multi-process worlds of ``tests/test_torch_native.py`` (a lost
   rank and a departure, join, stall) run on the TSan variant, its
   runtime preloaded into every worker: no ThreadSanitizer warning in any
@@ -124,8 +127,38 @@ def run_harness(binary, env):
             r.stdout, r.stdout
     assert "WORLDLOST round=0 rank1=exit world_lost=1" in r.stdout
     assert "WORLDLOST round=1 rank1=shutdown world_lost=0" in r.stdout
+    assert_departures(r.stdout)
     assert_no_segments()
     return report
+
+
+def assert_departures(out):
+    """The departure phase's rounds: each survivor (the coordinator, the
+    leaving rank, and in the hierarchical rounds the leaving member's
+    leader) ended with ``world_lost()`` true."""
+    for rnd in range(9):
+        kind, lost = [("flat", "1,1"), ("flat+heartbeats", "1,1"),
+                      ("hier", "1,1,1")][rnd % 3]
+        assert f"DEPARTURE round={rnd} kind={kind} world_lost={lost}" in \
+            out, out
+    assert "DEPARTURE lost 9 of 9 rounds" in out, out
+
+
+def run_departures(binary, env):
+    r = subprocess.run([str(binary), "departure"], capture_output=True,
+                       text=True, timeout=120, env={**os.environ, **env})
+    report = r.stdout + r.stderr
+    assert r.returncode == 0 and "STRESS_OK" in r.stdout, report[-4000:]
+    assert_departures(r.stdout)
+    return report
+
+
+@pytest.fixture(scope="module")
+def production(tmp_path_factory):
+    """The harness built against the production core."""
+    _compiler()
+    return tnative.build_stress_harness(
+        "", tmp_path_factory.mktemp("production"))
 
 
 def test_stress_harness_is_tsan_clean(tsan):
@@ -145,11 +178,23 @@ def test_stress_harness_is_asan_clean(asan):
     assert "runtime error:" not in report, report[-4000:]
 
 
-def test_stress_harness_on_the_production_core(tmp_path):
+def test_stress_harness_on_the_production_core(production):
     """What chip_smoke (o) runs where the host's g++ has no TSan: the
     same phases against the production core, with its flags."""
-    _compiler()
-    run_harness(tnative.build_stress_harness("", tmp_path), {})
+    run_harness(production, {})
+
+
+def test_a_death_in_a_departures_cycle_ends_on_lost_under_tsan(tsan):
+    """Rank 1 sends its cycle's frame and exits; only then does another
+    rank send its farewell in the same cycle. The coordinator's verdict
+    is LOST in every round, with no TSan report."""
+    report = run_departures(tsan[1], TSAN_ENV)
+    assert "WARNING: ThreadSanitizer" not in report, report[-4000:]
+
+
+def test_a_death_in_a_departures_cycle_ends_on_lost_on_the_production_core(
+        production):
+    run_departures(production, {})
 
 
 def test_a_planted_race_is_reported_through_python(tsan, tmp_path):

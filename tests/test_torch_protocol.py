@@ -13,10 +13,14 @@
   negotiation models of ``tools/hvdmc`` (unchanged) with a ``leave``
   action beside ``die`` and the terminal frame each rank ended on. Its
   safety rule: a survivor ends on LOST if and only if a rank died, flat
-  and through the hosts' leaders. Explored exhaustively at 2 and 3 ranks
-  (and 2 hosts x 2) with one death or one leave; the reference's
-  behaviour, SHUTDOWN after a death (the ``shutdown_after_death``
-  mutation), is caught with a counterexample.
+  and through the hosts' leaders. Before a departure's verdict the
+  coordinator looks at every rank that is not leaving, so a rank whose
+  frame it gathered and that died in the cycle of another rank's
+  departure ends the world on LOST. Explored exhaustively at 2 and 3
+  ranks (and 2 hosts x 2) with one death, one leave, or both; the
+  reference's behaviour, SHUTDOWN after a death (the
+  ``shutdown_after_death`` mutation), and a verdict without the look
+  (``no_look``) are caught with a counterexample.
 """
 
 import os
@@ -203,13 +207,20 @@ def _set(t, i, v):
 class _Verdict:
     """What both models add: ``leave`` (a rank's farewell, the departure
     the coordinator answers with SHUTDOWN), the terminal frame each rank
-    ended on, and the safety rule on it. ``shutdown_after_death`` answers
-    a death with SHUTDOWN too, as the JAX package's core does."""
+    ended on, and the safety rule on it. The verdict looks at every rank
+    that is not leaving, as the core looks at each one's connection
+    before it answers a departure. ``shutdown_after_death`` answers a
+    death with SHUTDOWN too, as the JAX package's core does; ``no_look``
+    counts only the deaths the gather noticed."""
 
     def _verdict(self, s):
-        died = any(r not in s.leaving for r in s.departed)
         if "shutdown_after_death" in self.mutations:
             return SHUTDOWN
+        if "no_look" in self.mutations:
+            died = any(r not in s.leaving for r in s.departed)
+        else:
+            died = any(not s.ranks[r].alive for r in range(self.n)
+                       if r not in s.leaving)
         return LOST if died else SHUTDOWN
 
     def _ended_on(self, s, r, word):
@@ -380,25 +391,33 @@ def _terminals(model):
     return seen
 
 
+# The (deaths, leaves) of each event, and the terminal words its worlds
+# can end on: a death ends on LOST, a leave on SHUTDOWN, and with both
+# (at most one death) either, as the death comes or not.
+_EVENTS = {"death": ((1, 0), {LOST}), "leave": ((0, 1), {SHUTDOWN}),
+           "death+leave": ((1, 1), {LOST, SHUTDOWN})}
+
+
 @pytest.mark.parametrize("ranks", [2, 3])
-@pytest.mark.parametrize("event", ["death", "leave"])
+@pytest.mark.parametrize("event", ["death", "leave", "death+leave"])
 def test_lost_verdict_flat_exhaustive(ranks, event):
-    deaths, leaves = (1, 0) if event == "death" else (0, 1)
+    (deaths, leaves), words = _EVENTS[event]
     model = LostNegotiationModel(ranks=ranks, deaths=deaths, leaves=leaves)
     res = _explored(model)
     assert res.quiescent_states > 0
-    # Both outcomes of the event are reachable: the world ends on it.
-    assert _terminals(model) == {LOST if event == "death" else SHUTDOWN}
+    # Every outcome of the event is reachable: the world ends on it.
+    assert _terminals(model) == words
 
 
 @pytest.mark.parametrize("hosts,members,event", [
-    (2, 1, "death"), (3, 1, "death"), (2, 2, "death"), (2, 2, "leave")])
+    (2, 1, "death"), (3, 1, "death"), (2, 2, "death"), (2, 2, "leave"),
+    (2, 2, "death+leave")])
 def test_lost_verdict_through_the_leaders_exhaustive(hosts, members, event):
-    deaths, leaves = (1, 0) if event == "death" else (0, 1)
+    (deaths, leaves), words = _EVENTS[event]
     model = LostHierNegotiationModel(hosts=hosts, members=members,
                                      deaths=deaths, leaves=leaves)
     _explored(model)
-    assert _terminals(model) == {LOST if event == "death" else SHUTDOWN}
+    assert _terminals(model) == words
 
 
 @pytest.mark.parametrize("model", [
@@ -416,17 +435,25 @@ def test_shutdown_after_a_death_is_caught(model):
         bad[0].render()
 
 
-def test_a_death_in_a_departures_cycle_ends_on_shutdown():
-    """An open fault of the LOST verdict (ROADMAP.md, section C), kept
-    visible: a rank whose frame the coordinator already gathered dies in
-    the cycle in which another rank leaves. The coordinator ends the
-    world on the departure it saw, with SHUTDOWN, and the survivors'
-    bindings abort nothing for the dead rank."""
-    res = explore(LostNegotiationModel(ranks=3, deaths=1, leaves=1))
+@pytest.mark.parametrize("model,schedule", [
+    (LostNegotiationModel(ranks=3, deaths=1, leaves=1,
+                          mutations=("no_look",)),
+     ("send(1)", "die(1)", "deliver(1)", "leave(2)", "deliver(2)",
+      "respond")),
+    (LostHierNegotiationModel(hosts=2, members=2, deaths=1, leaves=1,
+                              mutations=("no_look",)),
+     ("send(1)", "die(1)", "deliver(1)", "coord_ingest_own", "leave(3)",
+      "deliver(3)", "aggregate(2)", "deliver_agg(2)", "respond"))],
+    ids=["flat", "hier"])
+def test_the_no_look_mutation_is_caught(model, schedule):
+    """A verdict without the look: a rank whose frame the coordinator (or
+    its host's leader) already gathered dies in the cycle in which
+    another rank leaves, and the world ends on SHUTDOWN, so the
+    survivors' bindings would abort nothing for the dead rank. The
+    shortest counterexample is that schedule."""
+    res = explore(model)
     assert res.complete
     bad = [v for v in res.violations
            if "ended on SHUTDOWN though a rank died" in v.message]
     assert bad, res.render()
-    assert bad[0].schedule == ("send(1)", "die(1)", "deliver(1)",
-                               "leave(2)", "deliver(2)", "respond"), \
-        bad[0].render()
+    assert bad[0].schedule == schedule, bad[0].render()
