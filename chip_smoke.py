@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --time-tree DIR   # kernel times of one checkout
+    python3 chip_smoke.py --sbn-race RUNS [--keep OUT] [DIR[:RUNS] ...]
 
 Phases, in order (a, b, c, e, f, g, h, i, j, k, l, m, n, o, d); any
 failure exits nonzero:
@@ -157,21 +158,27 @@ failure exits nonzero:
     complete. Last ``image_bench`` at dp=2 with ``--fault-spec``: the
     ring fields are there and not negative. No kernel of the port runs
     here.
-(k) the torch binding and the elastic worker: two ranks on cuda:0 as
-    two hosts of one (``--binding-worker``, ``hvd.init()`` of
-    ``horovod_tpu_torch.torch``, deterministic kernels): the reference
+(k) the torch binding and the elastic worker: the batch-norm race,
+    ``SBN_RACE_RUNS`` pairs of ``--sbn-race-worker`` one after another,
+    each under ``SBN_RACE_TIMEOUT_S`` (ResNet-50 with ``sync_bn_axis="dp"``
+    and the example with ``SyncBatchNorm`` under the binding's optimizer,
+    ``SBN_RACE_STEPS`` each; a pair that hangs fails (k)), beside two
+    ranks on cuda:0 as two hosts of one (``--binding-worker``,
+    ``hvd.init()`` of ``horovod_tpu_torch.torch``, deterministic
+    kernels): the reference
     binding's worker checks on CUDA tensors and a CPU tensor through the
     host ring; ResNet-50 (bf16, batch 32 a rank) under the binding's
     per-parameter optimizer bitwise the bucketed one over 2 steps;
     ``SyncBatchNorm`` against ``BatchNorm2d`` over the world's batch
     (forward 1e-4, running mean 1e-5, variance 1e-4); ResNet-50 with and
-    without ``sync_bn_axis="dp"`` and the example's ResNet-50 with local,
-    direct and negotiated batch-norm statistics (ms a step, losses
+    without ``sync_bn_axis="dp"`` and the example's ResNet-50 with local
+    statistics, ``SyncBatchNorm`` and ``SyncBatchNorm`` through the
+    binding's public call (``negotiated_statistics``) (ms a step, losses
     finite, world losses equal); ``HOROVOD_FAULT_SPEC`` (``xla.exec``)
     inside ``elastic.run`` with a ``TorchState``, bitwise the clean run;
     the example at two ranks. Then ``--elastic-worker``, twice: rank 1
     SIGKILLed inside its 64 MiB allreduces, and between the batches of a
-    model of ``SyncBatchNorm`` (direct all-reduces only), rank 0 raising
+    model of ``SyncBatchNorm`` (its direct all-reduces only), rank 0 raising
     within ``KILL_BOUND_S`` (the seconds printed), rank 1 respawned with
     its rank, the re-formed world committing its first batch within
     ``REFORM_BOUND_S`` of the kill (the seconds printed), both ending
@@ -188,7 +195,8 @@ failure exits nonzero:
     example at two ranks (fp32 ResNet-50, batch 32, 224 px, 1 + 2 x 2
     batches) as a static job, both ranks exiting 0, beside an elastic
     job with only the stall inspector whose rank 1 SIGSTOPs itself
-    (a raise, or none, within ``STALL_CAP_S`` is printed); then the
+    (rank 0 raising within ``STALL_BOUND_S``, the seconds printed); then
+    the
     elastic job (``--launcher-worker``: (k)'s MLP, 64 MiB allreduces)
     with ``HOROVOD_HEARTBEAT_MS`` and a 2000 ms liveness timeout: rank 1
     SIGKILLs itself after batch 5 and SIGSTOPs itself after batch 12,
@@ -1133,9 +1141,11 @@ def run_workers(flag, n, timeout_s, inputs=None, local_size=None,
     return finish_workers(flag, procs, tmp, timeout_s)
 
 
-def spawn_workers(flag, n, inputs=None, local_size=None, env=None):
-    """Start ``run_workers``'s processes without waiting for them;
-    returns (the processes, their directory)."""
+def spawn_workers(flag, n, inputs=None, local_size=None, env=None,
+                  script=None):
+    """Start ``run_workers``'s processes without waiting for them (of
+    ``script``, default this file); returns (the processes, their
+    directory)."""
     import torch
 
     from horovod_tpu_torch.common.config import free_port_pair
@@ -1158,8 +1168,8 @@ def spawn_workers(flag, n, inputs=None, local_size=None, env=None):
                     NCCL_IB_DISABLE="1", NCCL_SOCKET_IFNAME="lo")
         with open(tmp / f"log{r}.txt", "w") as logf:
             procs.append(subprocess.Popen(
-                [sys.executable, str(Path(__file__).resolve()), flag,
-                 str(tmp / f"rank{r}.json")], env=renv,
+                [sys.executable, str(script or Path(__file__).resolve()),
+                 flag, str(tmp / f"rank{r}.json")], env=renv,
                 stdout=logf, stderr=subprocess.STDOUT))
     return procs, tmp
 
@@ -3044,6 +3054,9 @@ ELASTIC_FAULT = "xla.exec:rank=1:step=3"
 ELASTIC_BATCHES = 8     # (k)(1): committed batches of the small model
 KILL_TARGET, KILL_READY = 20, 5     # (k)(2): batches, and when to kill
 SBN_STEPS = (1, 1)      # warm-up and timed steps of (k)'s batch-norm runs
+# (k)'s batch-norm race (``--sbn-race-worker``): runs, the warm-up and
+# timed steps of each model, and each run's limit.
+SBN_RACE_RUNS, SBN_RACE_STEPS, SBN_RACE_TIMEOUT_S = 2, (1, 3), 150
 
 
 def binding_checks(hvd, rank, dev):
@@ -3203,16 +3216,20 @@ def swap_sync_bn(module, hvd):
 @contextlib.contextmanager
 def negotiated_statistics(hvd):
     """(k)'s A/B alone: ``SyncBatchNorm``'s two sums a layer through the
-    named plane (``hvd.allreduce``) instead of the direct all-reduce."""
+    binding's public call (``hvd.synchronize(hvd.allreduce_async(...))``,
+    which waits on the host for the card's completion event) instead of
+    its own path (``ops/collectives.ordered_allreduce``: negotiated too
+    beside the binding's optimizer, the result's event left to the
+    caller's stream)."""
     from horovod_tpu_torch.torch import sync_batch_norm
 
-    direct = sync_batch_norm._world_sum
+    own = sync_batch_norm._world_sum
     sync_batch_norm._world_sum = lambda t, name: hvd.synchronize(
         hvd.allreduce_async(t, op=hvd.Sum, name=name))
     try:
         yield
     finally:
-        sync_batch_norm._world_sum = direct
+        sync_batch_norm._world_sum = own
 
 
 def timed_steps(step, warmup, iters):
@@ -3227,12 +3244,15 @@ def timed_steps(step, warmup, iters):
     return losses, 1e3 * (time.perf_counter() - t0) / iters
 
 
-def sync_bn_checks(hvd, rank, dev):
-    """``SyncBatchNorm`` on the card against ``nn.BatchNorm2d`` over both
-    ranks' batch; ResNet-50 with ``sync_bn_axis="dp"`` and without; the
-    example's ResNet-50 (53 ``BatchNorm2d``) with ``SyncBatchNorm`` on the
-    direct and on the negotiated path (``negotiated_statistics``), and
-    with local batch norm."""
+def batch_norm_runs(hvd, rank, dev, steps, axes=("dp", None),
+                    paths=("local", "synced", "negotiated")):
+    """ResNet-50 (bf16, batch 32 a rank) with ``sync_bn_axis`` each of
+    ``axes`` and the example's ResNet-50 (53 ``BatchNorm2d``) with each
+    batch-norm path of ``paths`` (local statistics, ``SyncBatchNorm``,
+    ``SyncBatchNorm`` through ``negotiated_statistics``), every model
+    under the binding's per-parameter ``DistributedOptimizer`` for
+    ``steps`` (warm-up, timed). Returns {"resnet_<axis>" or
+    "example_<path>": (losses, ms a step)}."""
     import numpy as np
     import torch
 
@@ -3242,19 +3262,11 @@ def sync_bn_checks(hvd, rank, dev):
 
     out = {}
     gen = torch.Generator().manual_seed(7)
-    full = (torch.randn(16, 8, 12, 12, generator=gen) * 2 + 0.5).to(dev)
-    sbn = hvd.SyncBatchNorm(8, momentum=0.5).to(dev)
-    ref = torch.nn.BatchNorm2d(8, momentum=0.5).to(dev)
-    got = sbn(full[rank * 8:(rank + 1) * 8])
-    want = ref(full)[rank * 8:(rank + 1) * 8]
-    out["sbn_forward"] = float((got - want).abs().max())
-    out["sbn_mean"] = float((sbn.running_mean - ref.running_mean).abs().max())
-    out["sbn_var"] = float((sbn.running_var - ref.running_var).abs().max())
     rng = np.random.RandomState(rank)
     x = torch.as_tensor(rng.rand(32, 224, 224, 3).astype(np.float32),
                         device=dev)
     y = torch.as_tensor(rng.randint(0, 1000, 32), device=dev)
-    for axis in ("dp", None):
+    for axis in axes:
         model = resnet.ResNet50(num_classes=1000, dtype=torch.bfloat16,
                                 device=dev, seed=0, sync_bn_axis=axis)
         opt = hvd.DistributedOptimizer(
@@ -3269,12 +3281,12 @@ def sync_bn_checks(hvd, rank, dev):
             # The world's mean loss: each rank has its own batch.
             return hvd.allreduce(loss.detach(), name="k.loss").item()
 
-        out[f"resnet_{axis}"] = timed_steps(step, *SBN_STEPS)
+        out[f"resnet_{axis}"] = timed_steps(step, *steps)
         del model, opt
         torch.cuda.empty_cache()
     xe = torch.randn(32, 3, 224, 224, generator=gen).to(dev)
     ye = torch.randint(0, 1000, (32,), generator=gen).to(dev)
-    for path in ("local", "direct", "negotiated"):
+    for path in paths:
         torch.manual_seed(42)
         model = ex.resnet50().to(dev)
         if path != "local":
@@ -3292,10 +3304,194 @@ def sync_bn_checks(hvd, rank, dev):
 
         with (negotiated_statistics(hvd) if path == "negotiated"
               else contextlib.nullcontext()):
-            out[f"example_{path}"] = timed_steps(step, *SBN_STEPS)
+            out[f"example_{path}"] = timed_steps(step, *steps)
         del model, opt
         torch.cuda.empty_cache()
     return out
+
+
+def sync_bn_checks(hvd, rank, dev):
+    """``SyncBatchNorm`` on the card against ``nn.BatchNorm2d`` over both
+    ranks' batch; then ``batch_norm_runs`` of every model and path."""
+    import torch
+
+    out = {}
+    gen = torch.Generator().manual_seed(7)
+    full = (torch.randn(16, 8, 12, 12, generator=gen) * 2 + 0.5).to(dev)
+    sbn = hvd.SyncBatchNorm(8, momentum=0.5).to(dev)
+    ref = torch.nn.BatchNorm2d(8, momentum=0.5).to(dev)
+    got = sbn(full[rank * 8:(rank + 1) * 8])
+    want = ref(full)[rank * 8:(rank + 1) * 8]
+    out["sbn_forward"] = float((got - want).abs().max())
+    out["sbn_mean"] = float((sbn.running_mean - ref.running_mean).abs().max())
+    out["sbn_var"] = float((sbn.running_var - ref.running_var).abs().max())
+    out.update(batch_norm_runs(hvd, rank, dev, SBN_STEPS))
+    return out
+
+
+def sbn_race_worker(out_path):
+    """One rank of (k)'s batch-norm race (``chip_smoke.py
+    --sbn-race-worker``; two hosts of one rank on cuda:0, as
+    ``--binding-worker``): ``batch_norm_runs`` of ResNet-50 with
+    ``sync_bn_axis="dp"`` and the example with ``SyncBatchNorm``, for
+    ``SBN_RACE_STEPS`` (``CHIP_SMOKE_SBN_STEPS="w,t"`` moves them): the
+    two workloads where the batch norms' world sums meet the gradients
+    that the binding's optimizer submits from backward hooks. With
+    ``CHIP_SMOKE_FR=1`` torch's NCCL flight recorder is on, and once a
+    file ``dump`` appears beside ``out_path`` this rank writes its
+    record of every group's collectives to ``fr.<rank>.pkl`` there."""
+    import threading
+
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    tmp = Path(out_path).parent
+    if os.environ.get("CHIP_SMOKE_FR") == "1":
+        os.environ.setdefault("TORCH_NCCL_TRACE_BUFFER_SIZE", "4000")
+    import horovod_tpu_torch.torch as hvd
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    hvd.init()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rank = hvd.rank()
+    if os.environ.get("CHIP_SMOKE_FR") == "1":
+        def dump():
+            while not (tmp / "dump").exists():
+                time.sleep(0.2)
+            from torch._C._distributed_c10d import _dump_nccl_trace
+
+            (tmp / f"fr.{rank}.pkl").write_bytes(_dump_nccl_trace())
+
+        threading.Thread(target=dump, daemon=True).start()
+    steps = tuple(int(v) for v in os.environ.get(
+        "CHIP_SMOKE_SBN_STEPS", ",".join(map(str, SBN_RACE_STEPS))
+    ).split(","))
+    out = {"rank": rank, "steps": steps}
+    out.update(batch_norm_runs(hvd, rank, dev, steps, axes=("dp",),
+                               paths=("synced",)))
+    hvd.shutdown()
+    Path(out_path).write_text(json.dumps(out))
+    return 0
+
+
+def sbn_race_phase(gpu, runs=SBN_RACE_RUNS):
+    """(k)'s batch-norm race: ``runs`` pairs of ``--sbn-race-worker``, one
+    after another, each under ``SBN_RACE_TIMEOUT_S``; a pair that hangs or
+    fails fails (k). Each run's losses must be finite and the same on
+    both ranks."""
+    for i in range(runs):
+        t1 = time.perf_counter()
+        res = run_workers("--sbn-race-worker", BINDING, SBN_RACE_TIMEOUT_S,
+                          local_size=1,
+                          env={"CUBLAS_WORKSPACE_CONFIG": ":4096:8"})
+        for key in ("resnet_dp", "example_synced"):
+            losses = [r[key][0] for r in res]
+            if not all(math.isfinite(v) for v in losses[0]) or \
+                    losses[0] != losses[1]:
+                raise AssertionError(f"(k) batch-norm race {i}: {key} "
+                                     f"losses {losses}")
+        log(f"    batch-norm race {i + 1} of {runs}: "
+            f"{time.perf_counter() - t1:.1f} s (limit "
+            f"{SBN_RACE_TIMEOUT_S} s); ms a step over "
+            f"{res[0]['steps'][1]} timed, rank 0: resnet_dp "
+            f"{res[0]['resnet_dp'][1]:.2f}, example_synced "
+            f"{res[0]['example_synced'][1]:.2f} on {gpu}")
+
+
+def flight_record_summary(path, last=12):
+    """The last ``last`` entries of one rank's NCCL flight record (torch's
+    ``_dump_nccl_trace`` pickle), one line each: the group, its sequence
+    number, the collective, its sizes and its state."""
+    import pickle
+
+    entries = pickle.loads(Path(path).read_bytes()).get("entries", [])
+    lines = []
+    for e in entries[-last:]:
+        pg = e.get("process_group", ("?", "?"))
+        lines.append(f"pg {pg[0]} ({pg[1]}) seq {e.get('collective_seq_id')} "
+                     f"{e.get('profiling_name')} "
+                     f"{e.get('input_sizes')} {e.get('state')}")
+    return lines
+
+
+def sbn_race_repro(runs, trees, keep="build/sbn_race", steps=(2, 8),
+                   dump_s=85.0, abort_s=90.0, limit_s=120.0):
+    """(k)'s batch-norm race alone (``python3 chip_smoke.py --sbn-race
+    RUNS [--keep OUT] [DIR[:RUNS] ...]``): ``runs`` pairs of
+    ``--sbn-race-worker`` for this checkout and, in turn with them, each
+    DIR's own RUNS (default ``runs``; a DIR is another checkout, whose own
+    package a copy of this file imports), ``steps`` of each model, torch's
+    NCCL flight recorder on. A pair still running at ``dump_s`` writes its
+    flight records, gets SIGABRT at ``abort_s`` (``PYTHONFAULTHANDLER``:
+    every thread's stack in its log) and SIGKILL at ``limit_s``; the logs
+    and records of a pair that hung or failed go under ``keep`` (OUT,
+    relative to this checkout). One JSON line a run; 0 when no run failed
+    other than by hanging."""
+    import signal
+
+    counts = [runs] + [int(t.rpartition(":")[2]) if ":" in t else runs
+                       for t in trees]
+    trees = [REPO, *[Path(t.partition(":")[0]).resolve() for t in trees]]
+    scripts = [Path(__file__).resolve()]
+    for t in trees[1:]:
+        shutil.copy(Path(__file__).resolve(), t / "chip_smoke_race.py")
+        scripts.append(t / "chip_smoke_race.py")
+    keep = REPO / keep
+    env = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8", "CHIP_SMOKE_FR": "1",
+           "PYTHONFAULTHANDLER": "1", "TORCH_NCCL_TRACE_BUFFER_SIZE": "4000",
+           "TORCH_NCCL_ENABLE_TIMING": "1",
+           "CHIP_SMOKE_SBN_STEPS": ",".join(map(str, steps))}
+    failed = 0
+    for i in range(max(counts)):
+        for tree, script, count in zip(trees, scripts, counts):
+            if i >= count:
+                continue
+            t0 = time.perf_counter()
+            procs, tmp = spawn_workers("--sbn-race-worker", BINDING,
+                                       local_size=1, env=env, script=script)
+            hung = False
+            for at, act in ((dump_s, "dump"), (abort_s, "abort"),
+                            (limit_s, "kill")):
+                while time.perf_counter() - t0 < at and \
+                        any(p.poll() is None for p in procs):
+                    time.sleep(0.2)
+                if all(p.poll() is not None for p in procs):
+                    break
+                hung = True
+                if act == "dump":
+                    (tmp / "dump").write_text("")
+                for p in procs:
+                    if p.poll() is None and act != "dump":
+                        p.send_signal(signal.SIGABRT if act == "abort"
+                                      else signal.SIGKILL)
+            for p in procs:
+                p.wait()
+            codes = [p.returncode for p in procs]
+            row = {"tree": str(tree), "run": i, "hung": hung, "codes": codes,
+                   "s": round(time.perf_counter() - t0, 3)}
+            res = [json.loads((tmp / f"rank{r}.json").read_text())
+                   if (tmp / f"rank{r}.json").exists() else None
+                   for r in range(BINDING)]
+            if res[0] is not None:
+                row.update({k: round(res[0][k][1], 3)
+                            for k in ("resnet_dp", "example_synced")})
+            if hung:
+                dest = keep / f"{Path(tree).name}_{i:02d}"
+                shutil.copytree(tmp, dest, dirs_exist_ok=True)
+                row["flight"] = {
+                    r: flight_record_summary(tmp / f"fr.{r}.pkl")
+                    for r in range(BINDING) if (tmp / f"fr.{r}.pkl").exists()}
+            elif codes != [0, 0]:
+                failed += 1
+                shutil.copytree(tmp, keep / f"{Path(tree).name}_{i:02d}",
+                                dirs_exist_ok=True)
+            shutil.rmtree(tmp, ignore_errors=True)
+            log(json.dumps(row))
+    return 1 if failed else 0
 
 
 def elastic_fault_run(hvd, rank, dev, fault):
@@ -3386,7 +3582,9 @@ def elastic_worker(out_path):
     model in ``elastic.run`` whose every batch ends in a 64 MiB
     allreduce, or, with ``CHIP_SMOKE_KILL_SYNC_BN=1``, a model of two
     ``SyncBatchNorm`` under a plain optimizer, whose only collectives are
-    the batch norms' direct all-reduces (the same data on every rank).
+    the batch norms' all-reduces (the same data on every rank), direct
+    ones: no named collective runs beside them, so each batch runs in
+    ``ops/collectives.direct_world_sums``.
     Rank 1 marks batch ``KILL_READY`` (``ready``); rank 0 writes the time
     it raised ``HorovodInternalError`` (``raised``), and each rank the
     time of its first batch committed in the re-formed world
@@ -3400,6 +3598,7 @@ def elastic_worker(out_path):
 
     sys.path.insert(0, str(REPO))
     import horovod_tpu_torch.torch as hvd
+    from horovod_tpu_torch.ops.collectives import direct_world_sums
 
     faulthandler.register(signal.SIGUSR1, all_threads=True)
     tmp = Path(out_path).parent
@@ -3434,7 +3633,8 @@ def elastic_worker(out_path):
                     x = torch.randn(
                         64, 512, generator=torch.Generator().manual_seed(
                             state.batch)).to(dev)
-                    model(x).square().mean().backward()
+                    with direct_world_sums():
+                        model(x).square().mean().backward()
                     opt.step()
                 else:
                     model(torch.ones(8, 512, device=dev)).sum().backward()
@@ -3576,12 +3776,21 @@ def binding_phase(gpu):
 
     from horovod_tpu_torch.examples import pytorch_synthetic_benchmark as ex
 
+    from concurrent.futures import ThreadPoolExecutor
+
     t0 = time.perf_counter()
     env = {"CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
-    # Two hosts of one rank: each rank's local rank is 0, so the example's
-    # torch.cuda.set_device(hvd.local_rank()) takes the one card.
-    res = run_workers("--binding-worker", BINDING, BINDING_TIMEOUT_S,
-                      local_size=1, env=env)
+    # The batch-norm race runs beside the binding's pair (a world of its
+    # own on the card; both are correctness runs, so the second world
+    # only adds load) and must end, unhung, before the kill runs.
+    with ThreadPoolExecutor(1) as pool:
+        race = pool.submit(sbn_race_phase, gpu)
+        # Two hosts of one rank: each rank's local rank is 0, so the
+        # example's torch.cuda.set_device(hvd.local_rank()) takes the
+        # one card.
+        res = run_workers("--binding-worker", BINDING, BINDING_TIMEOUT_S,
+                          local_size=1, env=env)
+        race.result()
     for r in res:
         log(f"    rank {r['rank']} on {r['device']}: {len(r['checks'])} "
             f"binding checks passed: {', '.join(r['checks'])}")
@@ -3602,7 +3811,7 @@ def binding_phase(gpu):
                 s["sbn_var"] <= 1e-4):
             raise AssertionError(f"(k) rank {r['rank']}: SyncBatchNorm")
         for key in ("resnet_dp", "resnet_None", "example_local",
-                    "example_direct", "example_negotiated"):
+                    "example_synced", "example_negotiated"):
             losses, ms = s[key]
             log(f"    rank {r['rank']} {key}: losses "
                 f"{[round(x, 4) for x in losses]}, {ms:.2f} ms a step "
@@ -3671,13 +3880,22 @@ LAUNCH_HOSTS = "localhost:1,127.0.0.1:1"     # two hosts of one slot
 # without a shell, so the worker command carries its own.
 NCCL_HOST_WRAP = ["sh", "-c",
                   'NCCL_HOSTID=chip-smoke-$HOROVOD_HOSTNAME exec "$0" "$@"']
+# Unbuffered: a job that fails while it runs shows its output's end.
 LAUNCH_ENV = {"NCCL_IB_DISABLE": "1", "NCCL_SOCKET_IFNAME": "lo",
-              "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+              "CUBLAS_WORKSPACE_CONFIG": ":4096:8", "PYTHONUNBUFFERED": "1"}
 HANG_HEARTBEAT_MS, HANG_TIMEOUT_MS = 100, 2000
 # The survivor raises within this many seconds of its peer's SIGSTOP with
 # heartbeats armed: the liveness timeout, then the communicators' abort.
 HANG_BOUND_S = HANG_TIMEOUT_MS / 1000 + 3.0
-STALL_CAP_S = 10.0      # (l) watches the stall-only job this long
+# (l): the survivor of the stall-only job (no heartbeats,
+# HOROVOD_STALL_SHUTDOWN_TIME_SECONDS=2) raises within this many seconds
+# of its peer's SIGSTOP: the coordinator's gather runs the stall inspector
+# while the stopped rank's frame is missing, and its shutdown window
+# ends the world as lost. 2.009 s on an NVIDIA H100 80GB HBM3 at 700 W
+# (PERF.md): the window, a 0.1 s check, the watch's 10 ms read and the
+# groups' aborts (0.935 s at most in 28 kill runs), with a second spare.
+STALL_SHUTDOWN_S = 2
+STALL_BOUND_S = 4.0
 LAUNCH_KILL_AT, LAUNCH_STOP_AT, LAUNCH_TARGET = 5, 12, 18
 LAUNCH_TIMEOUT_S = 240
 LAUNCH_LOG_TAIL = 40
@@ -3831,8 +4049,8 @@ def first_after(events, t, pred):
 def launcher_phase(gpu):
     """(l): ``python -m horovod_tpu_torch.run`` on the card. Its
     ``--check-build --verbose``; a static job of the example at two ranks;
-    a stall-only elastic job with rank 1 SIGSTOPped (watched for
-    ``STALL_CAP_S``, beside the static job); then the elastic job with
+    a stall-only elastic job with rank 1 SIGSTOPped (rank 0 raising
+    within ``STALL_BOUND_S``, beside the static job); then the elastic job with
     heartbeats: rank 1 SIGKILLed, then SIGSTOPped, and respawned both
     times."""
     import torch
@@ -3854,7 +4072,8 @@ def launcher_phase(gpu):
                                   *worker],
                         {"CHIP_SMOKE_FAULTS": "stop", "CHIP_SMOKE_STOP_AT": "3",
                          "HOROVOD_STALL_CHECK_TIME_SECONDS": "1",
-                         "HOROVOD_STALL_SHUTDOWN_TIME_SECONDS": "2"})
+                         "HOROVOD_STALL_SHUTDOWN_TIME_SECONDS":
+                             str(STALL_SHUTDOWN_S)})
     jobs = [stall]
     try:
         # (3) the static job: the example at two ranks, full width.
@@ -3895,22 +4114,31 @@ def launcher_phase(gpu):
             f"a device (ResNet-50, fp32, batch 32, 224 px, 1 + 2 x 2 "
             f"batches; two ranks on one card beside the stall-only job, a "
             f"correctness run) in {time.perf_counter() - t1:.1f} s on {gpu}")
-        # The stall-only job: watched STALL_CAP_S from its stop.
+        # The stall-only job: rank 0 must raise within STALL_BOUND_S of
+        # the stop.
         deadline = time.perf_counter() + LAUNCH_TIMEOUT_S
         while not any(w == ["fault", "stop"] for w, _ in stall.events()):
             if time.perf_counter() > deadline or stall.proc.poll() is not None:
                 stall.fail("rank 1 never stopped")
             time.sleep(0.1)
         t_stop = next(t for w, t in stall.events() if w == ["fault", "stop"])
-        time.sleep(max(0.0, t_stop + STALL_CAP_S - time.time()))
-        raised = first_after(stall.events(), t_stop,
-                             lambda w: w[:1] == ["raised"])
+
+        def stall_raise():
+            return first_after(stall.events(), t_stop,
+                               lambda w: w == ["raised", "0"])
+
+        while stall_raise() is None and time.time() < t_stop + STALL_BOUND_S:
+            time.sleep(0.05)
+        raised = stall_raise()
         log(f"    SIGSTOP of rank 1 with only the stall inspector "
             f"(HOROVOD_STALL_CHECK_TIME_SECONDS=1, "
-            f"HOROVOD_STALL_SHUTDOWN_TIME_SECONDS=2): "
+            f"HOROVOD_STALL_SHUTDOWN_TIME_SECONDS={STALL_SHUTDOWN_S}): "
             + (f"rank 0 raised {raised - t_stop:.3f} s after it"
                if raised else f"no raise within {time.time() - t_stop:.1f} s")
-            + f" on {gpu}")
+            + f" (bound {STALL_BOUND_S} s) on {gpu}")
+        if raised is None or raised - t_stop > STALL_BOUND_S:
+            stall.fail(f"rank 0 did not raise within {STALL_BOUND_S} s of "
+                       f"the SIGSTOP")
         stall.stop()
         # (4) the elastic job with heartbeats: a SIGKILL, then a SIGSTOP.
         t2 = time.perf_counter()
@@ -5081,6 +5309,8 @@ if __name__ == "__main__":
         sys.exit(planes_worker(sys.argv[2]))
     if sys.argv[1:2] == ["--binding-worker"]:
         sys.exit(binding_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--sbn-race-worker"]:
+        sys.exit(sbn_race_worker(sys.argv[2]))
     if sys.argv[1:2] == ["--elastic-worker"]:
         sys.exit(elastic_worker(sys.argv[2]))
     if sys.argv[1:2] == ["--launcher-worker"]:
@@ -5097,4 +5327,10 @@ if __name__ == "__main__":
         sys.exit(lost_worker(sys.argv[2]))
     if sys.argv[1:2] == ["--time-tree"]:
         sys.exit(time_tree(sys.argv[2]))
+    if sys.argv[1:2] == ["--sbn-race"]:
+        rest = sys.argv[3:]
+        out = {}
+        if rest[:1] == ["--keep"]:
+            out["keep"], rest = rest[1], rest[2:]
+        sys.exit(sbn_race_repro(int(sys.argv[2]), rest, **out))
     sys.exit(main())

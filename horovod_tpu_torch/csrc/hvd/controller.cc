@@ -264,6 +264,10 @@ Status TcpController::Initialize() {
   stall_.Configure(cfg_.stall_warning_sec, cfg_.stall_shutdown_sec,
                    cfg_.size, cfg_.stall_check_enabled);
   liveness_on_ = cfg_.heartbeat_ms > 0 && cfg_.size > 1;
+  // Without heartbeats the stall inspector bounds a silent peer
+  // (GatherWithStallChecks).
+  stall_gather_on_ = !liveness_on_ && cfg_.size > 1 &&
+                     cfg_.stall_check_enabled;
   last_seen_.assign(cfg_.size, std::chrono::steady_clock::now());
   peer_state_.assign(cfg_.size, kAlive);
   if (cfg_.rank == 0) {
@@ -676,6 +680,91 @@ void TcpController::GatherWithLiveness(
       }
     }
     drained_once = true;
+  }
+}
+
+void TcpController::GatherWithStallChecks(
+    const std::function<void(int, const std::string&)>& ingest,
+    const std::vector<bool>* expect_frame) {
+  std::vector<int> pending;
+  for (int r = 1; r < cfg_.size; ++r) {
+    if (shutdown_ranks_[r]) continue;
+    if (expect_frame != nullptr && !(*expect_frame)[r]) continue;
+    pending.push_back(r);
+  }
+  // Read every frame that is whole already (none blocks: a frame half
+  // received stays buffered for the next read); a closed connection is
+  // a departure and a loss.
+  auto drain = [&](int r) {
+    std::string bytes;
+    int rc = worker_socks_[r - 1].RecvFrameTimeout(&bytes, 0);
+    if (rc == 0) return false;
+    if (rc < 0) {
+      shutdown_ranks_[r] = true;
+      world_lost_ = true;
+    } else {
+      ingest(r, bytes);
+    }
+    return true;
+  };
+  // A rank whose frame this gather still misses has been silent since
+  // the gather began, at least: an alive rank's cycle sends one frame
+  // every cycle, idle or not.
+  auto start = std::chrono::steady_clock::now();
+  auto last_check = start;
+  std::vector<bool> named(cfg_.size, false);
+  bool first = true;
+  while (!pending.empty()) {
+    if (!first) {
+      std::vector<struct pollfd> pfds(pending.size());
+      for (size_t i = 0; i < pending.size(); ++i) {
+        pfds[i].fd = worker_socks_[pending[i] - 1].fd();
+        pfds[i].events = POLLIN;
+        pfds[i].revents = 0;
+      }
+      int pr = ::poll(pfds.data(), pfds.size(), kStallGatherTickMs);
+      if (pr < 0 && errno != EINTR) break;
+    }
+    first = false;
+    for (auto it = pending.begin(); it != pending.end();) {
+      it = drain(*it) ? pending.erase(it) : it + 1;
+    }
+    if (pending.empty()) break;
+    auto now = std::chrono::steady_clock::now();
+    if (MsSince(last_check, now) < kStallGatherTickMs) continue;
+    last_check = now;
+    bool stall_shutdown = false;
+    std::string report = stall_.Check(&stall_shutdown);
+    double silent_s = MsSince(start, now) / 1000.0;
+    if (silent_s >= cfg_.stall_warning_sec) {
+      std::string ranks;
+      for (int r : pending) {
+        if (named[r]) continue;
+        named[r] = true;
+        ranks += (ranks.empty() ? "" : ",") + std::to_string(r);
+      }
+      if (!ranks.empty()) {
+        report += "Silent ranks [" + ranks + "]: no request frame for " +
+                  std::to_string(static_cast<int>(silent_s)) + "s\n";
+      }
+    }
+    if (cfg_.stall_shutdown_sec > 0 && silent_s > cfg_.stall_shutdown_sec) {
+      stall_shutdown = true;
+    }
+    if (!report.empty()) {
+      {
+        MutexLock lk(stall_report_mu_);
+        stall_report_ += report;
+      }
+      std::fprintf(stderr, "[horovod_tpu coordinator] %s", report.c_str());
+    }
+    if (stall_shutdown) {
+      // The shutdown window passed while these ranks stayed silent (or a
+      // tensor waited past it): they are lost, and the verdict is LOST.
+      for (int r : pending) shutdown_ranks_[r] = true;
+      world_lost_ = true;
+      return;
+    }
   }
 }
 
@@ -1124,6 +1213,8 @@ std::vector<Response> TcpController::CoordinatorCycle(
 
   if (liveness_on_) {
     GatherWithLiveness(ingest_frame, hier_on_ ? &leader_rank_ : nullptr);
+  } else if (stall_gather_on_) {
+    GatherWithStallChecks(ingest_frame, hier_on_ ? &leader_rank_ : nullptr);
   } else if (hier_on_) {
     // Blocking serial gather over the leaders only — the O(H) frame
     // fan-in the hier protocol exists for.

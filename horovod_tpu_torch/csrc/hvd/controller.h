@@ -389,6 +389,23 @@ class TcpController : public Controller {
       const std::vector<bool>* expect_frame = nullptr);
   void EvictRank(int rank, const char* reason, double silence_ms);
   void MarkSuspect(int rank, const char* reason, double silence_ms);
+  // The gather without heartbeats while the stall inspector is on
+  // (`stall_gather_on_`): one request frame per awaited worker, as the
+  // blocking serial gather reads them, but the wait is a poll over every
+  // awaited socket, so the stall inspector runs every
+  // kStallGatherTickMs while a frame is missing. A silent rank (a
+  // SIGSTOPped process keeps its connection open; an alive one sends a
+  // frame every cycle) is then named in the stall report past the
+  // warning window; past the shutdown window (or once a tensor has
+  // waited past it) each rank whose frame is still missing is taken as
+  // departed and the world as lost, so the verdict is LOST. A closed
+  // connection is a departure and a loss, as in the serial gather.
+  // `expect_frame` as in GatherWithLiveness.
+  void GatherWithStallChecks(
+      const std::function<void(int, const std::string&)>& ingest,
+      const std::vector<bool>* expect_frame = nullptr);
+  static constexpr int kStallGatherTickMs = 100;
+  bool stall_gather_on_ = false;  // fixed at Initialize, like liveness_on_
 
   int data_port_ = 0;
   std::string my_host_;

@@ -745,6 +745,15 @@ bool RunLoopOnce(Controller* ctl, Ring* ring,
   // renegotiate their cross transport in lock-step
   // (docs/cross-transport.md).
   int synced_stripes = ctl->TakeSyncedStripes();
+  // ...and only at a frame that runs responses. The coordinator stamps
+  // the hint into every frame, idle ones too: applied there, a flip that
+  // rank 0 asked for between two collectives resets a peer's stripes
+  // while that peer's caller still reads the gauges of the last one
+  // (ring_stripe_count 0 on a leader right after a striped collective).
+  // A response runs only once every rank submitted it, so every caller
+  // has moved past the last collective before its stripes change; every
+  // rank receives the same frames, so the apply stays in lock-step.
+  if (responses.empty()) synced_stripes = -1;
   if (synced_stripes >= 1 && ring != nullptr) {
     ring->ApplyStripeCount(synced_stripes);
   }

@@ -28,9 +28,13 @@
 //   - worldlost: the C API's verdict across processes. This binary starts
 //     itself again as rank 1 of a 2-rank hvd_init world; a thread polls
 //     hvd_world_lost() throughout, as the binding's watch does. Rank 1
-//     exits without a farewell (the verdict turns 1) or leaves by
-//     hvd_shutdown (it stays 0); then rank 0 shuts down and re-inits a
-//     world of one, where the verdict reads 0 again;
+//     exits without a farewell (the verdict turns 1), leaves by
+//     hvd_shutdown (it stays 0), or SIGSTOPs itself with its connection
+//     open while rank 0, with no heartbeats and a 1 s stall shutdown
+//     window, waits in an allreduce (the coordinator's polling gather
+//     runs the stall inspector; the verdict turns 1 within
+//     kSilentBoundS); then rank 0 shuts down and re-inits a world of
+//     one, where the verdict reads 0 again;
 //   - departure: a death in the cycle of another rank's departure. The
 //     coordinator and the leaving rank are TcpControllers of this
 //     process; rank 1 is this binary again ("--death <port> <cross>
@@ -50,6 +54,7 @@
 // prints STRESS_OK when all phases complete; any TSan report fails the
 // run via TSAN_OPTIONS=exitcode=66 (set by the tests and chip_smoke.py).
 
+#include <signal.h>
 #include <spawn.h>
 #include <sys/wait.h>
 #include <unistd.h>
@@ -733,12 +738,20 @@ void ReconnectPhase() {
   }
 }
 
+// The worldlost phase's silent round: rank 0's stall windows, and the
+// seconds within which its allreduce must end after rank 1 stops.
+constexpr double kSilentWarnS = 0.5, kSilentShutdownS = 1.0;
+constexpr double kSilentBoundS = kSilentShutdownS + 4.0;
+
 // Rank 1 of the worldlost phase's world, in a process of its own (this
 // binary with "--rank1 <port> <mode>"): one allreduce, then an exit
-// without a farewell ("exit") or a departure by hvd_shutdown.
+// without a farewell ("exit"), a departure by hvd_shutdown, or a SIGSTOP
+// ("stop": silent, its sockets open, until rank 0 kills it).
 int Rank1(int port, const std::string& mode) {
+  bool stop = mode == "stop";
   int rc = hvd_init(1, 2, 0, 1, 1, 2, "127.0.0.1", port, "127.0.0.1", 1.0,
-                    1 << 20, 64, 60.0, 0.0, 0, 0, 0);
+                    1 << 20, 64, stop ? kSilentWarnS : 60.0,
+                    stop ? kSilentShutdownS : 0.0, stop ? 1 : 0, 0, 0);
   if (rc != 0) {
     std::fprintf(stderr, "FAIL: rank 1 hvd_init\n");
     return 1;
@@ -754,6 +767,7 @@ int Rank1(int port, const std::string& mode) {
     return 1;
   }
   if (mode == "exit") _exit(0);  // no farewell: its sockets just close
+  if (stop) raise(SIGSTOP);
   hvd_shutdown();
   return 0;
 }
@@ -769,9 +783,10 @@ void WorldLostPhase(const char* self) {
       polls.fetch_add(hvd_world_lost() + hvd_initialized() + 1);
     }
   });
-  const char* modes[] = {"exit", "shutdown"};
-  for (int round = 0; round < 2 && failures == 0; ++round) {
+  const char* modes[] = {"exit", "shutdown", "stop"};
+  for (int round = 0; round < 3 && failures == 0; ++round) {
     std::string mode = modes[round];
+    bool stop = mode == "stop";
     int port = 0;
     {
       hvd::Listener probe;
@@ -791,8 +806,10 @@ void WorldLostPhase(const char* self) {
       break;
     }
     int rc = hvd_init(0, 2, 0, 1, 0, 2, "127.0.0.1", port, "127.0.0.1", 1.0,
-                      1 << 20, 64, 60.0, 0.0, 0, 0, 0);
+                      1 << 20, 64, stop ? kSilentWarnS : 60.0,
+                      stop ? kSilentShutdownS : 0.0, stop ? 1 : 0, 0, 0);
     CHECK(rc == 0, "worldlost phase: rank 0 hvd_init");
+    double waited = 0.0;
     if (rc == 0) {
       float buf[16];
       for (int k = 0; k < 16; ++k) buf[k] = 1.0f;
@@ -803,8 +820,9 @@ void WorldLostPhase(const char* self) {
                                 kPlaneHost);
       CHECK(h >= 0 && hvd_wait(h, err, sizeof(err)) == 1 && buf[0] == 2.0f,
             "worldlost phase: rank 0 allreduce");
-      // The world ends with rank 1's exit or departure: a submission
-      // after it resolves as aborted.
+      // The world ends with rank 1's exit, departure or silence: a
+      // submission after it resolves as aborted.
+      auto t0 = std::chrono::steady_clock::now();
       long long h2 = hvd_enqueue("wl.1", kOpAllreduce, kReduceSum,
                                  kDtypeF32, shape, 1, buf, buf, -1, 1.0,
                                  1.0, kPlaneHost);
@@ -812,7 +830,12 @@ void WorldLostPhase(const char* self) {
         CHECK(hvd_wait(h2, err, sizeof(err)) != 1,
               "worldlost phase: the world ended");
       }
-      bool want = mode == "exit";
+      waited = std::chrono::duration<double>(
+                   std::chrono::steady_clock::now() - t0).count();
+      CHECK(!stop || waited <= kSilentBoundS,
+            "worldlost phase: a silent rank must end the world within the "
+            "stall bound");
+      bool want = mode != "shutdown";
       for (int i = 0; i < 2000 && (hvd_world_lost() == 1) != want; ++i) {
         std::this_thread::sleep_for(std::chrono::milliseconds(10));
       }
@@ -825,11 +848,14 @@ void WorldLostPhase(const char* self) {
             "worldlost phase: the verdict outlives shutdown");
       std::printf("WORLDLOST round=%d rank1=%s world_lost=%d\n", round,
                   mode.c_str(), verdict);
+      if (stop) std::printf("WORLDLOST silent_s=%.3f\n", waited);
     }
     int status = 0;
+    if (stop) kill(child, SIGKILL);
     waitpid(child, &status, 0);
-    CHECK(WIFEXITED(status) && WEXITSTATUS(status) == 0,
-          "worldlost phase: rank 1 exited 0");
+    CHECK(stop ? WIFSIGNALED(status) && WTERMSIG(status) == SIGKILL
+               : WIFEXITED(status) && WEXITSTATUS(status) == 0,
+          "worldlost phase: rank 1 exited 0 (killed when silent)");
     // A re-init resets the verdict.
     int rc1 = hvd_init(0, 1, 0, 1, 0, 1, "127.0.0.1", 0, "127.0.0.1", 1.0,
                        1 << 20, 64, 60.0, 0.0, 0, 0, 0);

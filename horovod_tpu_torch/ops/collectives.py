@@ -37,6 +37,7 @@ launched asynchronously so that gathers run ahead of the compute).
 
 from __future__ import annotations
 
+import contextlib
 from typing import List, Sequence
 
 import torch
@@ -218,6 +219,59 @@ def guarded_allreduce(tensor, op: int = ReduceOp.AVERAGE, axis=None):
     (``state.direct_collective``)."""
     with _state.direct_collective():
         return allreduce(tensor, op=op, axis=axis)
+
+
+# How many ``direct_world_sums`` scopes are open in this process.
+_direct_sums = 0
+
+
+@contextlib.contextmanager
+def direct_world_sums():
+    """A scope whose world sums take the direct all-reduce
+    (``ordered_allreduce``): every collective of it leaves the caller's
+    thread in program order, on every rank alike, and no named one runs on
+    the eager engine's executor meanwhile. ``training.make_train_step``
+    opens one around each step of the bucketed optimizer."""
+    global _direct_sums
+    _direct_sums += 1
+    try:
+        yield
+    finally:
+        _direct_sums -= 1
+
+
+def ordered_allreduce(tensor, name: str, op: int = ReduceOp.AVERAGE,
+                      axis=None):
+    """``guarded_allreduce`` of a sum that the caller's thread needs at
+    once (batch norm's statistics over the world), ordered with the eager
+    engine's collectives. While the engine's executor runs named
+    collectives on its own communicator (the binding's per-parameter
+    ``DistributedOptimizer`` submits each gradient from a backward hook),
+    a direct all-reduce on the world's communicator can reach the card
+    before an executor collective on one rank and after it on another.
+    Each rank's card then runs a kernel whose peer is the other
+    communicator's next one, and a launch that waits for the card to
+    drain (a kernel's first load, a ``cudaFree``) never returns: the two
+    ranks wait for each other. So the sum is negotiated under ``name``
+    (the same on every rank) and runs in the coordinator's order on the
+    executor. It is the direct all-reduce where that is safe: direct mode
+    (``HOROVOD_NATIVE=0``, no executor), a world of one, a group smaller
+    than the world (the core negotiates over the world only), or inside
+    ``direct_world_sums``; each of these is the same on every rank at the
+    same point of the program. A lost world raises
+    ``HorovodInternalError`` on either path."""
+    axis = axis or _world()
+    st = _state.global_state()
+    eng = st.engine
+    if eng is None or eng.native_core is None or _direct_sums or \
+            st.size == 1 or axis.size != st.size:
+        return guarded_allreduce(tensor, op=op, axis=axis)
+    # One name a shape: the core's response cache keeps each.
+    handle = eng.allreduce_async(
+        tensor, name=f"{name}.{'x'.join(map(str, tensor.shape))}", op=op)
+    out = eng.synchronize(handle)
+    _state.check_world()
+    return out
 
 
 def fuse(flats: Sequence[torch.Tensor], indices: Sequence[int]):
@@ -614,17 +668,20 @@ class _MeanOver(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, axis):
         ctx.axis = axis
-        return guarded_allreduce(x, op=ReduceOp.AVERAGE, axis=axis)
+        return ordered_allreduce(x, "mean_over.fwd", op=ReduceOp.AVERAGE,
+                                 axis=axis)
 
     @staticmethod
     def backward(ctx, g):
-        return guarded_allreduce(g, op=ReduceOp.AVERAGE, axis=ctx.axis), None
+        return ordered_allreduce(g, "mean_over.bwd", op=ReduceOp.AVERAGE,
+                                 axis=ctx.axis), None
 
 
 def mean_over(x: torch.Tensor, axis) -> torch.Tensor:
     """``lax.pmean(x, axis)``: the mean over the group, differentiable
-    (its backward is the mean of the ranks' gradients). In a world that
-    lost a rank it raises ``HorovodInternalError`` (``guarded_allreduce``)."""
+    (its backward is the mean of the ranks' gradients), each ordered with
+    the eager engine's collectives (``ordered_allreduce``). In a world
+    that lost a rank it raises ``HorovodInternalError``."""
     if axis is None or axis.size == 1:
         return x
     return _MeanOver.apply(x, axis)

@@ -484,6 +484,14 @@ class ElasticDriver:
         handle = _WorkerHandle()
         key = (slot.hostname, slot.local_rank)
         self._workers_active[key] = handle
+        if self._liveness is not None:
+            # A new worker enters the tracker at its first beat: neither
+            # the silence of the worker it replaces on this slot nor that
+            # worker's last beat, still in the KV, is its own, and a
+            # respawn can come before a liveness pass sees the slot empty.
+            self._liveness.forget(key)
+            self._hb_seen[key] = self._rendezvous.get(
+                HEARTBEAT_SCOPE, f"{slot.hostname}:{slot.local_rank}")
 
         def run():
             try:

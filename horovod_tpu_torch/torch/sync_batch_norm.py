@@ -6,12 +6,14 @@ fp32 and takes the one-pass variance E[x^2] - E[x]^2 of the world's
 batch; the backward all-reduces the two gradient sums. The running
 variance is the unbiased one, as torch's batch norm keeps it, and the
 output is in the input's dtype. On the world's device the two sums a
-layer go through the direct world all-reduce (``ops/collectives``, on the
-caller's stream): every rank runs the same layers in the same order, so
-negotiating them would only add a round trip to the forward's critical
-path. A failure there in a world that lost a rank raises
-``HorovodInternalError``, as the named plane does. A CPU tensor in a
-world on a GPU goes through the named plane (``hvd.allreduce``).
+layer are negotiated, as the reference's are, so that they run in the
+coordinator's order with the gradients that the binding's
+``DistributedOptimizer`` submits from backward hooks
+(``ops/collectives.ordered_allreduce``); inside a bucketed train step
+(``ops/collectives.direct_world_sums``) they take the direct world
+all-reduce. A lost world raises ``HorovodInternalError`` on either path.
+A CPU tensor in a world on a GPU goes through the named host plane
+(``hvd.allreduce``).
 """
 
 from __future__ import annotations
@@ -50,10 +52,11 @@ class SyncBatchNorm(_BatchNorm):
 
 
 def _world_sum(t: torch.Tensor, name: str) -> torch.Tensor:
-    """The sum of ``t`` over the world: the direct all-reduce for a tensor
-    on the world's device, the named plane otherwise."""
+    """The sum of ``t`` over the world: ordered with the eager engine's
+    collectives for a tensor on the world's device, the named host plane
+    otherwise."""
     if _ops._plane(t) == _ops._ENGINE:
-        return _coll.guarded_allreduce(t, op=_coll.Sum)
+        return _coll.ordered_allreduce(t, name, op=_coll.Sum)
     return _ops.synchronize(_ops.allreduce_async(t, op=_ops.Sum, name=name))
 
 

@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from .common import state as _state
-from .ops.collectives import allreduce, grouped_allreduce
+from .ops.collectives import allreduce, direct_world_sums, grouped_allreduce
 
 
 def cross_entropy_loss(logits, labels):
@@ -47,6 +47,12 @@ def make_train_step(model: torch.nn.Module, dist_opt: torch.optim.Optimizer):
     stats = [b for b in model.buffers() if b.is_floating_point()]
 
     def step(inputs, labels, segment_ids=None):
+        # The bucketed optimizer issues every collective of the step from
+        # this thread, so the batch norms' world sums may too.
+        with direct_world_sums():
+            return _step(inputs, labels, segment_ids)
+
+    def _step(inputs, labels, segment_ids):
         model.train()
         dist_opt.zero_grad(set_to_none=True)
         # No name for the logits: a live reference would keep them (the

@@ -364,8 +364,9 @@ def test_kill_and_respawn_with_sync_batch_norm_on_the_cpu():
 
 
 def test_negotiated_statistics_patches_the_sums_for_its_block_alone():
-    """(k)'s A/B routes ``SyncBatchNorm``'s sums through the named plane
-    inside its block and puts the direct path back after it."""
+    """(k)'s A/B routes ``SyncBatchNorm``'s sums through the binding's
+    public call inside its block and puts the layer's own path back after
+    it."""
     from horovod_tpu_torch.torch import sync_batch_norm
 
     cs = _chip_smoke()
@@ -383,10 +384,10 @@ def test_negotiated_statistics_patches_the_sums_for_its_block_alone():
         def synchronize(h):
             return h
 
-    direct = sync_batch_norm._world_sum
+    own = sync_batch_norm._world_sum
     with cs.negotiated_statistics(Hvd):
         out = sync_batch_norm._world_sum(torch.ones(3), "sync_batch_norm.fwd")
-    assert sync_batch_norm._world_sum is direct
+    assert sync_batch_norm._world_sum is own
     assert calls == [("sum", "sync_batch_norm.fwd")]
     assert torch.equal(out, torch.ones(3))
 

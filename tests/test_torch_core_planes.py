@@ -12,8 +12,9 @@ sizes (8 ranks as 2 hosts x 4 for the acceptance worlds):
 
 - shm: byte identity and counters, an attach failure falling back to
   TCP, strict mode's hard error, a killed rank leaving no segment;
-- stripes: byte identity and counters, a connect failure falling back to
-  one socket;
+- stripes: byte identity and counters, the 4 -> 1 -> 4 renegotiation in
+  lock-step (also with a leader a second late to read its gauges), a
+  connect failure falling back to one socket;
 - hierarchical control: byte identity and the O(hosts) gather;
 - self-heal: a cut cross leg healed in place (and, for the port,
   ``world_lost()`` false on every rank after it), a stale-epoch hello
@@ -93,23 +94,36 @@ WORLDS = {
 }
 
 
-# The stripe acceptance world's mid-world renegotiation (4 -> 1 -> 4
-# stripes) fails on both packages' cores when several 8-rank worlds share
-# the host ("horovod_tpu runtime has been shut down" at ``sync.s1``;
-# ROADMAP.md section C): slow, so that tier-1's parallel workers do not
-# crowd it. The reference's own copy stays where it is.
-UNSTEADY = {"stripe_acceptance"}
-
-
-@pytest.mark.parametrize("world", [
-    pytest.param(w, marks=pytest.mark.slow) if w in UNSTEADY else w
-    for w in sorted(WORLDS)])
+@pytest.mark.parametrize("world", sorted(WORLDS))
 def test_reference_world_on_the_ports_core(tmp_path, world):
     text, sentinel, size, timeout, shm = WORLDS[world]
     run_world(tmp_path, port_worker(text), sentinel, size=size,
               timeout=timeout)
     if shm:
         assert_no_segments()
+
+
+# The stripe acceptance world with host 1's leader (rank 1) a second late
+# to read its stripe gauge after the striped suite, while rank 0 has
+# already asked for one stripe (``set_stripes(1)``) and waits in
+# ``sync.s1``. The coordinator stamps the new count into every frame,
+# idle ones too; the port's core applies it only at a frame that runs
+# responses (``operations.cc``, ``RunLoopOnce``), so the leader still
+# reads 4 stripes, and the flip happens at ``sync.s1`` on every rank.
+# Applied at an idle frame (the JAX package's core), the leader read 0,
+# left the world, and every other rank's ``sync.s1`` failed with "runtime
+# has been shut down": the failure of four such worlds at once on 8
+# cores, where a leader's thread can lag as long.
+_GAUGE = "    assert core.ring_stripe_count() == 4, core.ring_stripe_count()\n"
+_LATE_LEADER_WORKER = ref_stripe._ACCEPTANCE_WORKER.replace(
+    _GAUGE, "    if rank == 1:\n        import time\n        time.sleep(1.0)\n"
+    + _GAUGE, 1)
+assert _LATE_LEADER_WORKER != ref_stripe._ACCEPTANCE_WORKER
+
+
+def test_a_stripe_flip_waits_for_a_late_leader(tmp_path):
+    run_world(tmp_path, port_worker(_LATE_LEADER_WORKER), "STRACC", size=8,
+              timeout=300)
 
 
 # ---- the retry-disabled cut, on both cores ----------------------------------

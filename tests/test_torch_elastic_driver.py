@@ -590,3 +590,52 @@ def test_a_worker_that_marked_its_exit_is_bounded_by_the_drain_grace(
     driver._consume_drain_marker("h", 0)
     driver.stop()
     assert ("exit", "h:0") not in kv.kv and ("heartbeat", "h:0") not in kv.kv
+
+
+def test_a_respawned_worker_enters_the_tracker_at_its_first_beat(
+        monkeypatch):
+    """A slot's worker dies and its replacement is spawned before a
+    liveness pass sees the slot empty. The replacement, still starting,
+    is not charged the dead worker's silence nor its last beat in the KV:
+    it is not evicted before it beats, and once it has beaten, its own
+    silence is bounded at the timeout as any worker's."""
+    monkeypatch.setenv("HOROVOD_HEARTBEAT_MS", "100")
+    clk = FakeClock()
+    kv = FakeRendezvous()
+    driver = port_driver.ElasticDriver(
+        kv, port_discovery.FixedHosts({"h": 2}), min_np=1)
+    from horovod_tpu_torch.common import liveness
+
+    driver._liveness = liveness.LivenessTracker(
+        heartbeat_ms=100, timeout_ms=2000, clock=clk)
+    release = threading.Event()
+    driver._create_worker_fn = _worker(release)
+    slots = {}
+    for slot in (0, 1):
+        slots[slot] = driver._assignments[("h", slot)] = port_hosts.SlotInfo(
+            hostname="h", rank=slot, local_rank=slot, cross_rank=0, size=2,
+            local_size=2, cross_size=1)
+        driver._workers_active[("h", slot)] = port_driver._WorkerHandle()
+    for beat in (b"1", b"2"):
+        kv.put("heartbeat", "h:0", beat)
+        kv.put("heartbeat", "h:1", beat)
+        driver._check_liveness()
+        clk.t += 0.5
+    kv.put("heartbeat", "h:1", b"3")      # the dead worker's last beat
+    with driver._lock:                     # its exit, then the respawn
+        driver._workers_active.pop(("h", 1))
+        driver._spawn(slots[1])
+        fresh = driver._workers_active[("h", 1)]
+    evicted = []
+    for i in range(12):
+        clk.t += 0.5
+        kv.put("heartbeat", "h:0", f"{i + 3}".encode())
+        if i == 6:
+            kv.put("heartbeat", "h:1", b"1")   # the replacement's first beat
+        driver._check_liveness()
+        evicted.append(fresh.evicted)
+    release.set()
+    driver.stop()
+    # Never before its first beat (i = 6, 3.5 s after the respawn); at
+    # the 2 s timeout after it (i = 10).
+    assert evicted == [False] * 10 + [True] * 2, evicted

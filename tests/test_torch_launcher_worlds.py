@@ -15,10 +15,13 @@
     liveness timeout plus the abort), without waiting for the driver's
     SIGKILL; the driver evicts and respawns the slot and the job ends 0;
   - only the stall inspector (``HOROVOD_STALL_CHECK_TIME_SECONDS=1``,
-    ``HOROVOD_STALL_SHUTDOWN_TIME_SECONDS=2``): no raise within
-    ``UNBOUNDED_CAP_S`` of the stop (the coordinator's cycle waits for
-    the stopped rank's request before its stall check runs);
-  - neither: no raise within ``UNBOUNDED_CAP_S`` either.
+    ``HOROVOD_STALL_SHUTDOWN_TIME_SECONDS=2``): the coordinator's gather
+    polls while the stopped rank's request is missing, so the stall
+    check runs and its shutdown window makes the verdict LOST; the
+    survivor raises within ``STALL_BOUND_S`` of the stop (the window,
+    the gather's check period and the abort). Without heartbeats the
+    driver never evicts the stopped worker, so the job does not re-form;
+  - neither: no raise within ``UNBOUNDED_CAP_S``.
   Each prints a ``HANG`` line with its seconds.
 - Workers whose teardown outlasts the liveness timeout after their last
   batch (the interpreter's finalization stops the heartbeat thread; the
@@ -40,6 +43,8 @@ import torch_worlds
 
 HANG_TIMEOUT_MS = 2000
 HANG_BOUND_S = HANG_TIMEOUT_MS / 1000 + 3.0
+STALL_SHUTDOWN_S = 2
+STALL_BOUND_S = STALL_SHUTDOWN_S + 3.0
 UNBOUNDED_CAP_S = 10.0
 
 # The JAX package's binding in place of the port's.
@@ -122,7 +127,7 @@ HANG_SETTINGS = {
     "heartbeat": {"HOROVOD_HEARTBEAT_MS": "100",
                   "HOROVOD_LIVENESS_TIMEOUT_MS": str(HANG_TIMEOUT_MS)},
     "stall": {"HOROVOD_STALL_CHECK_TIME_SECONDS": "1",
-              "HOROVOD_STALL_SHUTDOWN_TIME_SECONDS": "2"},
+              "HOROVOD_STALL_SHUTDOWN_TIME_SECONDS": str(STALL_SHUTDOWN_S)},
     "neither": {},
 }
 
@@ -252,7 +257,23 @@ def test_a_hung_worker_is_evicted_within_the_bound(runs):
     assert done == [["DONE", "0", "14"], ["DONE", "1", "14"]], events
 
 
-@pytest.mark.parametrize("setting", ["stall", "neither"])
+def test_the_stall_inspector_bounds_a_hung_worker(runs):
+    _, _, log = runs["hang_stall"]
+    t_stop = _stop_time(log)
+    torch_worlds.wait_for(
+        lambda: any(w == ["RAISED", "0"] for w, _ in _events(log)),
+        max(1.0, t_stop + 2 * STALL_BOUND_S - time.time()),
+        "rank 0's raise")
+    events = _events(log)
+    stop_to_raise = next(t for w, t in events if w == ["RAISED", "0"]) - \
+        t_stop
+    print(f"HANG setting=stall shutdown_s={STALL_SHUTDOWN_S} "
+          f"stop_to_raise_s={stop_to_raise:.3f}")
+    assert STALL_SHUTDOWN_S * 0.5 <= stop_to_raise <= STALL_BOUND_S, \
+        json.dumps(events)
+
+
+@pytest.mark.parametrize("setting", ["neither"])
 def test_without_heartbeats_nothing_bounds_a_hung_worker(runs, setting):
     launcher, _, log = runs[f"hang_{setting}"]
     t_stop = _stop_time(log)

@@ -4,9 +4,13 @@ copy of the C++ sources in ``horovod_tpu_torch/csrc/hvd``).
 - The library is built from the port's own sources into
   ``build/horovod_tpu_torch/``, named by a hash that an edited header
   changes; the sources are the JAX package's, code for code (only
-  comments differ), plus lines inserted for the world-lost verdict
-  (``hvd_world_lost``: the LOST terminal frame and the failures that set
-  it); no line of the JAX package's is changed or dropped.
+  comments differ), plus lines inserted for the port's repairs, each
+  hunk naming its own: the world-lost verdict (``hvd_world_lost``: the
+  LOST terminal frame and the failures that set it), the stall
+  inspector's bound on a silent peer (``GatherWithStallChecks``) and the
+  stripe count applied at a frame that runs responses
+  (``synced_stripes``); no line of the JAX package's is changed or
+  dropped.
 - The port's frame parsers read ``tests/golden_wire.json``'s frames as the
   JAX package's do, and accept or refuse (``FrameRejected``) every
   truncated, over-long and byte-flipped frame as those do.
@@ -38,6 +42,12 @@ from horovod_tpu_torch.common import native as tnative
 TESTS_DIR = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(TESTS_DIR)
 JAX_CSRC = os.path.join(REPO, "horovod_tpu", "csrc")
+
+
+# What every inserted hunk of the port's core names: the world-lost
+# verdict, the stall-checked gather, the stripe count's frame.
+REPAIR_MARKS = ("world_lost", '"LOST"', "stall_gather_on_",
+                "GatherWithStallChecks", "synced_stripes")
 
 
 def _code(path):
@@ -81,8 +91,8 @@ def test_library_builds_from_the_ports_own_sources():
         hunks = _port_insertions(p, jax)
         assert hunks, p
         for hunk in hunks:
-            assert any("world_lost" in line or '"LOST"' in line
-                       for line in hunk), (p, hunk)
+            assert any(mark in line for line in hunk
+                       for mark in REPAIR_MARKS), (p, hunk)
     lib = tnative.build()
     assert lib == tnative.library_path() and lib.is_file()
     assert lib.parent == tnative.BUILD_DIR

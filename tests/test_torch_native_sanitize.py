@@ -9,8 +9,10 @@
   process lacks raises with the ``LD_PRELOAD`` recipe.
 - The port's stress harness (``csrc/testing/stress_core.cc``: the JAX
   package's phases plus the world-lost verdict across DRAIN and EVICT
-  rounds, a lost rank, a departure, a shutdown and a re-init, and a
-  death in the cycle of another rank's departure) runs against the TSan
+  rounds, a lost rank, a departure, a SIGSTOPped rank under a stall
+  window with no heartbeats (the coordinator's polling gather), a
+  shutdown and a re-init, and a death in the cycle of another rank's
+  departure) runs against the TSan
   and the ASan+UBSan variant with zero reports, and leaves no shm
   segment behind. Its ``departure`` phase alone ends every round on LOST
   (flat, with heartbeats, and through the hosts' leaders), under TSan
@@ -127,6 +129,9 @@ def run_harness(binary, env):
             r.stdout, r.stdout
     assert "WORLDLOST round=0 rank1=exit world_lost=1" in r.stdout
     assert "WORLDLOST round=1 rank1=shutdown world_lost=0" in r.stdout
+    # A SIGSTOPped rank 1 under a 1 s stall window: the polling gather's
+    # verdict, within the harness's bound (checked there).
+    assert "WORLDLOST round=2 rank1=stop world_lost=1" in r.stdout
     assert_departures(r.stdout)
     assert_no_segments()
     return report

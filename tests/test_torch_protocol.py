@@ -21,6 +21,13 @@
   reference's behaviour, SHUTDOWN after a death (the
   ``shutdown_after_death`` mutation), and a verdict without the look
   (``no_look``) are caught with a counterexample.
+- A silent rank (``stop``: SIGSTOPped, its connection open) under a stall
+  shutdown window and no heartbeats: the coordinator's polling gather
+  (``GatherWithStallChecks``) lets the window pass while the rank's frame
+  is missing, so every schedule ends and the survivors end on LOST, at 2
+  and 3 ranks. The blocking gather (``no_deadline``) wedges the world;
+  a deadline that does not wait for a stopped rank (``eager_deadline``)
+  loses a rank whose frame is only late.
 """
 
 import os
@@ -368,6 +375,82 @@ class LostHierNegotiationModel(_Verdict, HierNegotiationModel):
         return self._ended_on(super()._leader_lost(s, r), r, LOST)
 
 
+StallWorld = namedtuple("StallWorld",
+                        LostWorld._fields + ("stopped", "stall_lost"))
+
+
+class StallNegotiationModel(LostNegotiationModel):
+    """The flat model with a silent rank: ``stop(r)`` SIGSTOPs a worker,
+    which keeps its connection and never acts again (a frame it sent
+    before stays deliverable). Without heartbeats the coordinator's
+    gather polls while a frame is missing and runs the stall inspector
+    (``GatherWithStallChecks``); ``deadline`` is its shutdown window
+    passing while a stopped rank's frame is missing (an alive rank sends
+    one every cycle, so its silence is the stop): each such rank is
+    taken as departed and the verdict is LOST. Safety: a
+    survivor ends on LOST if and only if a rank died or stayed silent
+    past the window; with a window every schedule ends. Mutations:
+    ``no_deadline`` (the blocking gather: the world waits for the
+    stopped rank forever) and ``eager_deadline`` (a rank whose frame has
+    not come yet is lost, stopped or not)."""
+
+    def __init__(self, ranks=2, tensors=("a",), stops=1, window=True,
+                 mutations=()):
+        super().__init__(ranks=ranks, tensors=tensors, mutations=mutations)
+        self.stops, self.window = stops, window
+        self.name = self.name.replace("negotiation_lost(", "negotiation_stall(")\
+            .replace(")", f", stops={stops}, window={window})", 1)
+
+    def initial(self):
+        return StallWorld(*super().initial(), stopped=(), stall_lost=False)
+
+    def actions(self, s):
+        # A stopped rank takes no step of its own; the coordinator still
+        # reads a frame it sent before.
+        own = ("send", "recv", "recv_shutdown", "die", "leave")
+        acts = [(label, nxt) for label, nxt in super().actions(s)
+                if not any(label in [f"{a}({r})" for a in own] or
+                           label.startswith(f"enqueue({r},")
+                           for r in s.stopped)]
+        if s.world_ended:
+            return acts
+        if len(s.stopped) < self.stops:
+            for r in range(1, self.n):
+                rk = s.ranks[r]
+                if rk.alive and not rk.ended and r not in s.stopped:
+                    acts.append((f"stop({r})", s._replace(
+                        stopped=tuple(sorted(s.stopped + (r,))))))
+        missing = [r for r in range(1, self.n)
+                   if r not in s.departed and r not in s.gathered and
+                   s.inbox[r - 1] is None and
+                   (r in s.stopped or "eager_deadline" in self.mutations)]
+        if self.window and missing and "no_deadline" not in self.mutations:
+            acts.append(("deadline", s._replace(
+                departed=tuple(sorted(s.departed + tuple(missing))),
+                stall_lost=True)))
+        return acts
+
+    def _verdict(self, s):
+        return LOST if s.stall_lost else super()._verdict(s)
+
+    def safety(self, s):
+        out = NegotiationModel.safety(self, s)
+        lost = s.stall_lost and bool(s.stopped) or \
+            any(not rk.alive for rk in s.ranks)
+        for r, word in enumerate(s.terminal):
+            if word is not None and (word == LOST) != lost:
+                out.append(f"rank {r} ended on {word} though "
+                           + ("a rank was lost" if lost
+                              else "no rank was lost"))
+        return out
+
+    def is_quiescent(self, s):
+        if s.world_ended:
+            return all(rk.ended or not rk.alive or r in s.stopped
+                       for r, rk in enumerate(s.ranks))
+        return not s.stopped and super().is_quiescent(s)
+
+
 def _explored(model):
     res = explore(model)
     assert res.complete, f"{model.name}: exploration must exhaust the graph"
@@ -457,3 +540,32 @@ def test_the_no_look_mutation_is_caught(model, schedule):
            if "ended on SHUTDOWN though a rank died" in v.message]
     assert bad, res.render()
     assert bad[0].schedule == schedule, bad[0].render()
+
+
+@pytest.mark.parametrize("ranks", [2, 3])
+def test_a_silent_rank_is_lost_at_the_stall_window(ranks):
+    """Every schedule with a rank stopped ends the world, and the
+    survivors end on LOST; with no stop the world finishes its tensors
+    and ends on no verdict."""
+    model = StallNegotiationModel(ranks=ranks)
+    _explored(model)
+    assert _terminals(model) == {LOST}
+    assert not _terminals(StallNegotiationModel(ranks=ranks, stops=0))
+
+
+@pytest.mark.parametrize("mutation,kind,message", [
+    ("no_deadline", "deadlock", "non-quiescent state with no enabled"),
+    ("eager_deadline", "safety", "ended on LOST though no rank was lost")])
+def test_the_stall_deadline_mutations_are_caught(mutation, kind, message):
+    """Without the deadline (the blocking gather) a stopped rank wedges
+    the world; a deadline that does not wait for a stopped rank loses a
+    rank whose frame is merely late."""
+    res = explore(StallNegotiationModel(ranks=2, mutations=(mutation,)))
+    bad = [v for v in res.violations if v.kind == kind and
+           message in v.message]
+    assert bad, res.render()
+    if mutation == "no_deadline":
+        assert "stop(1)" in bad[0].schedule, bad[0].render()
+    else:
+        assert not any(label.startswith("stop(")
+                       for label in bad[0].schedule), bad[0].render()
