@@ -5,7 +5,7 @@
     python3 chip_smoke.py --time-tree DIR   # kernel times of one checkout
     python3 chip_smoke.py --sbn-race RUNS [--keep OUT] [DIR[:RUNS] ...]
 
-Phases, in order (a, b, c, e, f, g, h, i, j, k, l, m, n, o, d); any
+Phases, in order (a, b, c, e, f, g, h, i, j, k, l, m, n, o, p, d); any
 failure exits nonzero:
 
 (a) device and build: the card, its power limit, the torch and CUDA
@@ -35,10 +35,14 @@ failure exits nonzero:
     diagonal and a future block (where the state must be exactly empty and
     dQ exactly 0), the fp32 dK/dV in the first two, with the global lse
     and delta, their planted faults and times; and every mode with packed
-    segment ids, at bf16 (timed, at the ring's block shape, with the bound
-    over the pairs visible inside segments and the library on the same
-    boolean mask, printed as rows of their own) and ragged fp32, where
-    ignoring the ids must be refused.
+    segment ids, at bf16 (4 random segments at the ring's block shape,
+    with the planted last-tile faults; then timed at (p)'s shapes, 3
+    evenly packed documents of T 8192: Ulysses' full-sequence calls, B=2
+    and 6 heads, and the ring's diagonal block, B=2, T=4096, 12 heads,
+    with the bound over the pairs visible inside the documents and the
+    library on the same boolean mask, rows of the kernel line as
+    ``<mode>_seg``) and ragged fp32, where ignoring the ids must be
+    refused.
 (c) the slice: a small transformer's loss and gradients through the
     kernels against the same model on the CPU; then the GPT-2-small-class
     trainer (12 layers, d_model 768, T 1024, bf16, batch 8) for 2 warm-up
@@ -252,8 +256,38 @@ failure exits nonzero:
     else on the production core; its ``departure`` phase (a rank that
     dies after its frame in the cycle of another rank's departure) must
     end all 9 rounds on LOST. No kernel of the port runs here.
-(d) the kernel table as one JSON line, the card's name and power limit,
-    and last the result line ``{"ok": true, "device": {...}}``.
+(p) the packed long-context example and the tools. Two ranks on cuda:0
+    in one NCCL world as in (e) (``--lc-worker``; a world of one on the
+    CPU beside them, ``--lc-reference-worker``): the example's ``run()``
+    (``examples/long_context.py``) at a small width (2 layers, 2 heads of
+    64, T 256, 3 documents, fp32, TF32 off), ring and Ulysses, each
+    parameter's step-0 gradient and each loss within rel 1e-4 of sp=1 on
+    the CPU from the same weights (the ids moving the CPU's gradients by
+    more than 100 times that); then at GPT-2-small widths (d_model 768,
+    12 heads, 12 layers, vocab 1024, T 8192 at sp=2, batch 2, 3
+    documents, bf16, step 0 + 2 steps) packed under the ring and under
+    Ulysses from the same weights: losses finite and equal on both
+    ranks, ring and Ulysses within rel 1e-4 at every step, every
+    segment-id mode launched as ``packed_launches`` counts by layer, step
+    and ring block; then at the step-0 weights again one no-grad forward
+    with the ids (the ring's state mode and Ulysses' plain mode with ids
+    once a layer and block), its loss the trainer's step-0 loss within
+    1e-4, and one without: the unpacked loss not the packed one, the two
+    strategies' logits within ``LC_LOGITS_TOL`` row by row, and packing
+    moving the logits at the documents' first tokens by more than
+    ``LC_IDS_MIN_REL``; step ms, tokens/s, peak memory and a profile of a
+    ring step. Then the tools: ``tools.controller_bench --sizes 2,4,8``
+    (the port's core, host only: hit and miss p50/p99, the reference's
+    gate, the response cache engaged) and ``examples.scaling_bench`` at
+    d=1 (ResNet-50, batch 32, 224 px, 2 + 10 steps; (f)'s images/s
+    printed beside it), each ``python -m`` from the checkout; then in
+    this process ``examples.synthetic_benchmark --num-iters 5``,
+    ``tools.kernel_bench`` at T 2048 and 4096, again with ``--packed 4``
+    (every numerics check passing), and ``tools.profile_resnet --model
+    resnet50 --steps 3`` (a summary with op rows).
+(d) the kernel table as one JSON line (the segment-id rows with (p)'s
+    launches), the card's name and power limit, and last the result line
+    ``{"ok": true, "device": {...}}``.
 """
 
 import contextlib
@@ -739,14 +773,18 @@ def sdpa_state_ms(q, k, v, causal=False):
 
 
 def kernel_case(label, B, T, H, D, dtype, causal, window=None, Tk=None,
-                q_off=0, k_off=0, fused=False, timing=False, segments=0):
+                q_off=0, k_off=0, fused=False, timing=False, segments=0,
+                packed_over=0, faults=False, timed=None):
     """Every kernel mode against its plain version on one shape; with
     ``fused`` q/k/v are views of one [B, T, 3, H, D] tensor, as the
     model's qkv projection gives them; with ``segments`` that many
-    packed segments per row, and the plain versions without them as a
-    fault the comparison must refuse; with ``timing`` also the planted
-    last-tile faults and every mode's time. Returns {kernel: row} for
-    the table."""
+    packed segments per row (random lengths, or with ``packed_over`` the
+    long-context example's even packing of a sequence of that length,
+    sliced at the offsets), and the plain versions without them as a
+    fault the comparison must refuse; with ``faults`` the planted
+    last-tile faults; with ``timing`` the time of
+    every mode in ``timed`` (default all). Returns {kernel: row} for the
+    table."""
     import torch
 
     Tk = Tk or T
@@ -768,8 +806,16 @@ def kernel_case(label, B, T, H, D, dtype, causal, window=None, Tk=None,
     do = randn(T)
     kw = dict(causal=causal, q_off=q_off, k_off=k_off, window=window)
     if segments:
-        ids = segment_ids(B, max(q_off + T, k_off + Tk), segments,
-                          torch.Generator().manual_seed(0)).cuda()
+        n = max(q_off + T, k_off + Tk)
+        if packed_over:
+            from horovod_tpu_torch.examples.long_context import (
+                packed_segment_ids)
+
+            ids = torch.as_tensor(packed_segment_ids(packed_over, segments)[
+                :n], dtype=torch.int32).expand(B, n).cuda()
+        else:
+            ids = segment_ids(B, n, segments,
+                              torch.Generator().manual_seed(0)).cuda()
         kw.update(q_seg=ids[:, q_off:q_off + T].contiguous(),
                   k_seg=ids[:, k_off:k_off + Tk].contiguous())
     from horovod_tpu_torch.ops import flash_attention as fa
@@ -784,10 +830,11 @@ def kernel_case(label, B, T, H, D, dtype, causal, window=None, Tk=None,
         refuse({f"{m} {o}": t for m, (_, plain) in modes(*args, blind).items()
                 for o, t in zip(OUTPUTS[m], plain())}, refs, dtype,
                "segment ids ignored")
+    if faults:
+        refuse(dropped_tile_faults(*args, kw, OUTPUTS), refs, dtype,
+               "last tile dropped")
     if not timing:
         return {}
-    refuse(dropped_tile_faults(*args, kw, OUTPUTS), refs, dtype,
-           "last tile dropped")
     library, ids_bytes, fwd = {}, 0, None
     if segments:
         # Pairs visible inside the segments only (the ids' own mask), and
@@ -808,8 +855,8 @@ def kernel_case(label, B, T, H, D, dtype, causal, window=None, Tk=None,
         library = {"flash_fwd": fwd, "flash_fwd_train": fwd,
                    "flash_bwd_dq": bwd, "flash_bwd_dkv": bwd,
                    "flash_bwd_dq_f32": bwd, "flash_bwd_dkv_f32": bwd}
-    return time_rows(modes(*args, kw), (B, T, Tk, H, D), dtype, pairs,
-                     library, errs, ids_bytes)
+    return time_rows(modes(*args, kw, timed or OUTPUTS), (B, T, Tk, H, D),
+                     dtype, pairs, library, errs, ids_bytes)
 
 
 def ring_inputs():
@@ -1349,13 +1396,14 @@ def run_image_bench(model, flags, iters, device=None, warmup=2):
 
 def image_phase(gpu):
     """(f): the small model's agreement, the full-width image runs on one
-    card with their profiles, then dp=2 on cuda:0."""
+    card with their profiles, then dp=2 on cuda:0. Returns ResNet-50's
+    images/s."""
     import torch
 
     import horovod_tpu_torch as hvd
 
     small_image_check()
-    first_loss = {}
+    first_loss, rate = {}, {}
     for model, flags, iters in IMAGE_RUNS:
         label = " ".join((model, *flags))
         log(f"  {label}: 2 warm-up + {iters} timed steps")
@@ -1375,6 +1423,7 @@ def image_phase(gpu):
         if not run.allreduce_count >= 1:
             raise AssertionError(f"{label}: no bucket all-reduce ran")
         first_loss[label] = losses[0]
+        rate[label] = res["value"]
         del run
         torch.cuda.empty_cache()
     hvd.shutdown()
@@ -1410,6 +1459,7 @@ def image_phase(gpu):
         log(f"    {mode}: after each of {len(traces[0])} steps both ranks "
             f"hold the same loss, parameters and batch-norm buffers "
             f"(sha256 of each)")
+    return rate["resnet50"]
 
 
 def dp_worker(out_path):
@@ -5017,6 +5067,550 @@ def core_phase(gpu):
         f"build {worlds_s:.1f} s)")
 
 
+# ---- (p) the long-context example and the tools ------------------------------
+
+LC = 2                # ranks of phase (p), both on cuda:0
+LC_SEQ, LC_BATCH, LC_DOCS = 8192, 2, 3   # global T, global batch, documents
+LC_STEPS = 2          # timed steps after step 0 (the example's warm-up)
+LC_WIDTH = ["--d-model", "768", "--n-heads", "12", "--n-layers", "12",
+            "--seq-len", str(LC_SEQ), "--batch-size", str(LC_BATCH)]
+# The correctness gate: the example at a small width, fp32. The kernels
+# take heads of 64 or 128 and Ulysses needs heads % sp == 0: 2 heads of
+# 64 at sp=2.
+LC_SMALL = ["--d-model", "128", "--n-heads", "2", "--n-layers", "2",
+            "--seq-len", "256", "--batch-size", "2", "--packed",
+            str(LC_DOCS), "--steps", "2"]
+LC_GATE_TOL = 1e-4    # fp32 through the kernels (TF32 off) against the CPU:
+                      # the losses and each parameter's step-0 gradient
+                      # (normwise)
+# Ring and Ulysses compute the same exact attention; in bf16 they order
+# their sums differently. Their losses at every step (8.8e-6 apart at
+# step 0 on an H100, where packing moves the step-0 loss by 4.2e-4) and
+# their step-0 logits, row by row (normwise over the vocabulary).
+LC_STRATEGY_TOL = 1e-4
+LC_LOGITS_TOL = 2e-2
+# The logits at the documents' first tokens, packed against unpacked on
+# the same weights: there packing leaves a token one key where the
+# unpacked model gives it thousands (0.56 and 0.59 on an H100).
+LC_IDS_MIN_REL = 1e-1
+LC_TIMEOUT_S = 600
+ULYSSES_SEG = ("flash_fwd", "flash_fwd_train", "flash_bwd_dq",
+               "flash_bwd_dkv")
+RING_SEG = ("flash_fwd_state", "flash_bwd_dq_f32", "flash_bwd_dkv_f32")
+TOOL_TIMEOUT_S = 420
+
+
+def segment_rows(*cases):
+    """The timed rows of ``cases`` ({mode: row}) as the kernel line's
+    segment-id rows, named ``<mode>_seg``."""
+    return {f"{mode}_seg": dict(row, name=f"{mode}_seg")
+            for rows in cases for mode, row in rows.items()}
+
+
+def packed_launches(layers, steps, strategy, sp, packed=True):
+    """The attention kernels one rank launches in ``steps`` training steps
+    of the long-context example at sp > 1 (``parallel/ring_attention.py``,
+    ``parallel/ulysses.py``): the ring runs the forward's state mode and
+    both fp32-output backward kernels once per layer, step and ring block
+    (sp blocks); Ulysses the train mode and both backward kernels in the
+    input dtype once per layer and step. With segment ids each launch
+    counts under its mode's ``_seg`` name. Every other count is 0."""
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    want = dict.fromkeys(fa.LAUNCHES, 0)
+    if strategy == "ring":
+        n, names = layers * steps * sp, RING_SEG
+    else:
+        n, names = layers * steps, ULYSSES_SEG[1:]
+    for name in names:
+        want[name + ("_seg" if packed else "")] = n
+    return want
+
+
+def lc_args(flags, strategy, sp=LC, device="cuda:0"):
+    """The long-context example's arguments."""
+    from horovod_tpu_torch.examples import long_context as lc
+
+    return lc.parse_args([*flags, "--sp", str(sp), "--strategy", strategy,
+                          "--device", device])
+
+
+def lc_small_state():
+    """(p)'s small fp32 model's weights, drawn on the CPU."""
+    import torch
+
+    from horovod_tpu_torch.examples import long_context as lc
+    from horovod_tpu_torch.models.transformer import Transformer
+
+    cfg = lc.model_config(lc_args(LC_SMALL, "ring", sp=1, device="cpu"),
+                          torch.float32)
+    return Transformer(cfg, device="cpu", seed=0).state_dict()
+
+
+def lc_batch(args):
+    """This rank's shard of the example's global batch, rebuilt from its
+    recipe (``RandomState(0)`` tokens, labels rolled over the whole
+    sequence, evenly packed ids): (tokens, labels, ids or None)."""
+    import numpy as np
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.examples import long_context as lc
+
+    assert hvd.axis_sizes()["dp"] == 1
+    tokens = np.random.RandomState(0).randint(
+        0, lc.VOCAB, (args.batch_size, args.seq_len))
+    labels = np.roll(tokens, -1, axis=1)
+    t = args.seq_len // args.sp
+    cols = slice(hvd.sp_rank() * t, (hvd.sp_rank() + 1) * t)
+    out = [torch.as_tensor(a[:, cols].copy(), device=hvd.device())
+           for a in (tokens, labels)]
+    ids = None
+    if args.packed:
+        ids = torch.as_tensor(np.tile(
+            lc.packed_segment_ids(args.seq_len, args.packed)[cols],
+            (args.batch_size, 1)).astype(np.int32), device=hvd.device())
+    return out[0], out[1], ids
+
+
+def world_mean(tensors):
+    """Each tensor averaged over the world in place."""
+    import torch.distributed as dist
+
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        for t in tensors:
+            dist.all_reduce(t)
+            t /= dist.get_world_size()
+
+
+def lc_step0_grads(model, args, ids=True):
+    """``model``'s loss and gradients on this rank's ``lc_batch`` (without
+    its ids where ``ids`` is false), averaged over the world as the
+    optimizer averages them: (loss, {name: gradient on the CPU})."""
+    from horovod_tpu_torch.training import cross_entropy_loss
+
+    tokens, labels, seg = lc_batch(args)
+    model.zero_grad(set_to_none=True)
+    extra = (seg,) if ids and seg is not None else ()
+    loss = cross_entropy_loss(model(tokens, *extra), labels)
+    loss.backward()
+    named = list(model.named_parameters())
+    values = [loss.detach()] + [p.grad for _, p in named]
+    world_mean(values)
+    grads = {n: p.grad.detach().cpu() for n, p in named}
+    model.zero_grad(set_to_none=True)
+    return float(values[0]), grads
+
+
+def lc_reference_worker(out_path):
+    """(p)'s small gate on the CPU at sp=1, a world of one (run as
+    ``chip_smoke.py --lc-reference-worker``): the step-0 gradients with
+    and without the ids, then the example's losses."""
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.examples import long_context as lc
+    from horovod_tpu_torch.models.transformer import Transformer
+
+    inputs = torch.load(Path(out_path).parent / "inputs.pt")
+    args = lc_args(LC_SMALL, "ring", sp=1, device="cpu")
+    hvd.init(device="cpu")
+    model = Transformer(lc.model_config(args, torch.float32), device="cpu",
+                        seed=1)
+    model.load_state_dict(inputs["state"])
+    _, packed = lc_step0_grads(model, args)
+    _, plain = lc_step0_grads(model, args, ids=False)
+    torch.save({"packed": packed, "plain": plain},
+               Path(inputs["grads"]) / "reference.pt")
+    losses = lc.run(args, model=model).losses
+    hvd.shutdown()
+    Path(out_path).write_text(json.dumps({"losses": losses}))
+    return 0
+
+
+def doc_start_rows(t_local):
+    """This rank's rows that open a document after the first, and their
+    global positions."""
+    import torch
+
+    import horovod_tpu_torch as hvd
+
+    pos = torch.arange(hvd.sp_rank() * t_local, (hvd.sp_rank() + 1) * t_local)
+    doc_len = LC_SEQ // LC_DOCS
+    rows = ((pos % doc_len == 0) & (pos > 0) &
+            (pos < doc_len * LC_DOCS)).nonzero()[:, 0]
+    return rows, pos[rows].tolist()
+
+
+def row_rel(got, want):
+    """Each row's ||got - want|| / ||want|| over the vocabulary."""
+    return ((got - want).double().norm(dim=-1) /
+            want.double().norm(dim=-1))
+
+
+def lc_worker(out_path):
+    """One rank of (p) (run as ``chip_smoke.py --lc-worker``): the small
+    fp32 gate, ring and Ulysses (step-0 gradients, then the example's
+    losses), then the example's ``run()`` at full width, packed, under
+    each strategy from the same weights, each with its launch counts;
+    after each run the step-0 weights again: one no-grad forward with the
+    ids (counted) and one without, their world losses and logits; writes
+    what it saw to ``out_path`` as JSON."""
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.examples import long_context as lc
+    from horovod_tpu_torch.models.transformer import Transformer
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.training import cross_entropy_loss
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    inputs = torch.load(Path(out_path).parent / "inputs.pt")
+    hvd.init(device="cuda:0", sp=LC)
+    dev = hvd.device()
+    out = {"rank": hvd.rank(), "small": {}, "runs": {}}
+    for strategy in ("ring", "ulysses"):
+        args = lc_args(LC_SMALL, strategy)
+        model = Transformer(lc.model_config(args, torch.float32), device=dev,
+                            seed=1)
+        model.load_state_dict(inputs["state"])
+        _, grads = lc_step0_grads(model, args)
+        if hvd.rank() == 0:
+            torch.save(grads, Path(inputs["grads"]) / f"{strategy}.pt")
+        out["small"][strategy] = lc.run(args, model=model).losses
+    del model
+    cfg = lc.model_config(lc_args(LC_WIDTH, "ring"))
+    weights = {k: v.clone() for k, v in
+               Transformer(cfg, device=dev, seed=0).state_dict().items()}
+    logits = {}
+    for strategy in ("ring", "ulysses"):
+        args = lc_args(LC_WIDTH + ["--steps", str(LC_STEPS), "--packed",
+                                   str(LC_DOCS)], strategy)
+        model = Transformer(lc.model_config(args), device=dev, seed=1)
+        model.load_state_dict(weights)
+        torch.cuda.empty_cache()
+        fa.reset_launches()
+        res = lc.run(args, model=model)
+        row = {"losses": res.losses, "ms": res.ms_per_step,
+               "tokens_per_s": res.tokens_per_s,
+               "peak_gib": res.peak_mem_bytes / 2**30,
+               "launches": dict(fa.LAUNCHES), "steps": 1 + LC_STEPS,
+               "shard": list(res.tokens.shape)}
+        if strategy == "ring":
+            profile_steps(res.step, n=1)
+        # The step-0 weights again, on the recipe's shard (the example's
+        # own, checked): the logits with the ids (a no-grad forward of the
+        # main path, counted) and without them.
+        res.model.load_state_dict(weights)
+        tokens, labels, seg = lc_batch(args)
+        if not (torch.equal(tokens, res.tokens) and
+                torch.equal(seg, res.segment_ids)):
+            raise AssertionError("the example's shard is not its recipe's")
+        fa.reset_launches()
+        with torch.no_grad():
+            packed = res.model(tokens, seg)
+        torch.cuda.synchronize()
+        row["no_grad_launches"] = dict(fa.LAUNCHES)
+        with torch.no_grad():
+            plain = res.model(tokens)
+            losses = [cross_entropy_loss(packed, labels),
+                      cross_entropy_loss(plain, labels)]
+        world_mean(losses)
+        row["no_grad_losses"] = [float(x) for x in losses]
+        rows, row["start_rows"] = doc_start_rows(tokens.shape[1])
+        rows = rows.to(dev)
+        row["starts_rel"] = rel_err(packed[:, rows], plain[:, rows])
+        logits[strategy] = packed
+        out["runs"][strategy] = row
+        del model, res, plain
+    rel = row_rel(logits["ring"], logits["ulysses"])
+    out["logits"] = {"worst_row": float(rel.max()),
+                     "median_row": float(rel.median()),
+                     "starts": rel_err(logits["ring"][:, rows],
+                                       logits["ulysses"][:, rows])}
+    out.update(layers=cfg.n_layers)
+    hvd.shutdown()
+    Path(out_path).write_text(json.dumps(out))
+    return 0
+
+
+def small_gate(res, ref, grads_dir):
+    """(p)'s small fp32 gate: each strategy's step-0 gradients on the card
+    (sp=2) against the CPU's (sp=1), parameter by parameter, and its
+    losses against the CPU's; the ids must move the CPU's gradients by
+    far more than the tolerance."""
+    import torch
+
+    want = torch.load(grads_dir / "reference.pt")
+    moved = (sum(float((want["plain"][n] - g).norm() ** 2)
+                 for n, g in want["packed"].items()) /
+             sum(float(g.norm() ** 2) for g in want["packed"].values())) ** 0.5
+    log(f"    small gate (fp32, 2 layers, 2 heads of 64, T 256, {LC_DOCS} "
+        f"documents): the ids move the CPU's step-0 gradients by rel "
+        f"{moved:.3e} (must exceed {100 * LC_GATE_TOL:g})")
+    if not moved > 100 * LC_GATE_TOL:
+        raise AssertionError("long context: the small gate cannot see the "
+                             "ids")
+    for strategy in ("ring", "ulysses"):
+        got = torch.load(grads_dir / f"{strategy}.pt")
+        errs = {n: rel_err(got[n], g) for n, g in want["packed"].items()}
+        name, worst = max(errs.items(), key=lambda kv: kv[1])
+        log(f"    small {strategy}: step-0 gradients on the card vs the "
+            f"CPU, worst parameter {name} rel {worst:.2e} (tolerance "
+            f"{LC_GATE_TOL:g})")
+        if set(got) != set(want["packed"]) or not worst <= LC_GATE_TOL:
+            raise AssertionError(f"long context: the small {strategy} "
+                                 f"gradients disagree with the CPU")
+    for r in res:
+        for strategy, losses in r["small"].items():
+            worst = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+            log(f"    rank {r['rank']} small {strategy}: losses "
+                f"{[round(x, 6) for x in losses]} vs sp=1 cpu "
+                f"{[round(x, 6) for x in ref]} (worst rel {worst:.2e}, "
+                f"tolerance {LC_GATE_TOL:g})")
+            if not worst <= LC_GATE_TOL:
+                raise AssertionError(f"long context: the small {strategy} "
+                                     f"run disagrees with the CPU")
+
+
+def long_context_phase(gpu):
+    """(p), the example: the small gate against the CPU, then the
+    full-width packed runs on two ranks of cuda:0. Returns rank 0's
+    launches of the segment-id modes over the packed runs and their
+    no-grad forwards."""
+    grads_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_lc_grads_"))
+    try:
+        inputs = {"state": lc_small_state(), "grads": str(grads_dir)}
+        ref_procs, ref_tmp = spawn_workers("--lc-reference-worker", 1,
+                                           inputs)
+        procs, tmp = spawn_workers("--lc-worker", LC, inputs)
+        ref = finish_workers("--lc-reference-worker", ref_procs, ref_tmp,
+                             LC_TIMEOUT_S)[0]["losses"]
+        res = finish_workers("--lc-worker", procs, tmp, LC_TIMEOUT_S)
+        small_gate(res, ref, grads_dir)
+    finally:
+        shutil.rmtree(grads_dir, ignore_errors=True)
+    layers = res[0]["layers"]
+    no_grad = {"ring": {"flash_fwd_state_seg": layers * LC},
+               "ulysses": {"flash_fwd_seg": layers}}
+    for name in ("ring", "ulysses"):
+        rows = [r["runs"][name] for r in res]
+        for r, row in zip(res, rows):
+            log(f"    rank {r['rank']} {name}: losses "
+                f"{[round(x, 4) for x in row['losses']]}, step "
+                f"{row['ms']:.1f} ms, {row['tokens_per_s']:,.0f} tokens/s "
+                f"(the world's), peak memory {row['peak_gib']:.2f} GiB, "
+                f"shard {row['shard']} (two ranks sharing one card: a "
+                f"correctness run) on {gpu}")
+            log(f"    rank {r['rank']} {name}: launches "
+                f"{ {k: v for k, v in row['launches'].items() if v} }; "
+                f"no-grad forward with the ids "
+                f"{ {k: v for k, v in row['no_grad_launches'].items() if v} }")
+            if not all(math.isfinite(x) for x in row["losses"]):
+                raise AssertionError(f"long context {name}: non-finite loss")
+            want = packed_launches(layers, row["steps"], name, LC)
+            if row["launches"] != want:
+                raise AssertionError(f"long context {name}: launches "
+                                     f"{row['launches']}, expected {want}")
+            want = dict.fromkeys(row["no_grad_launches"], 0)
+            want.update(no_grad[name])
+            if row["no_grad_launches"] != want:
+                raise AssertionError(f"long context {name}: no-grad forward "
+                                     f"launches {row['no_grad_launches']}, "
+                                     f"expected {want}")
+        if rows[0]["losses"] != rows[1]["losses"] or \
+                rows[0]["no_grad_losses"] != rows[1]["no_grad_losses"]:
+            raise AssertionError(f"long context {name}: the ranks' losses "
+                                 f"differ")
+    runs = res[0]["runs"]
+    for i, (a, b) in enumerate(zip(runs["ring"]["losses"],
+                                   runs["ulysses"]["losses"])):
+        rel = abs(b - a) / abs(a)
+        log(f"    step {i}: ring {a:.6f}, ulysses {b:.6f} (rel {rel:.2e}, "
+            f"tolerance {LC_STRATEGY_TOL:g})")
+        if not rel <= LC_STRATEGY_TOL:
+            raise AssertionError(f"long context: ring and Ulysses disagree "
+                                 f"at step {i}")
+    for name in ("ring", "ulysses"):
+        (packed, plain), step0 = (runs[name]["no_grad_losses"],
+                                  runs[name]["losses"][0])
+        rel = abs(packed - step0) / abs(step0)
+        log(f"    {name} at the step-0 weights, no grad: packed loss "
+            f"{packed:.6f} (rel {rel:.2e} from step 0's), unpacked "
+            f"{plain:.6f} (rel {abs(plain - packed) / abs(packed):.2e} from "
+            f"the packed)")
+        if not rel <= LC_STRATEGY_TOL:
+            raise AssertionError(f"long context {name}: the no-grad step-0 "
+                                 f"loss is not the trainer's")
+        if plain == packed:
+            raise AssertionError(f"long context {name}: the packed step-0 "
+                                 f"loss equals the unpacked one: the ids are "
+                                 f"ignored")
+    for r in res:
+        lg = r["logits"]
+        log(f"    rank {r['rank']} step-0 logits, ring vs Ulysses: worst row "
+            f"rel {lg['worst_row']:.3e} (tolerance {LC_LOGITS_TOL:g}), "
+            f"median {lg['median_row']:.3e}, at the documents' first tokens "
+            f"{lg['starts']:.3e}; packed vs unpacked at those tokens "
+            f"{r['runs']['ring']['start_rows']}: ring "
+            f"{r['runs']['ring']['starts_rel']:.3e}, Ulysses "
+            f"{r['runs']['ulysses']['starts_rel']:.3e} (must exceed "
+            f"{LC_IDS_MIN_REL:g})")
+        if not lg["worst_row"] <= LC_LOGITS_TOL:
+            raise AssertionError("long context: ring and Ulysses logits "
+                                 "disagree at step 0")
+        for name in ("ring", "ulysses"):
+            if not r["runs"][name]["starts_rel"] > LC_IDS_MIN_REL:
+                raise AssertionError(f"long context {name}: the ids do not "
+                                     f"change the logits at the documents' "
+                                     f"first tokens")
+    seg = {}
+    for name in ("ring", "ulysses"):
+        for counts in (runs[name]["launches"],
+                       runs[name]["no_grad_launches"]):
+            for k, v in counts.items():
+                seg[k] = seg.get(k, 0) + v
+    return {k: v for k, v in seg.items() if k.endswith("_seg")}
+
+
+def run_tool(module, *argv, timeout_s=TOOL_TIMEOUT_S):
+    """``python -m module argv`` from the checkout's root, in a session of
+    its own (killed whole past ``timeout_s``); prints its output and
+    returns (stdout lines, stderr). A nonzero exit fails the phase."""
+    import signal
+
+    import torch
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", module, *argv], cwd=REPO,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True, env=dict(os.environ, PYTHONPATH=str(REPO)))
+    try:
+        out, err = proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    for line in out.splitlines():
+        log(f"    | {line[:400]}")
+    log(f"    ({module} {' '.join(argv)}: exit {proc.returncode}, "
+        f"{time.perf_counter() - t0:.1f} s)")
+    if proc.returncode != 0:
+        for line in err.splitlines()[-30:]:
+            log(f"    ! {line}")
+        raise AssertionError(f"{module} exited {proc.returncode}")
+    return out.splitlines(), err
+
+
+def last_json(lines):
+    return json.loads([x for x in lines if x.startswith("{")][-1])
+
+
+def run_main(module, *argv):
+    """``module.main(argv)`` in this process, where the kernels, the CUDA
+    context and cuDNN's choices for ResNet-50 are loaded already; prints
+    its output and returns (stdout lines, stderr). A nonzero return or a
+    raise fails the phase."""
+    import importlib
+    import io
+
+    t0 = time.perf_counter()
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        code = importlib.import_module(module).main(list(argv))
+    for line in out.getvalue().splitlines():
+        log(f"    | {line[:400]}")
+    log(f"    ({module} {' '.join(argv)}, in this process: returned {code}, "
+        f"{time.perf_counter() - t0:.1f} s)")
+    if code:
+        for line in err.getvalue().splitlines()[-30:]:
+            log(f"    ! {line}")
+        raise AssertionError(f"{module} returned {code}")
+    return out.getvalue().splitlines(), err.getvalue()
+
+
+def tools_phase(gpu, resnet50_img_s):
+    """(p), the tools on this machine: the control plane's RTT and scaling
+    at d=1, each from its command line; the synthetic benchmark, the
+    kernel bench and a profile in this process."""
+    log(f"  controller_bench: the port's core, negotiation alone (host "
+        f"only), on {gpu}'s host")
+    out, _ = run_tool("horovod_tpu_torch.tools.controller_bench", "--sizes",
+                      "2,4,8")
+    res = last_json(out)
+    for size, row in res["sizes"].items():
+        hit, miss = row["hit_ms"], row["miss_ms"]
+        log(f"    size {size}: hit p50 {hit['p50']} ms p99 {hit['p99']} ms, "
+            f"miss p50 {miss['p50']} ms p99 {miss['p99']} ms, worker cache "
+            f"hits {row['cache_hits_worker_ranks']}")
+        if not (hit["p50"] < 10.0 and miss["p50"] < 50.0):
+            raise AssertionError(f"controller_bench size {size}: over the "
+                                 f"gate (hit p50 < 10 ms, miss p50 < 50 ms)")
+        if not row["cache_hits_worker_ranks"] >= (int(size) - 1) * \
+                res["iters"]:
+            raise AssertionError(f"controller_bench size {size}: the "
+                                 f"response cache did not engage")
+
+    # A world of one through the launcher. Its rate is printed beside
+    # (f)'s image_bench, not held to it: the same command's rate moves by
+    # a third from run to run on this host (PERF.md). That the harness
+    # trains image_bench's model, dtype, batch and step is a CPU test's
+    # (tests/test_torch_scaling_bench.py).
+    log("  scaling_bench: ResNet-50, bf16, batch 32, 224 px, 2 + 10 steps, "
+        "a world of 1 (the one card)")
+    out, _ = run_tool("horovod_tpu_torch.examples.scaling_bench", "--model",
+                      "resnet50", "--devices", "1", "--batch-size", "32",
+                      "--image-size", "224", "--num-classes", "1000",
+                      "--num-iters", "10")
+    res = last_json(out)
+    d1 = res["per_device_img_per_sec"]["1"]
+    log(f"    d=1: {d1} img/s ((f)'s image_bench in this process: "
+        f"{resnet50_img_s}) on {gpu}")
+    if res["platform"] != "gpu" or res["value"] != 1.0 or not d1 > 0:
+        raise AssertionError(f"scaling_bench: {res}")
+
+    log("  synthetic_benchmark: ResNet-50, bf16, batch 32, 224 px")
+    out, _ = run_main("horovod_tpu_torch.examples.synthetic_benchmark",
+                      "--num-iters", "5")
+    per = [x for x in out if x.startswith("Img/sec per device: ")]
+    total = [x for x in out if x.startswith("Total img/sec on 1 device(s)")]
+    iters = [x for x in out if x.startswith("Iter #")]
+    if len(per) != 1 or len(total) != 1 or len(iters) != 5 or \
+            not float(per[0].split()[3]) > 0:
+        raise AssertionError("synthetic_benchmark: missing lines")
+
+    for flags in (["--seq-lens", "2048,4096"],
+                  ["--seq-lens", "2048,4096", "--packed", "4"]):
+        log(f"  kernel_bench {' '.join(flags)}")
+        out, _ = run_main("horovod_tpu_torch.tools.kernel_bench", *flags)
+        summary = last_json(out)
+        if not summary.get("numerics_ok"):
+            raise AssertionError("kernel_bench: a numerics check failed")
+
+    log("  profile_resnet: ResNet-50, 3 profiled steps")
+    out, err = run_main("horovod_tpu_torch.tools.profile_resnet", "--model",
+                        "resnet50", "--steps", "3")
+    path = [x.split("summary -> ", 1)[1] for x in err.splitlines()
+            if x.startswith("summary -> ")]
+    text = Path(path[0]).read_text() if path and Path(path[0]).exists() \
+        else ""
+    rows = re.findall(r"^\| \d+ \|.*$", text, re.M)
+    log(f"    summary {path[0] if path else None}: {len(rows)} op rows; "
+        f"{json.dumps(last_json(out))}")
+    for row in rows[:10]:
+        log(f"      {row}")
+    if not rows:
+        raise AssertionError("profile_resnet: no summary or an empty one")
+
+
 def time_tree(tree):
     """``chip_smoke.py --time-tree DIR``: kernel times of the checkout DIR
     (say, a parent commit unpacked with ``git archive``; it builds its own
@@ -5112,7 +5706,7 @@ def main():
     # (b) kernels against their plain versions
     log(f"(b) kernels {since()}")
     table = kernel_case("slice", 8, 1024, 12, 64, torch.bfloat16, True,
-                        fused=True, timing=True)
+                        fused=True, timing=True, faults=True)
     kernel_case("slice-contiguous", 8, 1024, 12, 64, torch.bfloat16, True)
     # The shapes (g)'s full-width runs give the bf16 kernels: 6 heads a
     # rank at tp=2, and 4 rows a call in pp=2's microbatches and ep=2's
@@ -5131,15 +5725,24 @@ def main():
     kernel_case("ragged-bf16-d128-offsets-segments", 2, 1000, 4, 128,
                 torch.bfloat16, True, Tk=700, q_off=300, segments=4)
     table.update(ring_case())   # the state and fp32 rows at the ring's shape
-    # The segment-id mode: rows of their own, with the bound over the pairs
-    # visible inside segments and the library on the same boolean mask.
-    # The main paths run no segment ids, so these rows have no launches
-    # and stay out of the kernel line.
-    seg_rows = kernel_case("segments-bf16", 8, 2048, 12, 64, torch.bfloat16,
-                           True, fused=True, segments=4, timing=True)
-    log(json.dumps({"segment_id_rows": [
-        {k: v for k, v in row.items() if k != "launches"}
-        for row in seg_rows.values()]}))
+    kernel_case("segments-bf16", 8, 2048, 12, 64, torch.bfloat16, True,
+                fused=True, segments=4, faults=True)
+    # The segment-id modes at the shapes of (p)'s packed long-context
+    # trainer (T 8192 at sp=2, 3 documents a row, packed as the example
+    # packs them), timed, with the bound over the pairs visible inside
+    # the documents and the library on the same boolean mask: Ulysses'
+    # full-sequence calls (6 heads a rank) and the ring's diagonal block
+    # (rank 0's half of T, 12 heads). Their rows join the kernel line
+    # with (p)'s launches. The last-tile faults stay at the shapes above:
+    # at T 8192 one 64-key tile moves the forward's and dQ's outputs by
+    # less than the bf16 limit (3.8e-3 and 4.4e-3 on the H100).
+    seg_table = segment_rows(
+        kernel_case("segments-ulysses", LC_BATCH, LC_SEQ, 6, 64,
+                    torch.bfloat16, True, fused=True, segments=LC_DOCS,
+                    packed_over=LC_SEQ, timing=True, timed=ULYSSES_SEG),
+        kernel_case("segments-ring-diagonal", LC_BATCH, LC_SEQ // LC, 12,
+                    64, torch.bfloat16, True, fused=True, segments=LC_DOCS,
+                    packed_over=LC_SEQ, timing=True, timed=RING_SEG))
     kernel_case("segments-ragged-fp32", 2, 1000, 4, 128, torch.float32, True,
                 segments=4)
 
@@ -5226,7 +5829,7 @@ def main():
 
     # (f) images: cuDNN and PyTorch ops, no kernel of the port
     log(f"(f) images {since()}")
-    image_phase(gpu)
+    resnet50_img_s = image_phase(gpu)
 
     # (g) tensor, pipeline and expert parallelism
     log(f"(g) tp, pp and ep: {MP} ranks on cuda:0, one NCCL world {since()}")
@@ -5280,8 +5883,15 @@ def main():
         f"and a lost member, {CORE_RANKS} ranks on cuda:0 {since()}")
     core_phase(gpu)
 
+    # (p) the long-context example, packed, and the tools
+    log(f"(p) long context: the packed example at sp={LC} on cuda:0, then "
+        f"the tools {since()}")
+    launches.update(long_context_phase(gpu))
+    tools_phase(gpu, resnet50_img_s)
+
     # (d) result
     log(f"(d) result {since()}")
+    table.update(seg_table)
     for name, row in table.items():
         row["launches"] = launches[name]
     log(json.dumps({"kernels": list(table.values())}))
@@ -5325,6 +5935,10 @@ if __name__ == "__main__":
         sys.exit(heal_worker(sys.argv[2]))
     if sys.argv[1:2] == ["--lost-worker"]:
         sys.exit(lost_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--lc-worker"]:
+        sys.exit(lc_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--lc-reference-worker"]:
+        sys.exit(lc_reference_worker(sys.argv[2]))
     if sys.argv[1:2] == ["--time-tree"]:
         sys.exit(time_tree(sys.argv[2]))
     if sys.argv[1:2] == ["--sbn-race"]:

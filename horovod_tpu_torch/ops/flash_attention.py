@@ -50,15 +50,20 @@ FWD_KEY_TILE = {(torch.bfloat16, 64): 128, (torch.bfloat16, 128): 128,
                 (torch.float32, 64): 64, (torch.float32, 128): 32}
 
 # Launches of each kernel. flash_fwd counts its three output modes apart,
-# and the backward kernels their fp32-output mode.
-LAUNCHES = {"flash_fwd": 0, "flash_fwd_train": 0, "flash_fwd_state": 0,
-            "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "flash_bwd_dq_f32": 0,
-            "flash_bwd_dkv_f32": 0}
+# and the backward kernels their fp32-output mode; a launch with segment
+# ids counts under its mode's "_seg" name instead.
+MODES = ("flash_fwd", "flash_fwd_train", "flash_fwd_state", "flash_bwd_dq",
+         "flash_bwd_dkv", "flash_bwd_dq_f32", "flash_bwd_dkv_f32")
+LAUNCHES = {name: 0 for mode in MODES for name in (mode, mode + "_seg")}
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def _launched(mode: str, q_seg) -> None:
+    LAUNCHES[mode if q_seg is None else mode + "_seg"] += 1
 
 
 def _require_both_segs(q_seg, k_seg):
@@ -291,7 +296,7 @@ def flash_fwd(q, k, v, causal=True, q_off=0, k_off=0, window=None,
            if with_lse else None)
     _launch_fwd(q, k, v, o, lse, None, None, causal, q_off, k_off, window,
                 q_seg, k_seg)
-    LAUNCHES["flash_fwd_train" if with_lse else "flash_fwd"] += 1
+    _launched("flash_fwd_train" if with_lse else "flash_fwd", q_seg)
     return o, lse
 
 
@@ -310,7 +315,7 @@ def flash_fwd_state(q, k, v, causal=True, q_off=0, k_off=0, window=None,
                        device=q.device).unbind(0)
     _launch_fwd(q, k, v, acc, None, m, l, causal, q_off, k_off, window,
                 q_seg, k_seg)
-    LAUNCHES["flash_fwd_state"] += 1
+    _launched("flash_fwd_state", q_seg)
     return acc, m, l
 
 
@@ -337,8 +342,8 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal=True, q_off=0, k_off=0,
             _strides(q, k, v, do, dq), int(out_f32), int(causal), q_off,
             k_off, window or 0, _scale(q), _stream(q))
     _build.check(lib, err, "flash_bwd_dq")
-    LAUNCHES["flash_bwd_dq_f32" if out_dtype == torch.float32
-             else "flash_bwd_dq"] += 1
+    _launched("flash_bwd_dq_f32" if out_dtype == torch.float32
+              else "flash_bwd_dq", q_seg)
     return dq
 
 
@@ -366,8 +371,8 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal=True, q_off=0, k_off=0,
             _ptr(k_ids), _strides(q, k, v, do, dk, dv), int(out_f32),
             int(causal), q_off, k_off, window or 0, _scale(q), _stream(q))
     _build.check(lib, err, "flash_bwd_dkv")
-    LAUNCHES["flash_bwd_dkv_f32" if out_dtype == torch.float32
-             else "flash_bwd_dkv"] += 1
+    _launched("flash_bwd_dkv_f32" if out_dtype == torch.float32
+              else "flash_bwd_dkv", q_seg)
     return dk, dv
 
 

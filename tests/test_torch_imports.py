@@ -113,10 +113,15 @@ for name in ("parallel", "parallel.mesh", "parallel.ring_attention",
              "spark.keras.util", "spark.keras.estimator", "mxnet",
              "examples.pytorch_spark_mnist", "examples.keras_spark_mnist",
              "examples.keras_spark_rossmann_estimator",
-             "examples.mxnet_mnist", "examples.mxnet_imagenet_resnet50"):
+             "examples.mxnet_mnist", "examples.mxnet_imagenet_resnet50",
+             "examples.long_context", "examples.synthetic_benchmark",
+             "examples.scaling_bench", "tools", "tools.controller_bench",
+             "tools.kernel_bench", "tools.profile_resnet",
+             "tools.chaos_sched"):
     assert "horovod_tpu_torch." + name in names, name
+# Nor the root ``tools`` package: the port's own tools stand alone.
 bad = sorted(m for m in sys.modules if m.split(".")[0] in (
-    "jax", "jaxlib", "horovod_tpu"))
+    "jax", "jaxlib", "horovod_tpu", "tools"))
 print(len(names), bad)
 assert not bad, bad
 assert os.path.isfile(os.path.join(horovod_tpu_torch.__path__[0], "csrc",
@@ -349,3 +354,20 @@ def test_is_homogeneous_reads_the_world(local_sizes, want):
     for r, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, out
         assert f"HOMOGENEOUS {r} {want}" in out, out
+
+
+def test_new_entry_points_default_to_cuda(no_gpu, tmp_path):
+    """The long-context example, the synthetic and scaling benchmarks and
+    the profile tool ask for the card unless told ``--device cpu`` (or
+    ``--cpu-devices``)."""
+    from horovod_tpu_torch.examples import (long_context, scaling_bench,
+                                            synthetic_benchmark)
+    from horovod_tpu_torch.tools import profile_resnet
+
+    for main, argv in ((long_context.main, ["--sp", "1"]),
+                       (synthetic_benchmark.main, []),
+                       (profile_resnet.main, ["--out", str(tmp_path)])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main(argv)
+    with pytest.raises(SystemExit, match="0 attached device"):
+        scaling_bench.main([])
