@@ -2,7 +2,9 @@
 """Chip smoke test of the PyTorch/CUDA port on one GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --time-tree DIR   # kernel times of one checkout
+    python3 chip_smoke.py --kernels         # phases (a) and (b) alone
+    python3 chip_smoke.py --time-tree DIR [--outputs FILE]
+                                            # kernel times of one checkout
     python3 chip_smoke.py --sbn-race RUNS [--keep OUT] [DIR[:RUNS] ...]
 
 Phases, in order (a, b, c, e, f, g, h, i, j, k, l, m, n, o, p, d); any
@@ -36,13 +38,20 @@ failure exits nonzero:
     dQ exactly 0), the fp32 dK/dV in the first two, with the global lse
     and delta, their planted faults and times; and every mode with packed
     segment ids, at bf16 (4 random segments at the ring's block shape,
-    with the planted last-tile faults; then timed at (p)'s shapes, 3
-    evenly packed documents of T 8192: Ulysses' full-sequence calls, B=2
-    and 6 heads, and the ring's diagonal block, B=2, T=4096, 12 heads,
-    with the bound over the pairs visible inside the documents and the
-    library on the same boolean mask, rows of the kernel line as
-    ``<mode>_seg``) and ragged fp32, where ignoring the ids must be
-    refused.
+    with the planted last-tile faults; the backward kernels' id tables at
+    ``id_patterns``, bf16 at D 64 and 128 with both faults: padding id 0
+    after the documents, an id that comes back after a gap, documents
+    shorter than a 64-token tile, boundaries on 64- and 128-token edges,
+    ragged T with offsets and with a window, one batch row with an odd
+    count of 64-token tiles; one document, whose backward
+    launches must be bitwise those without ids; then timed at (p)'s
+    shapes, 3 evenly packed documents of T 8192: Ulysses' full-sequence
+    calls, B=2 and 6 heads, and the ring's diagonal and past blocks, B=2,
+    T=4096, 12 heads, with the bound over the pairs visible inside the
+    documents and the library on the same boolean mask, rows of the
+    kernel line as ``<mode>_seg``, the ring modes' with their
+    ``past_block`` timings) and ragged fp32, where ignoring the ids must
+    be refused.
 (c) the slice: a small transformer's loss and gradients through the
     kernels against the same model on the CPU; then the GPT-2-small-class
     trainer (12 layers, d_model 768, T 1024, bf16, batch 8) for 2 warm-up
@@ -148,7 +157,7 @@ failure exits nonzero:
     rank 0's timeline shows ``NCCL_*`` for the staged tensors and nothing
     for the others. Then two ranks of the eager plane
     (``--planes-worker``, one NCCL world for two ``hvd.init``): (i)'s
-    ResNet-50 workload for 6 steps with ``HOROVOD_TIMELINE`` on rank 0,
+    ResNet-50 workload for 8 steps with ``HOROVOD_TIMELINE`` on rank 0,
     ``HOROVOD_AUTOTUNE=1`` (a short schedule, so the tuner pins within
     the phase) and ``HOROVOD_METRICS_EXPORT``: every step bitwise equal to
     ``grouped_allreduce``, every gradient's ``NEGOTIATE_ALLREDUCE`` then
@@ -772,27 +781,12 @@ def sdpa_state_ms(q, k, v, causal=False):
     return ms
 
 
-def kernel_case(label, B, T, H, D, dtype, causal, window=None, Tk=None,
-                q_off=0, k_off=0, fused=False, timing=False, segments=0,
-                packed_over=0, faults=False, timed=None):
-    """Every kernel mode against its plain version on one shape; with
-    ``fused`` q/k/v are views of one [B, T, 3, H, D] tensor, as the
-    model's qkv projection gives them; with ``segments`` that many
-    packed segments per row (random lengths, or with ``packed_over`` the
-    long-context example's even packing of a sequence of that length,
-    sliced at the offsets), and the plain versions without them as a
-    fault the comparison must refuse; with ``faults`` the planted
-    last-tile faults; with ``timing`` the time of
-    every mode in ``timed`` (default all). Returns {kernel: row} for the
-    table."""
+def case_inputs(B, T, Tk, H, D, dtype, fused, seed=0):
+    """(q, k, v, dO) of one case, drawn on the card from ``seed``; with
+    ``fused`` q/k/v are views of one [B, T, 3, H, D] tensor."""
     import torch
 
-    Tk = Tk or T
-    log(f"case {label}: B={B} Tq={T} Tk={Tk} H={H} D={D} {dtype} "
-        f"causal={causal} window={window} q_off={q_off} k_off={k_off} "
-        f"segments={segments} q/k/v "
-        f"{'views of one [B,T,3,H,D]' if fused else 'contiguous'}")
-    g = torch.Generator(device="cuda").manual_seed(0)
+    g = torch.Generator(device="cuda").manual_seed(seed)
 
     def randn(*shape):
         return torch.randn((B, *shape, H, D), generator=g, device="cuda",
@@ -803,11 +797,40 @@ def kernel_case(label, B, T, H, D, dtype, causal, window=None, Tk=None,
         q, k, v = randn(T, 3).unbind(2)
     else:
         q, k, v = randn(T), randn(Tk), randn(Tk)
-    do = randn(T)
+    return q, k, v, randn(T)
+
+
+def kernel_case(label, B, T, H, D, dtype, causal, window=None, Tk=None,
+                q_off=0, k_off=0, fused=False, timing=False, segments=0,
+                packed_over=0, ids=None, faults=False, timed=None):
+    """Every kernel mode against its plain version on one shape; with
+    ``fused`` q/k/v are views of one [B, T, 3, H, D] tensor, as the
+    model's qkv projection gives them; with ``segments`` that many
+    packed segments per row (random lengths, or with ``packed_over`` the
+    long-context example's even packing of a sequence of that length,
+    sliced at the offsets), or with ``ids`` the given ids of the global
+    positions (``id_patterns``), and the plain versions without them as a
+    fault the comparison must refuse; with ``faults`` the planted
+    last-tile faults; with ``timing`` the time of
+    every mode in ``timed`` (default all). Returns {kernel: row} for the
+    table."""
+    import torch
+
+    Tk = Tk or T
+    if ids is not None:
+        segments = len(set(ids))
+    log(f"case {label}: B={B} Tq={T} Tk={Tk} H={H} D={D} {dtype} "
+        f"causal={causal} window={window} q_off={q_off} k_off={k_off} "
+        f"segments={segments} q/k/v "
+        f"{'views of one [B,T,3,H,D]' if fused else 'contiguous'}")
+    q, k, v, do = case_inputs(B, T, Tk, H, D, dtype, fused)
     kw = dict(causal=causal, q_off=q_off, k_off=k_off, window=window)
     if segments:
         n = max(q_off + T, k_off + Tk)
-        if packed_over:
+        if ids is not None:
+            ids = torch.as_tensor(ids[:n], dtype=torch.int32).expand(
+                B, n).cuda()
+        elif packed_over:
             from horovod_tpu_torch.examples.long_context import (
                 packed_segment_ids)
 
@@ -857,6 +880,113 @@ def kernel_case(label, B, T, H, D, dtype, causal, window=None, Tk=None,
                    "flash_bwd_dq_f32": bwd, "flash_bwd_dkv_f32": bwd}
     return time_rows(modes(*args, kw, timed or OUTPUTS), (B, T, Tk, H, D),
                      dtype, pairs, library, errs, ids_bytes)
+
+
+def docs(*lengths, first=1):
+    """Ids of consecutive documents of these lengths, numbered from
+    ``first``."""
+    import numpy as np
+
+    return np.concatenate([np.full(n, first + i, np.int32)
+                           for i, n in enumerate(lengths)])
+
+
+def id_patterns():
+    """The (b) cases of the backward kernels' id tables (culling by
+    document, the compare only in a tile that mixes ids), each run in
+    bf16 at D 64 and 128: {label: (ids of the global positions,
+    kernel_case arguments)}. Every tile edge named is a multiple of 64."""
+    import numpy as np
+
+    short = np.random.RandomState(0).randint(1, 64, size=64)
+    return {
+        # documents 1..3, then padding id 0 to the end of the row; no
+        # causal mask, so the padding's rows see back into no document
+        "ids-padding": (np.concatenate([docs(300, 250, 200),
+                                        np.zeros(250, np.int32)]),
+                        dict(T=1000, causal=False)),
+        # A B A: an id that comes back after a gap, so tiles between the
+        # first and the last kept hold no pair
+        "ids-recurring": (np.concatenate([docs(400, first=5),
+                                          docs(300, first=9),
+                                          docs(324, first=5)]),
+                          dict(T=1024, causal=True)),
+        # documents of 1 to 63 tokens, several to a 64-token tile
+        "ids-short-docs": (docs(*short)[:1024], dict(T=1024, causal=True)),
+        # boundaries exactly on 64- and 128-token edges
+        "ids-tile-edges": (docs(64, 64, 128, 128, 128, 256, 256),
+                           dict(T=1024, causal=True)),
+        # ragged T with offsets: rows 300..1299 against keys 0..699, the
+        # last document holding the last keys and the last rows
+        "ids-ragged-offsets": (docs(180, 333, 787),
+                               dict(T=1000, Tk=700, q_off=300,
+                                    causal=True)),
+        # ragged T with a sliding window across the boundaries
+        "ids-window": (docs(150, 420, 430),
+                       dict(T=1000, causal=True, window=256)),
+        # one batch row and an odd number of 64-token tiles (15), so the
+        # k side's id table follows an odd count of ranges in the scratch
+        "ids-batch-one": (docs(200, 333, 427),
+                          dict(T=960, causal=True, B=1)),
+    }
+
+
+def id_pattern_cases():
+    """Every mode with each of ``id_patterns`` against its plain version,
+    bf16 at D 64 and 128 (B=2 unless the pattern says, 4 heads), ignoring
+    the ids and dropping the last tile refused."""
+    import torch
+
+    for label, (ids, kw) in id_patterns().items():
+        kw = dict(kw)
+        T, causal, B = kw.pop("T"), kw.pop("causal"), kw.pop("B", 2)
+        for D in (64, 128):
+            kernel_case(f"{label}-d{D}", B, T, 4, D, torch.bfloat16, causal,
+                        ids=ids, faults=True, **kw)
+
+
+def bits(t):
+    """``t``'s bits as integers of its width."""
+    import torch
+
+    return t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
+
+
+def one_document_case(label, B, T, H, D, Tk=None, q_off=0, k_off=0,
+                      fused=False):
+    """All-equal ids: every tile takes the id-free path, so the backward
+    modes with them must give bitwise the outputs of the same launches
+    without ids."""
+    import torch
+
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    Tk = Tk or T
+    q, k, v, do = case_inputs(B, T, Tk, H, D, torch.bfloat16, fused, seed=3)
+    kw = dict(causal=True, q_off=q_off, k_off=k_off, window=None)
+    o, lse = fa.flash_fwd_plain(q, k, v, with_lse=True, **kw)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse, delta)
+    one = dict(kw, q_seg=torch.full((B, T), 7, dtype=torch.int32,
+                                    device="cuda"),
+               k_seg=torch.full((B, Tk), 7, dtype=torch.int32, device="cuda"))
+    names = ("flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_dq_f32",
+             "flash_bwd_dkv_f32")
+    plain, ided = modes(*args, kw, names), modes(*args, one, names)
+    differ = []
+    for name in names:
+        for out, a, b in zip(OUTPUTS[name], plain[name][0](),
+                             ided[name][0]()):
+            n = int((bits(a) != bits(b)).sum())
+            if n:
+                differ.append(f"{name} {out}: {n} elements")
+    log(f"case {label}: B={B} Tq={T} Tk={Tk} H={H} D={D} bf16 causal "
+        f"q_off={q_off} k_off={k_off}, one document: the backward modes "
+        f"with all-equal ids {'bitwise' if not differ else 'NOT bitwise'} "
+        f"the launches without ids {differ or ''}")
+    if differ:
+        raise AssertionError(f"case {label}: all-equal ids change the "
+                             f"backward's bits: {differ}")
 
 
 def ring_inputs():
@@ -2585,13 +2715,16 @@ HOST_TIMEOUT_S = 240
 PLANES = 2                      # ranks of (j)'s eager part, both on cuda:0
 PLANES_TIMEOUT_S = 300
 STAGE_THRESHOLD = 1024          # HOROVOD_HOST_VIA_XLA_THRESHOLD in (j)
-PLANES_STEPS = 6                # ResNet-50 steps under the tuner
-# The tuner's schedule in (j): one warm-up sample, then 4 scored ones of 40
-# responses each; ResNet-50 gives ~70-150 responses a step, so the tuner
-# pins in step 1 or 2 and the later steps run at the pinned point.
+PLANES_STEPS = 8                # ResNet-50 steps under the tuner
+# The tuner's schedule in (j): one warm-up sample, then 4 scored ones of 16
+# responses each, 80 responses in all. ResNet-50 gives ~70-150 responses a
+# step at the initial point, but only ~25 once a candidate with a large
+# fusion threshold and a long cycle is applied, and a schedule of 200
+# responses once ran out of steps unpinned. 80 responses pin within 8 steps
+# at as few as 10 responses a step.
 AUTOTUNE_ENV = {"HOROVOD_AUTOTUNE": "1",
                 "HOROVOD_AUTOTUNE_WARMUP_SAMPLES": "1",
-                "HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE": "40",
+                "HOROVOD_AUTOTUNE_STEPS_PER_SAMPLE": "16",
                 "HOROVOD_AUTOTUNE_BAYES_OPT_MAX_SAMPLES": "4"}
 XLA_EXEC_FAULT = "xla.exec:rank=1:step=2:kind=raise"
 ZERO_GATHER_FAULT = "zero.gather:rank=1:step=1:kind=raise"
@@ -3627,6 +3760,14 @@ def binding_worker(out_path):
     return 0
 
 
+def write_mark(path, text):
+    """A marker file another process polls for: written beside and renamed
+    into place, so it never exists empty."""
+    tmp = path.with_name(path.name + ".tmp")
+    tmp.write_text(text)
+    os.replace(tmp, path)
+
+
 def elastic_worker(out_path):
     """One rank of (k)(2) (run as ``chip_smoke.py --elastic-worker``): a
     model in ``elastic.run`` whose every batch ends in a 64 MiB
@@ -3694,16 +3835,16 @@ def elastic_worker(out_path):
                 state.commit()
                 mark = tmp / f"reformed.{rank}"
                 if (resets or respawned) and not mark.exists():
-                    mark.write_text(repr(time.time()))
+                    write_mark(mark, repr(time.time()))
             except hvd.HorovodInternalError as e:
                 resets.append(state.batch)
                 raised_in.append(sorted({
                     Path(f.filename).name
                     for f in traceback.extract_tb(e.__traceback__)}))
-                (tmp / f"raised.{rank}").write_text(repr(time.time()))
+                write_mark(tmp / f"raised.{rank}", repr(time.time()))
                 raise
             if rank == 1 and not respawned and state.batch == KILL_READY:
-                (tmp / "ready").write_text("1")
+                write_mark(tmp / "ready", "1")
         return state.batch
 
     batches = train(state)
@@ -5100,11 +5241,19 @@ RING_SEG = ("flash_fwd_state", "flash_bwd_dq_f32", "flash_bwd_dkv_f32")
 TOOL_TIMEOUT_S = 420
 
 
-def segment_rows(*cases):
+def segment_rows(*cases, past=None):
     """The timed rows of ``cases`` ({mode: row}) as the kernel line's
-    segment-id rows, named ``<mode>_seg``."""
-    return {f"{mode}_seg": dict(row, name=f"{mode}_seg")
+    segment-id rows, named ``<mode>_seg``. The rows of ``past`` (the
+    ring's past block) join their modes' rows as ``past_block`` timings
+    with no launch count of their own: (p)'s count of a mode covers every
+    block of the ring."""
+    rows = {f"{mode}_seg": dict(row, name=f"{mode}_seg")
             for rows in cases for mode, row in rows.items()}
+    for mode, row in (past or {}).items():
+        rows[f"{mode}_seg"]["past_block"] = {
+            k: v for k, v in row.items()
+            if k not in ("name", "route", "source", "replaces", "launches")}
+    return rows
 
 
 def packed_launches(layers, steps, strategy, sp, packed=True):
@@ -5611,20 +5760,99 @@ def tools_phase(gpu, resnet50_img_s):
         raise AssertionError("profile_resnet: no summary or an empty one")
 
 
-def time_tree(tree):
-    """``chip_smoke.py --time-tree DIR``: kernel times of the checkout DIR
-    (say, a parent commit unpacked with ``git archive``; it builds its own
-    library in its own ``build/``), each over 50 launches after 5 of
-    warm-up by CUDA events and, beside them, the kernels' device time by
-    torch.profiler over 20: AB_MODES at the slice's shape (B=8, T=1024,
-    H=12, D=64, bf16, causal, q/k/v views of one qkv tensor) and
-    AB_RING_MODES at the ring's past block (``ring_inputs()``). One JSON
-    line. Run parent, change, change, parent in one call and compare
-    within it."""
+# (p)'s shapes of the segment-id rows of ``--time-tree``: (B, T, heads,
+# q_off, modes); keys from 0 and 3 evenly packed documents of LC_SEQ.
+PACKED_SHAPES = {"ulysses": (LC_BATCH, LC_SEQ, 6, 0, ULYSSES_SEG),
+                 "diagonal": (LC_BATCH, LC_SEQ // LC, 12, 0, RING_SEG),
+                 "past": (LC_BATCH, LC_SEQ // LC, 12, LC_SEQ // LC, RING_SEG)}
+
+
+def packed_inputs(B, T, H, q_off):
+    """(q, k, v, dO, lse, delta), kw of a segment-id row at (p)'s shapes:
+    q/k/v views of one [B, T, 3, H, 64] bf16 tensor drawn from seed 0,
+    the plain forward's lse and delta, and the example's packing of
+    LC_SEQ tokens (queries from ``q_off``, keys from 0)."""
+    import torch
+
+    from horovod_tpu_torch.examples.long_context import packed_segment_ids
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = case_inputs(B, T, T, H, 64, torch.bfloat16, True)
+    ids = torch.as_tensor(packed_segment_ids(LC_SEQ, LC_DOCS),
+                          dtype=torch.int32).expand(B, LC_SEQ).cuda()
+    kw = dict(causal=True, q_off=q_off, k_off=0, window=None,
+              q_seg=ids[:, q_off:q_off + T].contiguous(),
+              k_seg=ids[:, :T].contiguous())
+    o, lse = fa.flash_fwd_plain(q, k, v, with_lse=True, **kw)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    return (q, k, v, do, lse, delta), kw
+
+
+def sass_digests(path):
+    """{function: sha256 of its SASS} of each flash_* function in the
+    library at ``path`` (``cuobjdump -sass``), named without the
+    anonymous namespace's per-build tag; {} without cuobjdump. Two builds
+    whose function runs the same instructions give the same digest."""
+    import hashlib
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.access(tool, os.X_OK):
+        return {}
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True).stdout
+    funcs, fn = {}, None
+    for line in sass.splitlines():
+        line = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "", line)
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            fn = m.group(1)
+            funcs[fn] = []
+        elif fn and line.strip():
+            funcs[fn].append(line.strip())
+    return {n: hashlib.sha256("\n".join(lines).encode()).hexdigest()[:16]
+            for n, lines in sorted(funcs.items()) if "flash_" in n}
+
+
+def same_outputs(got, want):
+    """Bitwise comparison of two runs' outputs ({row: [tensor]}): {row:
+    (elements whose bits differ, of which values differ, max |got -
+    want|)} for every row that differs."""
+    differ = {}
+    for name, outs in got.items():
+        for a, b in zip(outs, want[name]):
+            nbits = int((bits(a) != bits(b)).sum())
+            if nbits:
+                nval = int((a != b).sum())
+                err = (a.float() - b.float()).abs().max().item()
+                d = differ.get(name, (0, 0, 0.0))
+                differ[name] = (d[0] + nbits, d[1] + nval, max(d[2], err))
+    return differ
+
+
+def time_tree(tree, *flags):
+    """``chip_smoke.py --time-tree DIR [--outputs FILE]``: kernel times of
+    the checkout DIR (say, a parent commit unpacked with ``git archive``;
+    it builds its own library in its own ``build/``), each over 50
+    launches after 5 of warm-up by CUDA events and, beside them, the
+    kernels' device time by torch.profiler over 20: AB_MODES at the
+    slice's shape (B=8, T=1024, H=12, D=64, bf16, causal, q/k/v views of
+    one qkv tensor), AB_RING_MODES at the ring's past block
+    (``ring_inputs()``), the segment-id modes at PACKED_SHAPES
+    (``<mode>_seg@<shape>``), and the backward at the Ulysses shape
+    without ids and with one document (``@ulysses``,
+    ``_seg@ulysses-one-doc``: the same pairs, so the difference is what
+    the ids cost where no tile is culled). One JSON line, with the SASS
+    digest of each kernel (and, when this run built the library, each
+    kernel's registers logged before it). Run parent, change, change,
+    parent in one call and compare within it. With ``--outputs FILE`` the
+    first run writes the segment-id rows' outputs, the inputs' digest and
+    the SASS digests to FILE, and every later run holds its own outputs
+    against them bit by bit and names the kernels whose SASS differs."""
     tree = Path(tree).resolve()
     sys.path.insert(0, str(tree))
     import torch
 
+    from horovod_tpu_torch.ops import _build
     from horovod_tpu_torch.ops import flash_attention as fa
 
     if not Path(fa.__file__).resolve().is_relative_to(tree):
@@ -5632,6 +5860,9 @@ def time_tree(tree):
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device")
         return 2
+    outputs = Path(flags[1]) if flags[:1] == ("--outputs",) else None
+    path = _build.build("flash_attention", verbose=True)
+    kernel_report("flash_attention", path)
     B, T, H, D = 8, 1024, 12, 64
     g = torch.Generator(device="cuda").manual_seed(0)
     q, k, v = torch.randn((B, T, 3, H, D), generator=g, device="cuda").to(
@@ -5647,39 +5878,72 @@ def time_tree(tree):
                  dict(causal=True, q_off=q_off, k_off=k_off, window=None),
                  AB_RING_MODES)
     calls.update({f"{name}@past": c for name, c in ring.items()})
+    packed, inputs = {}, []
+    for shape, (pB, pT, pH, p_off, names) in PACKED_SHAPES.items():
+        args, pkw = packed_inputs(pB, pT, pH, p_off)
+        inputs += [*args, pkw["q_seg"], pkw["k_seg"]]
+        packed.update({f"{name}_seg@{shape}": c
+                       for name, c in modes(*args, pkw, names).items()})
+        if shape == "ulysses":
+            bwd = ("flash_bwd_dq", "flash_bwd_dkv")
+            blind = dict(pkw, q_seg=None, k_seg=None)
+            calls.update({f"{name}@ulysses": c for name, c in
+                          modes(*args, blind, bwd).items()})
+            one = dict(pkw, q_seg=torch.ones_like(pkw["q_seg"]),
+                       k_seg=torch.ones_like(pkw["k_seg"]))
+            calls.update({f"{name}_seg@ulysses-one-doc": c for name, c in
+                          modes(*args, one, bwd).items()})
+    calls.update(packed)
     ms = {name: time_ms(kern, iters=50, warmup=5)
           for name, (kern, _) in calls.items()}
     dev = {name: device_ms(kern) for name, (kern, _) in calls.items()}
-    log(json.dumps({"tree": str(tree), "card": card(), "shape": [B, T, H, D],
-                    "ring_block": list(rq.shape), "iters": 50, "ms": ms,
-                    "device_ms": dev}))
+    sass = sass_digests(path)
+    line = {"tree": str(tree), "card": card(), "shape": [B, T, H, D],
+            "ring_block": list(rq.shape), "iters": 50, "ms": ms,
+            "device_ms": dev, "sass": sass}
+    if outputs is not None:
+        got = {name: [t.cpu() for t in kern()]
+               for name, (kern, _) in packed.items()}
+        digest = tensor_digest(inputs)
+        if not outputs.exists():
+            outputs.parent.mkdir(parents=True, exist_ok=True)
+            torch.save({"inputs": digest, "outputs": got, "sass": sass},
+                       outputs)
+            line["outputs"] = f"written to {outputs}"
+        else:
+            ref = torch.load(outputs)
+            if ref["inputs"] != digest:
+                raise AssertionError(f"{outputs}: other inputs than this "
+                                     f"run's")
+            differ = same_outputs(got, ref["outputs"])
+            line["outputs"] = {"against": str(outputs),
+                               "bitwise": not differ,
+                               "differ": {n: list(d)
+                                          for n, d in differ.items()},
+                               "sass_differ": sorted(
+                                   n for n in set(sass) | set(ref["sass"])
+                                   if sass.get(n) != ref["sass"].get(n))}
+    log(json.dumps(line))
     return 0
 
 
-def main():
-    if not (REPO / "horovod_tpu_torch").is_dir():
-        log("chip_smoke: horovod_tpu_torch not found beside this script")
-        return 2
-    import torch
-
-    if not torch.cuda.is_available():
-        log("chip_smoke: no CUDA device")
-        return 2
-    sys.path.insert(0, str(REPO))
+def device_and_kernels(started):
+    """Phases (a) and (b): the card, the build, and every kernel against
+    its plain version. Returns (the card's line, {kernel: row} of the
+    slice's and the ring's modes, {kernel: row} of the segment-id modes
+    at (p)'s shapes)."""
     from concurrent.futures import ThreadPoolExecutor
 
-    import horovod_tpu_torch as hvd
-    from horovod_tpu_torch import transformer_bench
+    import torch
+
     from horovod_tpu_torch.common import native
     from horovod_tpu_torch.ops import _build
     from horovod_tpu_torch.ops import flash_attention as fa
 
-    # (a) device and build
-    started = time.perf_counter()
-
     def since():
         return f"(+{time.perf_counter() - started:.1f} s)"
 
+    # (a) device and build
     gpu = card()
     log(f"(a) card: {gpu}; torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, cuDNN {torch.backends.cudnn.version()}, "
@@ -5727,24 +5991,70 @@ def main():
     table.update(ring_case())   # the state and fp32 rows at the ring's shape
     kernel_case("segments-bf16", 8, 2048, 12, 64, torch.bfloat16, True,
                 fused=True, segments=4, faults=True)
+    # The backward kernels' id tables: padding, a recurring id, short
+    # documents, boundaries on tile edges, ragged T with offsets and with
+    # a window; then one document, bitwise the launches without ids.
+    id_pattern_cases()
+    one_document_case("one-document", 8, 1024, 12, 64, fused=True)
+    one_document_case("one-document-d128-offsets", 2, 1000, 4, 128, Tk=700,
+                      q_off=300)
     # The segment-id modes at the shapes of (p)'s packed long-context
     # trainer (T 8192 at sp=2, 3 documents a row, packed as the example
     # packs them), timed, with the bound over the pairs visible inside
     # the documents and the library on the same boolean mask: Ulysses'
-    # full-sequence calls (6 heads a rank) and the ring's diagonal block
-    # (rank 0's half of T, 12 heads). Their rows join the kernel line
-    # with (p)'s launches. The last-tile faults stay at the shapes above:
-    # at T 8192 one 64-key tile moves the forward's and dQ's outputs by
-    # less than the bf16 limit (3.8e-3 and 4.4e-3 on the H100).
-    seg_table = segment_rows(
-        kernel_case("segments-ulysses", LC_BATCH, LC_SEQ, 6, 64,
-                    torch.bfloat16, True, fused=True, segments=LC_DOCS,
-                    packed_over=LC_SEQ, timing=True, timed=ULYSSES_SEG),
-        kernel_case("segments-ring-diagonal", LC_BATCH, LC_SEQ // LC, 12,
-                    64, torch.bfloat16, True, fused=True, segments=LC_DOCS,
-                    packed_over=LC_SEQ, timing=True, timed=RING_SEG))
+    # full-sequence calls (6 heads a rank), the ring's diagonal block
+    # (rank 0's half of T, 12 heads) and its past block (rank 1's queries
+    # against rank 0's keys; its timings join the ring modes' rows as
+    # ``past_block``). Their rows join the kernel line with (p)'s
+    # launches, which count every ring block.
+    # The last-tile faults stay at the shapes above: at T 8192 one 64-key
+    # tile moves the forward's and dQ's outputs by less than the bf16
+    # limit (3.8e-3 and 4.4e-3 on the H100).
+    ulysses = kernel_case("segments-ulysses", LC_BATCH, LC_SEQ, 6, 64,
+                          torch.bfloat16, True, fused=True, segments=LC_DOCS,
+                          packed_over=LC_SEQ, timing=True, timed=ULYSSES_SEG)
+    diagonal = kernel_case("segments-ring-diagonal", LC_BATCH, LC_SEQ // LC,
+                           12, 64, torch.bfloat16, True, fused=True,
+                           segments=LC_DOCS, packed_over=LC_SEQ, timing=True,
+                           timed=RING_SEG)
+    past = kernel_case("segments-ring-past", LC_BATCH, LC_SEQ // LC, 12, 64,
+                       torch.bfloat16, True, fused=True, q_off=LC_SEQ // LC,
+                       segments=LC_DOCS, packed_over=LC_SEQ, timing=True,
+                       timed=RING_SEG)
+    seg_table = segment_rows(ulysses, diagonal, past=past)
     kernel_case("segments-ragged-fp32", 2, 1000, 4, 128, torch.float32, True,
                 segments=4)
+
+    return gpu, table, seg_table
+
+
+def main():
+    if not (REPO / "horovod_tpu_torch").is_dir():
+        log("chip_smoke: horovod_tpu_torch not found beside this script")
+        return 2
+    import torch
+
+    if not torch.cuda.is_available():
+        log("chip_smoke: no CUDA device")
+        return 2
+    sys.path.insert(0, str(REPO))
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch import transformer_bench
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    # (a) device and build, (b) kernels against their plain versions
+    started = time.perf_counter()
+
+    def since():
+        return f"(+{time.perf_counter() - started:.1f} s)"
+
+    gpu, table, seg_table = device_and_kernels(started)
+    if sys.argv[1:2] == ["--kernels"]:
+        table.update(seg_table)
+        log(json.dumps({"kernels": list(table.values())}))
+        log(f"(a) and (b) alone: no main path ran (launches 0) "
+            f"{since()}")
+        return 0
 
     # (c) the slice
     log(f"(c) slice {since()}")
@@ -5940,7 +6250,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--lc-reference-worker"]:
         sys.exit(lc_reference_worker(sys.argv[2]))
     if sys.argv[1:2] == ["--time-tree"]:
-        sys.exit(time_tree(sys.argv[2]))
+        sys.exit(time_tree(*sys.argv[2:]))
     if sys.argv[1:2] == ["--sbn-race"]:
         rest = sys.argv[3:]
         out = {}

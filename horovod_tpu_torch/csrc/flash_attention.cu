@@ -22,11 +22,15 @@
 // their own strides. A ragged last tile is zero-filled and masked inside
 // the kernels, so every T is served. Causal and sliding-window tiles that
 // hold no visible key are culled before they are loaded (the Pallas
-// predicate); segment ids mask pairs inside a tile and never cull one, and
-// are a template flag (SEG), so a call without them runs no id code. In
-// state mode a block whose every tile is culled (a future block of the
-// ring) still writes m = -1e30, l = 0 and acc = 0, the state the merge
-// expects.
+// predicate). Segment ids are a template flag (SEG), so a call without
+// them runs no id code. In the forward they mask pairs inside a tile and
+// never cull one. The bf16 backward kernels cull by document too: ahead of
+// them a small kernel (flash_id_table) writes each side's id table, the
+// ids padded to whole tiles and each 64-token tile's [min, max]; a tile
+// whose range misses the rows' range holds no pair of one id, so its P is
+// exactly 0 and skipping it changes no bit of dQ, dK or dV. In state mode
+// a block whose every tile is culled (a future block of the ring) still
+// writes m = -1e30, l = 0 and acc = 0, the state the merge expects.
 //
 // Bounds on an H100 SXM (989 TFLOP/s bf16, 3.35 TB/s). At the slice's
 // shape (B=8, T=1024, H=12, D=64, causal, bf16, one layer) the forward
@@ -35,7 +39,11 @@
 // dK/dV twice (26 us) over ~76 MB. At the ring's past block (Tq = Tk =
 // 2048, every pair visible) the state mode needs ~103 GFLOP (104 us), dQ
 // with an fp32 output ~155 GFLOP (156 us) and dK/dV ~206 GFLOP (208 us):
-// all bound by operations.
+// all bound by operations. With segment ids the bound counts only the
+// pairs inside the documents: at the packed long-context trainer's
+// full-sequence shape (B=2, T=8192, 6 heads of 64, 3 documents) dQ needs
+// 52 us and dK/dV 70 us, by operations; the id table reads the 2 B T ids
+// and writes them back with their ranges, well under a microsecond.
 //
 // bf16 inputs run three kernels of one design: flash_fwd_sm90 (every
 // forward mode), flash_bwd_dq_sm90 and flash_bwd_dkv_sm90. Each CTA is
@@ -73,6 +81,26 @@
 //     tiles wholly visible to a warpgroup skip the per-element mask; the
 //     causal forward and dQ launch their heaviest (last) query tiles
 //     first; a kernel's shared-memory attribute is set once per device.
+//  6. Segment ids in dQ and dK/dV (the forward's are point 2's ids, loaded
+//     by the producer's lanes, compared in every tile). Each CTA narrows
+//     its causal/window range of streamed tiles to the first through the
+//     last whose id range meets its own rows' (a warp ballot over the
+//     table, 32 tiles a vote, by the producer warp and every consumer
+//     warp alike): for ids that never decrease along a row, as a packer
+//     writes them, exactly the tiles that hold a pair; the tiles between
+//     stay visited and masked, so padding or an id that comes back later
+//     in the row is still served. A CTA left with no tile loads nothing
+//     and writes zeros. The producer classes each streamed tile for each
+//     consumer warpgroup (tile_class, passed in shared memory with the
+//     stage): all one id, the same as the warpgroup's rows, takes the
+//     id-free path, masked only at a ragged edge or by causality; no id
+//     in the rows' range is skipped (every P is 0); only a mixed tile
+//     compares ids pair by pair, and only it has its ids in shared
+//     memory, brought by one bulk copy counted on the stage's full
+//     barrier (256 or 512 bytes) rather than by the producer's lanes.
+//     The elementwise work per score, not the tensor cores, sets these
+//     kernels' time, so a tile that needs no mask runs a P loop compiled
+//     without one (tile_probs): no per-element test or branch.
 //
 // fp32 inputs keep a simpler design by choice (fp32 stays fp32, with no
 // TF32 rounding; the model runs in bf16): one CTA owns one 64-row tile (32
@@ -85,6 +113,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+#include <climits>
 #include <type_traits>
 
 #include "hopper.cuh"
@@ -277,6 +307,159 @@ __device__ __forceinline__ bool all_visible(int q0, int nq, int k0, int nk, int 
   return q0 >= k0 + nk - 1 && (window <= 0 || q0 + nq - 1 - k0 < window);
 }
 
+// ---- segment ids of the bf16 backward kernels: the id table ----------------------
+
+constexpr int ID_TILE = 64;  // tokens per range of the table: a warpgroup's rows
+constexpr int ID_ROW = 128;  // the padded ids of a row: a multiple of the widest tile
+
+// One side's id table, in the scratch the wrapper allocates: each batch
+// row's ids padded with 0 to a multiple of ID_ROW tokens (so that a tile's
+// ids are one aligned bulk copy), then each ID_TILE-token tile's [min, max]
+// over its tokens < T.
+struct IdTable {
+  int* ids;   // [B, pad]
+  int2* rng;  // [B, nt]
+  int pad, nt;
+};
+
+__host__ __device__ inline IdTable id_table(const int* base, int B, int T) {
+  IdTable t;
+  t.pad = (T + ID_ROW - 1) / ID_ROW * ID_ROW;
+  t.nt = (T + ID_TILE - 1) / ID_TILE;
+  t.ids = const_cast<int*>(base);
+  t.rng = reinterpret_cast<int2*>(t.ids + (long long)B * t.pad);
+  return t;
+}
+
+// int32 values of one side's table, rounded up to a multiple of 4 so that
+// the k side's table, which follows the q side's in the scratch, starts
+// 16-byte aligned as the bulk copies of its ids need (B odd with an odd
+// number of 64-token tiles leaves the ranges 8 bytes short of that).
+// ops/flash_attention.py sizes the scratch by the same sum.
+inline long long id_table_ints(int B, int T) {
+  const long long n =
+      (long long)B * ((T + ID_ROW - 1) / ID_ROW * ID_ROW + 2 * ((T + ID_TILE - 1) / ID_TILE));
+  return (n + 3) / 4 * 4;
+}
+
+// The id tables of both sides (blockIdx.z: 0 q, 1 k), one warp per tile.
+// Replaces no Pallas kernel: the backward kernels read it to cull tiles
+// and to skip the id compare (see the note at the top). It moves each id
+// in once and out about once: bound by bytes, a few microseconds at the
+// long-context shapes, launch latency included.
+__global__ void __launch_bounds__(256)
+    flash_id_table(const int* __restrict__ q_ids, const int* __restrict__ k_ids, int* q_tab,
+                   int* k_tab, int B, int Tq, int Tk) {
+  const bool kside = blockIdx.z == 1;
+  const int* ids = kside ? k_ids : q_ids;
+  const int T = kside ? Tk : Tq;
+  const IdTable t = id_table(kside ? k_tab : q_tab, B, T);
+  const int tile = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x % 32, b = blockIdx.y;
+  if (tile * ID_TILE >= t.pad) return;
+  int lo = INT_MAX, hi = INT_MIN;
+#pragma unroll
+  for (int c = lane; c < ID_TILE; c += 32) {
+    const int pos = tile * ID_TILE + c;
+    const int id = pos < T ? ids[(long long)b * T + pos] : 0;
+    if (pos < T) {
+      lo = min(lo, id);
+      hi = max(hi, id);
+    }
+    t.ids[(long long)b * t.pad + pos] = id;
+  }
+  lo = __reduce_min_sync(0xffffffffu, lo);
+  hi = __reduce_max_sync(0xffffffffu, hi);
+  if (lane == 0 && tile < t.nt) t.rng[(long long)b * t.nt + tile] = make_int2(lo, hi);
+}
+
+// [min, max] of the ids of tiles [i, i + n) of row b; the empty range
+// (min > max) past the row's last tile.
+template <int N>
+__device__ __forceinline__ int2 id_range(const IdTable& t, int b, int i) {
+  int2 r = make_int2(INT_MAX, INT_MIN);
+#pragma unroll
+  for (int j = i; j < i + N; ++j) {
+    if (j >= t.nt) break;
+    const int2 e = t.rng[(long long)b * t.nt + j];
+    r = make_int2(min(r.x, e.x), max(r.y, e.y));
+  }
+  return r;
+}
+
+// A streamed tile's class for each of the two consumer warpgroups, two
+// bits each from bit 2 w: ONE_ID, the tile and the warpgroup's rows all
+// carry one id (no compare); NO_PAIR, no id of the tile is in the rows'
+// range (every P is 0: the warpgroup skips the tile). Neither: the ids
+// are compared pair by pair, and the producer brings them.
+constexpr int ONE_ID = 1, NO_PAIR = 2;
+
+__device__ __forceinline__ int tile_class(int2 t, int2 r0, int2 r1) {
+  const auto one = [t](int2 r) {
+    if (t.x > r.y || r.x > t.y) return NO_PAIR;
+    return t.x == t.y && r.x == r.y && t.x == r.x ? ONE_ID : 0;
+  };
+  return one(r0) | one(r1) << 2;
+}
+
+__device__ __forceinline__ bool compares_ids(int cls) {
+  return (cls & 3) == 0 || (cls >> 2 & 3) == 0;
+}
+__device__ __forceinline__ bool no_pair(int cls) {
+  return (cls & NO_PAIR) && (cls >> 2 & NO_PAIR);
+}
+
+// Narrows the tiles [lo, hi) to the first through the last one that
+// holds a pair for either warpgroup (`cls(t)` its tile_class): a scan by
+// the whole warp, 32 tiles a ballot, forward for the first and backward
+// for the last. Tiles between the two stay, so any order of ids is served.
+template <class F>
+__device__ __forceinline__ void narrow(int& lo, int& hi, int lane, F cls) {
+  int first = hi, last = lo - 1;
+  for (int base = lo; base < hi; base += 32) {
+    const unsigned m = __ballot_sync(0xffffffffu, base + lane < hi && !no_pair(cls(base + lane)));
+    if (m) {
+      first = base + __ffs(m) - 1;
+      break;
+    }
+  }
+  for (int top = hi; top > first; top -= 32) {
+    const int t = top - 1 - lane;
+    const unsigned m = __ballot_sync(0xffffffffu, t >= first && !no_pair(cls(t)));
+    if (m) {
+      last = top - __ffs(m);
+      break;
+    }
+  }
+  lo = first;
+  hi = max(first, last + 1);
+}
+
+// The class of tile lo + i (of the range a warp walks in order), each
+// lane classing one tile in 32: called by the whole warp for every i.
+template <class F>
+__device__ __forceinline__ int class_at(int i, int lo, int hi, int lane, int& mine, F cls) {
+  if (i % 32 == 0 && lo + i + lane < hi) mine = cls(lo + i + lane);
+  return __shfl_sync(0xffffffffu, mine, i % 32);
+}
+
+// P of one streamed tile in the wgmma accumulator layout: x = p(x, c, r)
+// at column c of the thread's row r, and 0 where MASK and not ok(c, r).
+// The backward kernels with ids take the instantiation without a mask
+// for a tile that needs none, so a tile inside one document, off the
+// causal diagonal, runs no per-element test.
+template <int N, bool MASK, class P, class Ok>
+__device__ __forceinline__ void tile_probs(float (&x)[N / 2], int lane, P p, Ok ok) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = 8 * j + 2 * (lane % 4) + (e & 1), r = e >> 1;
+      float v = p(x[4 * j + e], c, r);
+      if (MASK && !ok(c, r)) v = 0.0f;
+      x[4 * j + e] = v;
+    }
+}
+
 // A [rows][D] bf16 tile at (row0, h, b) into shared memory as D / 64
 // swizzled [rows][64] tiles, one TMA box each.
 template <int D>
@@ -360,6 +543,35 @@ __device__ __forceinline__ void stream_kv(bf16* sK, bf16* sV, int* sKid, uint64_
       hopper::mbar_expect_tx(&full[s], 2 * BN * D * 2);
       tma_tile<D>(sK + s * BN * D, BN, mk, &full[s], h, k0, b);
       tma_tile<D>(sV + s * BN * D, BN, mv, &full[s], h, k0, b);
+    } else {
+      hopper::mbar_arrive(&full[s]);
+    }
+  }
+}
+
+// dQ's K/V stream with segment ids: key tiles [lo, hi) as stream_kv, each
+// stage's tile_class in sCls[s], and the tile's padded ids by one bulk
+// copy on full[s] where a consumer warpgroup compares them.
+template <int D, int BN, int ST, class F>
+__device__ __forceinline__ void stream_kv_ids(bf16* sK, bf16* sV, int* sKid, int* sCls,
+                                              uint64_t* full, uint64_t* empty,
+                                              const CUtensorMap* mk, const CUtensorMap* mv,
+                                              const IdTable& ktab, int b, int h, int lo, int hi,
+                                              int lane, F cls) {
+  int mine = 0;
+  for (int i = 0; i < hi - lo; ++i) {
+    const int s = i % ST, k0 = (lo + i) * BN;
+    const int c = class_at(i, lo, hi, lane, mine, cls);
+    if (i >= ST) hopper::mbar_wait(&empty[s], (i / ST - 1) & 1);
+    if (lane == 0) {
+      const bool ids = compares_ids(c);
+      sCls[s] = c;
+      hopper::mbar_expect_tx(&full[s], 2 * BN * D * 2 + (ids ? BN * 4 : 0));
+      tma_tile<D>(sK + s * BN * D, BN, mk, &full[s], h, k0, b);
+      tma_tile<D>(sV + s * BN * D, BN, mv, &full[s], h, k0, b);
+      if (ids)
+        hopper::bulk_load(sKid + s * BN, ktab.ids + (long long)b * ktab.pad + k0, BN * 4,
+                          &full[s]);
     } else {
       hopper::mbar_arrive(&full[s]);
     }
@@ -568,6 +780,7 @@ __global__ void __launch_bounds__(Sm90Cfg<D>::NT, 1)
   uint64_t* q_full = reinterpret_cast<uint64_t*>(sKid + ST * BN);
   uint64_t* full = q_full + 1;
   uint64_t* empty = full + ST;
+  [[maybe_unused]] int* sCls = reinterpret_cast<int*>(empty + ST);  // SEG: tile_class
 
   const int nqt = (Tq + BM - 1) / BM;
   const int qt = causal ? nqt - 1 - blockIdx.x : blockIdx.x;  // longest rows first
@@ -576,6 +789,14 @@ __global__ void __launch_bounds__(Sm90Cfg<D>::NT, 1)
   int lo, hi;
   key_tiles(q_base, BM, k_off, BN, (Tk + BN - 1) / BN, causal, window, lo, hi);
   const int wg = threadIdx.x / WG;
+  // SEG: q_ids and k_ids are the id tables; a key tile's class.
+  const IdTable qtab = id_table(q_ids, gridDim.y / H, Tq);
+  const IdTable ktab = id_table(k_ids, gridDim.y / H, Tk);
+  [[maybe_unused]] const auto key_class = [&](int kt) {
+    return tile_class(id_range<BN / ID_TILE>(ktab, b, kt * (BN / ID_TILE)),
+                      id_range<1>(qtab, b, row0 / ID_TILE),
+                      id_range<1>(qtab, b, row0 / ID_TILE + 1));
+  };
 
   if (threadIdx.x == 0) {
     hopper::mbar_init(q_full, 1);
@@ -590,6 +811,9 @@ __global__ void __launch_bounds__(Sm90Cfg<D>::NT, 1)
   if (wg == C::CW) {
     hopper::regs_dec<40>();
     const int lane = threadIdx.x % 32;
+    if constexpr (SEG) {
+      if (threadIdx.x / 32 == C::CW * 4) narrow(lo, hi, lane, key_class);
+    }
     if (threadIdx.x / 32 != C::CW * 4 || hi == lo) return;
     if (lane == 0) {
       hopper::prefetch_map(&mk);
@@ -598,13 +822,19 @@ __global__ void __launch_bounds__(Sm90Cfg<D>::NT, 1)
       tma_tile<D>(sQ, BM, &mq, q_full, h, row0, b);
       tma_tile<D>(sDO, BM, &mdo, q_full, h, row0, b);
     }
-    stream_kv<D, BN, ST, SEG>(sK, sV, sKid, full, empty, &mk, &mv, k_ids, b, h, Tk, lo, hi, lane);
+    if constexpr (SEG)
+      stream_kv_ids<D, BN, ST>(sK, sV, sKid, sCls, full, empty, &mk, &mv, ktab, b, h, lo, hi,
+                               lane, key_class);
+    else
+      stream_kv<D, BN, ST, SEG>(sK, sV, sKid, full, empty, &mk, &mv, k_ids, b, h, Tk, lo, hi,
+                                lane);
     return;
   }
 
   // Consumer warpgroup wg: query rows [64 wg, 64 wg + 64) of the tile.
   hopper::regs_inc<232>();
   const int t = threadIdx.x % WG, warp = t / 32, lane = t % 32;
+  if constexpr (SEG) narrow(lo, hi, lane, key_class);  // the producer's range
   const int wrow0 = 64 * wg;
   const float c2 = scale * LOG2E;
   int qpos[2], qid[2];
@@ -614,7 +844,7 @@ __global__ void __launch_bounds__(Sm90Cfg<D>::NT, 1)
     const int tq = row0 + wrow0 + 16 * warp + lane / 4 + 8 * r;
     const bool in = tq < Tq;
     qpos[r] = q_off + tq;
-    qid[r] = SEG && in ? q_ids[(long long)b * Tq + tq] : 0;
+    qid[r] = SEG && in ? qtab.ids[(long long)b * qtab.pad + tq] : 0;
     // A padded row gets lse = +1e30, so exp2(s - lse) is exactly zero.
     lse2[r] = in ? lse[(long long)bh * Tq + tq] * LOG2E : -NEG_INF;
     dlt[r] = in ? delta[(long long)bh * Tq + tq] : 0.0f;
@@ -631,6 +861,11 @@ __global__ void __launch_bounds__(Sm90Cfg<D>::NT, 1)
     const bf16* tK = sK + s * BN * D;
     const bf16* tV = sV + s * BN * D;
     hopper::mbar_wait(&full[s], (i / ST) & 1);
+    const int cls = SEG ? (sCls[s] >> 2 * wg) & 3 : 0;
+    if (cls & NO_PAIR) {  // no pair of one id in these rows: every P is 0
+      hopper::mbar_arrive(&empty[s]);
+      continue;
+    }
 
     // S = Q . K^T and dP = dO . V^T, two groups in flight.
     hopper::fence_regs(sc);
@@ -648,20 +883,35 @@ __global__ void __launch_bounds__(Sm90Cfg<D>::NT, 1)
     hopper::fence_regs(sc);
 
     // P = exp2(S c - lse2) under the masks. Keys past Tk read as zeros
-    // (S = 0, P = exp2(-lse2) != 0), so a ragged last tile takes the mask.
-    const bool masked = SEG || k0 + BN > Tk ||
+    // (S = 0, P = exp2(-lse2) != 0), so a ragged last tile takes the mask;
+    // ids are compared only in a tile that mixes them.
+    const bool ids = SEG && cls == 0;
+    const bool masked = ids || k0 + BN > Tk ||
                         !all_visible(q_base + wrow0, 64, k_off + k0, BN, causal, window);
+    if constexpr (SEG) {
+      const auto p = [&](float x, int, int r) { return exp2f(fmaf(x, c2, -lse2[r])); };
+      const auto seen = [&](int c, int r) {
+        return k0 + c < Tk && visible_pair(qpos[r], k_off + k0 + c, causal, window);
+      };
+      const int* kid = sKid + s * BN;
+      if (masked)
+        tile_probs<BN, true>(sc, lane, p, [&](int c, int r) {
+          return seen(c, r) && (!ids || kid[c] == qid[r]);
+        });
+      else
+        tile_probs<BN, false>(sc, lane, p, seen);
+    } else {
 #pragma unroll
-    for (int j = 0; j < BN / 8; ++j)
+      for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = 8 * j + 2 * (lane % 4) + (e & 1), r = e >> 1;
-        float p = exp2f(fmaf(sc[4 * j + e], c2, -lse2[r]));
-        if (masked && !(k0 + c < Tk && visible_pair(qpos[r], k_off + k0 + c, causal, window) &&
-                        (!SEG || sKid[s * BN + c] == qid[r])))
-          p = 0.0f;
-        sc[4 * j + e] = p;
-      }
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * j + 2 * (lane % 4) + (e & 1), r = e >> 1;
+          float p = exp2f(fmaf(sc[4 * j + e], c2, -lse2[r]));
+          if (masked && !(k0 + c < Tk && visible_pair(qpos[r], k_off + k0 + c, causal, window)))
+            p = 0.0f;
+          sc[4 * j + e] = p;
+        }
+    }
     hopper::wgmma_wait<0>();
     hopper::fence_regs(dps);
     // dS = P (dP - delta) scale, from the fp32 P.
@@ -719,12 +969,21 @@ __global__ void __launch_bounds__(Sm90Cfg<D>::NT, 1)
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(sQid + ST * BQ);
   uint64_t* full = kv_full + 1;
   uint64_t* empty = full + ST;
+  [[maybe_unused]] int* sCls = reinterpret_cast<int*>(empty + ST);  // SEG: tile_class
 
   const int bh = blockIdx.y, b = bh / H, h = bh % H;
   const int key0 = blockIdx.x * BN, k_base = k_off + key0;
   int lo, hi;
   query_tiles(k_base, BN, q_off, BQ, (Tq + BQ - 1) / BQ, causal, window, lo, hi);
   const int wg = threadIdx.x / WG;
+  // SEG: q_ids and k_ids are the id tables; a query tile's class.
+  const IdTable qtab = id_table(q_ids, gridDim.y / H, Tq);
+  const IdTable ktab = id_table(k_ids, gridDim.y / H, Tk);
+  [[maybe_unused]] const auto query_class = [&](int qt) {
+    return tile_class(id_range<BQ / ID_TILE>(qtab, b, qt * (BQ / ID_TILE)),
+                      id_range<1>(ktab, b, key0 / ID_TILE),
+                      id_range<1>(ktab, b, key0 / ID_TILE + 1));
+  };
 
   if (threadIdx.x == 0) {
     hopper::mbar_init(kv_full, 1);
@@ -739,6 +998,9 @@ __global__ void __launch_bounds__(Sm90Cfg<D>::NT, 1)
   if (wg == C::CW) {
     hopper::regs_dec<40>();
     const int lane = threadIdx.x % 32;
+    if constexpr (SEG) {
+      if (threadIdx.x / 32 == C::CW * 4) narrow(lo, hi, lane, query_class);
+    }
     if (threadIdx.x / 32 != C::CW * 4 || hi == lo) return;
     if (lane == 0) {
       hopper::prefetch_map(&mq);
@@ -747,8 +1009,11 @@ __global__ void __launch_bounds__(Sm90Cfg<D>::NT, 1)
       tma_tile<D>(sK, BN, &mk, kv_full, h, key0, b);
       tma_tile<D>(sV, BN, &mv, kv_full, h, key0, b);
     }
+    [[maybe_unused]] int mine = 0;
     for (int i = 0; i < hi - lo; ++i) {
       const int s = i % ST, q0 = (lo + i) * BQ;
+      int cls = 0;
+      if constexpr (SEG) cls = class_at(i, lo, hi, lane, mine, query_class);
       if (i >= ST) hopper::mbar_wait(&empty[s], (i / ST - 1) & 1);
       for (int c = lane; c < BQ; c += 32) {
         const int tq = q0 + c;
@@ -756,12 +1021,18 @@ __global__ void __launch_bounds__(Sm90Cfg<D>::NT, 1)
         // A padded row gets lse = +1e30, so exp2(s - lse) is exactly zero.
         sLse[s * BQ + c] = in ? lse[(long long)bh * Tq + tq] * LOG2E : -NEG_INF;
         sDelta[s * BQ + c] = in ? delta[(long long)bh * Tq + tq] : 0.0f;
-        if (SEG) sQid[s * BQ + c] = in ? q_ids[(long long)b * Tq + tq] : 0;
       }
       if (lane == 0) {
-        hopper::mbar_expect_tx(&full[s], 2 * C::DKV_Q);
+        // SEG: the tile's class, and its padded ids where a consumer
+        // warpgroup compares them, by one bulk copy on full[s].
+        const bool ids = SEG && compares_ids(cls);
+        if constexpr (SEG) sCls[s] = cls;
+        hopper::mbar_expect_tx(&full[s], 2 * C::DKV_Q + (ids ? BQ * 4 : 0));
         tma_tile<D>(sQ + s * BQ * D, BQ, &mq, &full[s], h, q0, b);
         tma_tile<D>(sDO + s * BQ * D, BQ, &mdo, &full[s], h, q0, b);
+        if (ids)
+          hopper::bulk_load(sQid + s * BQ, qtab.ids + (long long)b * qtab.pad + q0, BQ * 4,
+                            &full[s]);
       } else {
         hopper::mbar_arrive(&full[s]);
       }
@@ -772,6 +1043,7 @@ __global__ void __launch_bounds__(Sm90Cfg<D>::NT, 1)
   // Consumer warpgroup wg: keys [64 wg, 64 wg + 64) of the CTA's tile.
   hopper::regs_inc<232>();
   const int t = threadIdx.x % WG, warp = t / 32, lane = t % 32;
+  if constexpr (SEG) narrow(lo, hi, lane, query_class);  // the producer's range
   const int krow0 = 64 * wg;
   const float c2 = scale * LOG2E;
   int kpos[2], kid[2];
@@ -779,7 +1051,7 @@ __global__ void __launch_bounds__(Sm90Cfg<D>::NT, 1)
   for (int r = 0; r < 2; ++r) {
     const int tk = key0 + krow0 + 16 * warp + lane / 4 + 8 * r;
     kpos[r] = k_off + tk;
-    kid[r] = SEG && tk < Tk ? k_ids[(long long)b * Tk + tk] : 0;
+    kid[r] = SEG && tk < Tk ? ktab.ids[(long long)b * ktab.pad + tk] : 0;
   }
   float dk_acc[D / 2], dv_acc[D / 2], st[BQ / 2], dpt[BQ / 2];
 #pragma unroll
@@ -795,6 +1067,11 @@ __global__ void __launch_bounds__(Sm90Cfg<D>::NT, 1)
     const float* rLse = sLse + s * BQ;
     const float* rDelta = sDelta + s * BQ;
     hopper::mbar_wait(&full[s], (i / ST) & 1);
+    const int cls = SEG ? (sCls[s] >> 2 * wg) & 3 : 0;
+    if (cls & NO_PAIR) {  // no pair of one id in these keys: every P is 0
+      hopper::mbar_arrive(&empty[s]);
+      continue;
+    }
 
     // S^T = K . Q^T and dP^T = V . dO^T, two groups in flight.
     hopper::fence_regs(st);
@@ -811,20 +1088,35 @@ __global__ void __launch_bounds__(Sm90Cfg<D>::NT, 1)
     hopper::wgmma_wait<1>();
     hopper::fence_regs(st);
 
-    // P^T = exp2(S^T c - lse2) under the masks.
-    const bool masked = SEG || q0 + BQ > Tq ||
+    // P^T = exp2(S^T c - lse2) under the masks; ids are compared only in a
+    // tile that mixes them.
+    const bool ids = SEG && cls == 0;
+    const bool masked = ids || q0 + BQ > Tq ||
                         !all_visible(q_off + q0, BQ, k_base + krow0, 64, causal, window);
+    if constexpr (SEG) {
+      const auto p = [&](float x, int c, int) { return exp2f(fmaf(x, c2, -rLse[c])); };
+      const auto seen = [&](int c, int r) {
+        return q0 + c < Tq && visible_pair(q_off + q0 + c, kpos[r], causal, window);
+      };
+      const int* qid = sQid + s * BQ;
+      if (masked)
+        tile_probs<BQ, true>(st, lane, p, [&](int c, int r) {
+          return seen(c, r) && (!ids || qid[c] == kid[r]);
+        });
+      else
+        tile_probs<BQ, false>(st, lane, p, seen);
+    } else {
 #pragma unroll
-    for (int j = 0; j < BQ / 8; ++j)
+      for (int j = 0; j < BQ / 8; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = 8 * j + 2 * (lane % 4) + (e & 1), r = e >> 1;
-        float p = exp2f(fmaf(st[4 * j + e], c2, -rLse[c]));
-        if (masked && !(q0 + c < Tq && visible_pair(q_off + q0 + c, kpos[r], causal, window) &&
-                        (!SEG || sQid[s * BQ + c] == kid[r])))
-          p = 0.0f;
-        st[4 * j + e] = p;
-      }
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * j + 2 * (lane % 4) + (e & 1), r = e >> 1;
+          float p = exp2f(fmaf(st[4 * j + e], c2, -rLse[c]));
+          if (masked && !(q0 + c < Tq && visible_pair(q_off + q0 + c, kpos[r], causal, window)))
+            p = 0.0f;
+          st[4 * j + e] = p;
+        }
+    }
     hopper::wgmma_wait<0>();
     hopper::fence_regs(dpt);
     // dS^T = P^T (dP^T - delta) scale, from the fp32 P.
@@ -1269,16 +1561,35 @@ int launch_fwd(int B, int H, int Tq, int Tk, const void* q, const void* k, const
   }
 }
 
+// The id tables of both sides into `scratch` (id_table_ints(B, Tq) +
+// id_table_ints(B, Tk) ints) ahead of a bf16 backward kernel with segment
+// ids; points q_ids and k_ids at them.
+int launch_id_tables(int B, int Tq, int Tk, const void*& q_ids, const void*& k_ids,
+                     void* scratch, cudaStream_t stream) {
+  if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+  int* q_tab = static_cast<int*>(scratch);
+  int* k_tab = q_tab + id_table_ints(B, Tq);
+  const int tiles = (std::max(Tq, Tk) + ID_ROW - 1) / ID_ROW * (ID_ROW / ID_TILE);
+  flash_id_table<<<dim3((tiles + 7) / 8, B, 2), 256, 0, stream>>>(
+      (const int*)q_ids, (const int*)k_ids, q_tab, k_tab, B, Tq, Tk);
+  if (int err = (int)cudaGetLastError()) return err;
+  q_ids = q_tab;
+  k_ids = k_tab;
+  return 0;
+}
+
 template <int D>
 int launch_dq_sm90(int B, int H, int Tq, int Tk, const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta, void* dq,
-                   const void* q_ids, const void* k_ids, const long long* s, int out_f32,
-                   int causal, int q_off, int k_off, int window, float scale,
+                   const void* q_ids, const void* k_ids, void* id_scratch, const long long* s,
+                   int out_f32, int causal, int q_off, int k_off, int window, float scale,
                    cudaStream_t stream) {
   using C = Sm90Cfg<D>;
   constexpr auto seg = flash_bwd_dq_sm90<D, true>;
   constexpr auto plain = flash_bwd_dq_sm90<D, false>;
   if (int err = q_ids ? prepare<seg>(C::DQ_SMEM) : prepare<plain>(C::DQ_SMEM)) return err;
+  if (q_ids)
+    if (int err = launch_id_tables(B, Tq, Tk, q_ids, k_ids, id_scratch, stream)) return err;
   CUtensorMap mq, mk, mv, mdo;
   if (int err = tensor_map(&mq, q, B, Tq, H, D, strides_at(s, 0), C::QBM)) return err;
   if (int err = tensor_map(&mk, k, B, Tk, H, D, strides_at(s, 1), C::QBN)) return err;
@@ -1295,11 +1606,13 @@ int launch_dq_sm90(int B, int H, int Tq, int Tk, const void* q, const void* k, c
 template <typename T, int D>
 int launch_dq(int B, int H, int Tq, int Tk, const void* q, const void* k, const void* v,
               const void* dout, const void* lse, const void* delta, void* dq,
-              const void* q_ids, const void* k_ids, const long long* s, int out_f32,
-              int causal, int q_off, int k_off, int window, float scale, cudaStream_t stream) {
+              const void* q_ids, const void* k_ids, void* id_scratch, const long long* s,
+              int out_f32, int causal, int q_off, int k_off, int window, float scale,
+              cudaStream_t stream) {
   if constexpr (std::is_same<T, bf16>::value) {
-    return launch_dq_sm90<D>(B, H, Tq, Tk, q, k, v, dout, lse, delta, dq, q_ids, k_ids, s,
-                             out_f32, causal, q_off, k_off, window, scale, stream);
+    return launch_dq_sm90<D>(B, H, Tq, Tk, q, k, v, dout, lse, delta, dq, q_ids, k_ids,
+                             id_scratch, s, out_f32, causal, q_off, k_off, window, scale,
+                             stream);
   } else {
     using C = Cfg<T, D>;
     constexpr auto seg = flash_bwd_dq_kernel<T, D, true>;
@@ -1318,13 +1631,15 @@ int launch_dq(int B, int H, int Tq, int Tk, const void* q, const void* k, const 
 template <int D>
 int launch_dkv_sm90(int B, int H, int Tq, int Tk, const void* q, const void* k, const void* v,
                     const void* dout, const void* lse, const void* delta, void* dk, void* dv,
-                    const void* q_ids, const void* k_ids, const long long* s, int out_f32,
-                    int causal, int q_off, int k_off, int window, float scale,
+                    const void* q_ids, const void* k_ids, void* id_scratch, const long long* s,
+                    int out_f32, int causal, int q_off, int k_off, int window, float scale,
                     cudaStream_t stream) {
   using C = Sm90Cfg<D>;
   constexpr auto seg = flash_bwd_dkv_sm90<D, true>;
   constexpr auto plain = flash_bwd_dkv_sm90<D, false>;
   if (int err = q_ids ? prepare<seg>(C::DKV_SMEM) : prepare<plain>(C::DKV_SMEM)) return err;
+  if (q_ids)
+    if (int err = launch_id_tables(B, Tq, Tk, q_ids, k_ids, id_scratch, stream)) return err;
   CUtensorMap mq, mk, mv, mdo;
   if (int err = tensor_map(&mq, q, B, Tq, H, D, strides_at(s, 0), C::BBQ)) return err;
   if (int err = tensor_map(&mk, k, B, Tk, H, D, strides_at(s, 1), C::BBN)) return err;
@@ -1341,12 +1656,13 @@ int launch_dkv_sm90(int B, int H, int Tq, int Tk, const void* q, const void* k, 
 template <typename T, int D>
 int launch_dkv(int B, int H, int Tq, int Tk, const void* q, const void* k, const void* v,
                const void* dout, const void* lse, const void* delta, void* dk, void* dv,
-               const void* q_ids, const void* k_ids, const long long* s, int out_f32,
-               int causal, int q_off, int k_off, int window, float scale,
+               const void* q_ids, const void* k_ids, void* id_scratch, const long long* s,
+               int out_f32, int causal, int q_off, int k_off, int window, float scale,
                cudaStream_t stream) {
   if constexpr (std::is_same<T, bf16>::value) {
-    return launch_dkv_sm90<D>(B, H, Tq, Tk, q, k, v, dout, lse, delta, dk, dv, q_ids, k_ids, s,
-                              out_f32, causal, q_off, k_off, window, scale, stream);
+    return launch_dkv_sm90<D>(B, H, Tq, Tk, q, k, v, dout, lse, delta, dk, dv, q_ids, k_ids,
+                              id_scratch, s, out_f32, causal, q_off, k_off, window, scale,
+                              stream);
   } else {
     using C = Cfg<T, D>;
     constexpr auto seg = flash_bwd_dkv_kernel<T, D, true>;
@@ -1377,8 +1693,11 @@ int launch_dkv(int B, int H, int Tq, int Tk, const void* q, const void* k, const
 // dtype: 0 = fp32, 1 = bf16. `strides` holds (b, t, h) element strides of
 // each tensor argument in order. Null q_ids/k_ids: no segment ids. Forward
 // modes: lse set = train; m and l set = state (o is fp32). out_f32: the
-// backward kernels write fp32 outputs. Returns 0 or the cudaError_t of the
-// launch (-1 for an unsupported dtype/D pair, -2 for a refused tensor map).
+// backward kernels write fp32 outputs. id_scratch: the backward kernels'
+// id tables, for bf16 inputs with segment ids: id_table_ints(B, Tq) +
+// id_table_ints(B, Tk) int32 values, 16-byte aligned. Returns 0 or the
+// cudaError_t of the launch (-1 for an unsupported dtype/D pair, -2 for a
+// refused tensor map).
 extern "C" {
 
 const char* hvd_error_string(int err) {
@@ -1409,19 +1728,22 @@ int hvd_flash_fwd_key_tile(int dtype, int D) {
 int hvd_flash_bwd_dq(int dtype, int D, int B, int H, int Tq, int Tk, const void* q,
                      const void* k, const void* v, const void* dout, const void* lse,
                      const void* delta, void* dq, const void* q_ids, const void* k_ids,
-                     const long long* strides, int out_f32, int causal, int q_off, int k_off,
-                     int window, float scale, void* stream) {
-  HVD_DISPATCH(launch_dq, B, H, Tq, Tk, q, k, v, dout, lse, delta, dq, q_ids, k_ids, strides,
-               out_f32, causal, q_off, k_off, window, scale, (cudaStream_t)stream);
+                     void* id_scratch, const long long* strides, int out_f32, int causal,
+                     int q_off, int k_off, int window, float scale, void* stream) {
+  HVD_DISPATCH(launch_dq, B, H, Tq, Tk, q, k, v, dout, lse, delta, dq, q_ids, k_ids,
+               id_scratch, strides, out_f32, causal, q_off, k_off, window, scale,
+               (cudaStream_t)stream);
 }
 
 int hvd_flash_bwd_dkv(int dtype, int D, int B, int H, int Tq, int Tk, const void* q,
                       const void* k, const void* v, const void* dout, const void* lse,
                       const void* delta, void* dk, void* dv, const void* q_ids,
-                      const void* k_ids, const long long* strides, int out_f32, int causal,
-                      int q_off, int k_off, int window, float scale, void* stream) {
+                      const void* k_ids, void* id_scratch, const long long* strides,
+                      int out_f32, int causal, int q_off, int k_off, int window, float scale,
+                      void* stream) {
   HVD_DISPATCH(launch_dkv, B, H, Tq, Tk, q, k, v, dout, lse, delta, dk, dv, q_ids, k_ids,
-               strides, out_f32, causal, q_off, k_off, window, scale, (cudaStream_t)stream);
+               id_scratch, strides, out_f32, causal, q_off, k_off, window, scale,
+               (cudaStream_t)stream);
 }
 
 }  // extern "C"

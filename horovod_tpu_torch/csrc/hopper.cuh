@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks for the attention kernels, in raw PTX:
-// mbarriers, TMA tile loads, shared-memory matrix descriptors and the
+// mbarriers, TMA tile loads and bulk copies, shared-memory matrix descriptors and the
 // warpgroup matrix multiply (wgmma) with fp32 register accumulators.
 //
 // Shared-memory tiles are written by TMA with the 128-byte swizzle: a tile
@@ -74,6 +74,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
+      : "memory");
+}
+
+// `bytes` contiguous bytes of global memory into shared memory (both
+// 16-byte aligned, `bytes` a multiple of 16); completion is counted on
+// `bar` in bytes, as a TMA box's.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
 }
 

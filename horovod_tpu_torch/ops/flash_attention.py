@@ -260,6 +260,26 @@ def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _id_table_ints(B, T):
+    """int32 values of one side's id table (``id_table_ints`` in
+    ``csrc/flash_attention.cu``): each row's ids padded to a multiple of
+    128, then each 64-token tile's [min, max], the sum rounded up to a
+    multiple of 4 so that the k side's table starts 16-byte aligned."""
+    n = B * (-(-T // 128) * 128 + 2 * -(-T // 64))
+    return -(-n // 4) * 4
+
+
+def _id_scratch(q, k, q_seg):
+    """Scratch for the id tables that the bf16 backward kernels build
+    from segment ids before they run (None without ids, and for fp32
+    inputs, whose kernels read the ids as given)."""
+    if q_seg is None or q.dtype != torch.bfloat16:
+        return None
+    B = q.shape[0]
+    n = _id_table_ints(B, q.shape[1]) + _id_table_ints(B, k.shape[1])
+    return torch.empty(n, dtype=torch.int32, device=q.device)
+
+
 def _out_f32(name, q, out_dtype) -> bool:
     if out_dtype not in (None, q.dtype, torch.float32):
         raise ValueError(f"{name}: out_dtype {out_dtype} not supported "
@@ -334,13 +354,14 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal=True, q_off=0, k_off=0,
     dq = torch.empty(q.shape, dtype=out_dtype or q.dtype, device=q.device)
     q_ids, k_ids = _ids(q_seg), _ids(k_seg)
     lib = _build.load("flash_attention")
+    scratch = _id_scratch(q, k, q_seg)
     with torch.cuda.device(q.device):
         err = lib.hvd_flash_bwd_dq(
             _DTYPE_CODE[q.dtype], D, B, H, Tq, k.shape[1], q.data_ptr(),
             k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dq.data_ptr(), _ptr(q_ids), _ptr(k_ids),
-            _strides(q, k, v, do, dq), int(out_f32), int(causal), q_off,
-            k_off, window or 0, _scale(q), _stream(q))
+            _ptr(scratch), _strides(q, k, v, do, dq), int(out_f32),
+            int(causal), q_off, k_off, window or 0, _scale(q), _stream(q))
     _build.check(lib, err, "flash_bwd_dq")
     _launched("flash_bwd_dq_f32" if out_dtype == torch.float32
               else "flash_bwd_dq", q_seg)
@@ -363,13 +384,15 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal=True, q_off=0, k_off=0,
     dv = torch.empty(v.shape, dtype=out_dtype or v.dtype, device=q.device)
     q_ids, k_ids = _ids(q_seg), _ids(k_seg)
     lib = _build.load("flash_attention")
+    scratch = _id_scratch(q, k, q_seg)
     with torch.cuda.device(q.device):
         err = lib.hvd_flash_bwd_dkv(
             _DTYPE_CODE[q.dtype], D, B, H, Tq, k.shape[1], q.data_ptr(),
             k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(q_ids),
-            _ptr(k_ids), _strides(q, k, v, do, dk, dv), int(out_f32),
-            int(causal), q_off, k_off, window or 0, _scale(q), _stream(q))
+            _ptr(k_ids), _ptr(scratch), _strides(q, k, v, do, dk, dv),
+            int(out_f32), int(causal), q_off, k_off, window or 0, _scale(q),
+            _stream(q))
     _build.check(lib, err, "flash_bwd_dkv")
     _launched("flash_bwd_dkv_f32" if out_dtype == torch.float32
               else "flash_bwd_dkv", q_seg)

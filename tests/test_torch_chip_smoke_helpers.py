@@ -478,3 +478,98 @@ def test_core_phase_on_the_cpu(monkeypatch, capsys):
     assert "group aborts 0 [0, 1, 2, 3] (gloo)" in out, out
     assert "stress harness (TSan): exit 0, 0 TSan reports" in out, out
     assert "STRESS_OK" in out
+
+
+@pytest.mark.parametrize("name", ["ids-padding", "ids-recurring",
+                                  "ids-short-docs", "ids-tile-edges",
+                                  "ids-ragged-offsets", "ids-window",
+                                  "ids-batch-one"])
+def test_id_patterns_refuse_their_faults(name):
+    """Phase (b)'s id patterns: each is what its comment says (ids of
+    every global position the case reads), and the plain versions that
+    ignore the ids or drop the last tile miss the limits at the case's
+    lengths (1 batch entry and 2 heads here, 2 and 4 on the card), so the
+    card's comparison can tell a kernel that culls one tile too many."""
+    cs = _chip_smoke()
+    ids, kw = cs.id_patterns()[name]
+    kw = dict(kw)
+    T, causal = kw.pop("T"), kw.pop("causal")
+    Tk, q_off = kw.get("Tk", T), kw.get("q_off", 0)
+    assert len(ids) >= max(q_off + T, Tk)
+    rng = np.random.RandomState(11)
+    q, do = (torch.tensor(rng.randn(1, T, 2, 64).astype(np.float32))
+             .to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.tensor(rng.randn(1, Tk, 2, 64).astype(np.float32))
+            .to(torch.bfloat16) for _ in range(2))
+    seg = torch.as_tensor(ids, dtype=torch.int32)[None]
+    kwargs = dict(causal=causal, q_off=q_off, k_off=0,
+                  window=kw.get("window"),
+                  q_seg=seg[:, q_off:q_off + T].contiguous(),
+                  k_seg=seg[:, :Tk].contiguous())
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    o, lse = fa.flash_fwd_plain(q, k, v, with_lse=True, **kwargs)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    args = (q, k, v, do, lse, delta)
+    refs = {f"{m} {out}": t
+            for m, (_, plain) in cs.modes(*args, kwargs).items()
+            for out, t in zip(cs.OUTPUTS[m], plain())}
+    blind = dict(kwargs, q_seg=None, k_seg=None)
+    cs.refuse({f"{m} {out}": t
+               for m, (_, plain) in cs.modes(*args, blind).items()
+               for out, t in zip(cs.OUTPUTS[m], plain())},
+              refs, torch.bfloat16, "segment ids ignored")
+    cs.refuse(cs.dropped_tile_faults(*args, kwargs, cs.OUTPUTS), refs,
+              torch.bfloat16, "last tile dropped")
+
+
+def test_id_patterns_hold_what_they_name():
+    cs = _chip_smoke()
+    pats = cs.id_patterns()
+    pad = pats["ids-padding"][0]
+    assert (pad[750:] == 0).all() and set(pad[:750]) == {1, 2, 3}
+    rec = pats["ids-recurring"][0]
+    assert rec[0] == rec[-1] != rec[500]
+    short = pats["ids-short-docs"][0]
+    assert len(short) == 1024 and all(len(np.unique(short[i:i + 64])) >= 2
+                                      for i in range(0, 1024, 64))
+    edges = np.flatnonzero(np.diff(pats["ids-tile-edges"][0])) + 1
+    assert list(edges) == [64, 128, 256, 384, 512, 768]
+    ragged = pats["ids-ragged-offsets"]
+    assert len(ragged[0]) == ragged[1]["q_off"] + ragged[1]["T"]
+    assert ragged[0][-1] == ragged[0][ragged[1]["Tk"] - 1]
+    one, kw = pats["ids-batch-one"]
+    assert kw["B"] == 1 and len(one) == kw["T"] and -(-kw["T"] // 64) % 2
+    assert len(np.unique(one)) >= 3
+
+
+def test_same_outputs_reads_bits():
+    """``--time-tree``'s bitwise check counts differing bits, and apart
+    from them the values that differ: a signed zero differs in its bits
+    only."""
+    cs = _chip_smoke()
+    a = torch.tensor([0.0, 1.0, 2.0])
+    assert cs.same_outputs({"r": [a]}, {"r": [a.clone()]}) == {}
+    b = torch.tensor([-0.0, 1.0, 2.5])
+    assert cs.same_outputs({"r": [a]}, {"r": [b]}) == {"r": (2, 1, 0.5)}
+    h = torch.tensor([1.0, 2.0], dtype=torch.bfloat16)
+    assert cs.bits(h).dtype == torch.int16
+    assert cs.same_outputs({"r": [h]}, {"r": [h.clone()]}) == {}
+
+
+def test_segment_rows_name_the_past_block():
+    """The ring's past block joins its modes' rows as timings without a
+    launch count, so a sum of the kernel line's launches counts each
+    launch of (p) once."""
+    cs = _chip_smoke()
+    row = {"name": "x", "route": "cuda", "launches": 0, "ms": 1.0,
+           "bound_ms": 0.5}
+    rows = cs.segment_rows({"flash_bwd_dq": dict(row, ms=3.0)},
+                           {"flash_bwd_dq_f32": row},
+                           past={"flash_bwd_dq_f32": dict(row, ms=2.0)})
+    assert list(rows) == ["flash_bwd_dq_seg", "flash_bwd_dq_f32_seg"]
+    assert rows["flash_bwd_dq_seg"] == dict(row, name="flash_bwd_dq_seg",
+                                            ms=3.0)
+    assert rows["flash_bwd_dq_f32_seg"] == dict(
+        row, name="flash_bwd_dq_f32_seg",
+        past_block={"ms": 2.0, "bound_ms": 0.5})
