@@ -432,7 +432,15 @@ def bound(nbytes, flops, dtype):
 
 def rel_err(got, want):
     """||got - want|| / ||want||; 0 when both are exactly zero (a culled
-    block's acc and l), inf when only ``want`` is."""
+    block's acc and l), inf when only ``want`` is. Where ``want`` holds
+    the value of a row with no key (lse +1e30, m -1e30), ``got`` must hold
+    it exactly (else inf), and the norms take the other rows, which those
+    values would swamp."""
+    none = want.float().abs() == 1e30
+    if bool(none.any()):
+        if not bool((got[none].float() == want[none].float()).all()):
+            return math.inf
+        got, want = got[~none], want[~none]
     g, w = got.double(), want.double()
     num, den = (g - w).norm().item(), w.norm().item()
     if den == 0.0:
@@ -753,32 +761,85 @@ def sdpa_times(q, k, v, do, causal, mask=None):
     return fwd, bwd
 
 
-def sdpa_state_ms(q, k, v, causal=False):
-    """PyTorch's fused attention forward that also returns the lse
-    (``_scaled_dot_product_flash_attention``, causal or not) on the same
-    [B, H, T, D] views: one call that computes a K/V block's state in
+def sdpa_state_ms(q, k, v, causal=False, mask=None, kw=None):
+    """PyTorch's fused attention forward that also returns the lse, on the
+    same [B, H, T, D] views: one call that computes a K/V block's state in
     normalized form ((O, lse) rather than (acc, m, l)), a yardstick the
-    port never calls. Logs how far its O and lse are from the plain
-    state's acc / l and m + log l. Returns its ms."""
+    port never calls. Without ``mask``: ``_scaled_dot_product_flash_attention``
+    (causal or not). With ``mask`` (a boolean [B, 1, Tq, Tk], True where a
+    pair is visible: the kernels' segment-id mode, ``kw`` their arguments):
+    ``_scaled_dot_product_efficient_attention`` with the mask as an
+    additive bias, the one such call that takes a mask and returns the
+    lse. Logs how far its O and lse are from the plain state's acc / l and
+    m + log l on the rows that see a key. Returns its ms, or None when the
+    call refuses the inputs (logged with its reason)."""
     import torch
 
     from horovod_tpu_torch.ops import flash_attention as fa
 
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if mask is None:
+        name = ("_scaled_dot_product_flash_attention"
+                f"{', causal' if causal else ''}")
+        kw = dict(causal=causal)
 
-    def call():
-        return torch.ops.aten._scaled_dot_product_flash_attention(
-            qt, kt, vt, 0.0, causal)[:2]
+        def call():
+            return torch.ops.aten._scaled_dot_product_flash_attention(
+                qt, kt, vt, 0.0, causal)[:2]
+    else:
+        name = ("_scaled_dot_product_efficient_attention, the boolean mask "
+                "as a bias")
+        bias = torch.zeros(mask.shape, dtype=q.dtype, device=q.device)
+        bias = bias.masked_fill_(~mask, -math.inf).expand(
+            -1, q.shape[2], -1, -1)
 
-    ms = time_ms(call)
+        def call():
+            return torch.ops.aten._scaled_dot_product_efficient_attention(
+                qt, kt, vt, bias, True)[:2]
+    try:
+        ms = time_ms(call)
+    except RuntimeError as e:
+        log(f"  library ({name}): refused these inputs, so the state has no "
+            f"library time: {str(e).splitlines()[0]}")
+        return None
     o, lse = call()
-    acc, m, l = fa.flash_fwd_state_plain(q, k, v, causal=causal)
-    log(f"  library (_scaled_dot_product_flash_attention"
-        f"{', causal' if causal else ''}, (O, lse), "
-        f"yardstick): {ms:.4f} ms; against the plain state: O rel_err "
-        f"{rel_err(o.transpose(1, 2), acc / l.transpose(1, 2)[..., None]):.3e}"
-        f", lse rel_err {rel_err(lse, m + torch.log(l)):.3e}")
+    acc, m, l = fa.flash_fwd_state_plain(q, k, v, **kw)
+    seen = l > 0                                   # [B, H, Tq]
+    rows = seen.transpose(1, 2)                    # [B, Tq, H]
+    want_o = acc / l.clamp_min(1e-30).transpose(1, 2)[..., None]
+    lse = lse[..., :q.shape[1]]
+    log(f"  library ({name}, (O, lse), yardstick): {ms:.4f} ms; against the "
+        f"plain state on the {int(seen.sum())} of {seen.numel()} row-heads "
+        f"that see a key: O rel_err "
+        f"{rel_err(o.transpose(1, 2)[rows], want_o[rows]):.3e}, lse rel_err "
+        f"{rel_err(lse[seen], (m + torch.log(l))[seen]):.3e}")
     return ms
+
+
+def empty_rows(q, k, v, kw):
+    """The rows that see no key (the plain state's l = 0) must get from
+    every forward mode exactly what a row with no key gets: O = 0, lse =
+    +1e30, m = -1e30, l = 0 and acc = 0."""
+    import torch
+
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    empty = fa.flash_fwd_state_plain(q, k, v, **kw)[2] == 0   # [B, H, Tq]
+    rows = empty.transpose(1, 2)                               # [B, Tq, H]
+    o = fa.flash_fwd(q, k, v, **kw)[0]
+    o_train, lse = fa.flash_fwd(q, k, v, with_lse=True, **kw)
+    acc, m, l = fa.flash_fwd_state(q, k, v, **kw)
+    bad = [name for name, ok in (
+        ("O", o[rows] == 0), ("train O", o_train[rows] == 0),
+        ("lse", lse[empty] == -fa.NEG_INF), ("m", m[empty] == fa.NEG_INF),
+        ("l", l[empty] == 0), ("acc", acc[rows] == 0))
+        if not bool(torch.all(ok))]
+    log(f"  rows that see no key: {int(empty.sum())} of {empty.numel()} "
+        f"row-heads; every forward mode writes them "
+        f"{'as a row with no key' if not bad else 'WRONG: ' + str(bad)}")
+    if bad:
+        raise AssertionError(f"rows with no key: {bad} differ from O = 0, "
+                             f"lse = +1e30, m = -1e30, l = 0, acc = 0")
 
 
 def case_inputs(B, T, Tk, H, D, dtype, fused, seed=0):
@@ -849,6 +910,7 @@ def kernel_case(label, B, T, H, D, dtype, causal, window=None, Tk=None,
     errs, refs = check_modes(label, modes(*args, kw), dtype,
                              (*args, kw) if dtype == torch.bfloat16 else None)
     if segments:
+        empty_rows(q, k, v, kw)
         blind = dict(kw, q_seg=None, k_seg=None)
         refuse({f"{m} {o}": t for m, (_, plain) in modes(*args, blind).items()
                 for o, t in zip(OUTPUTS[m], plain())}, refs, dtype,
@@ -868,16 +930,25 @@ def kernel_case(label, B, T, H, D, dtype, causal, window=None, Tk=None,
         log(f"  pairs visible inside the segments: {pairs} of "
             f"{B * H * visible_pairs(T, Tk, causal, q_off, k_off, window)} "
             f"causal")
+        if packed_over:
+            _, _, streamed, in_range = forward_tiles(
+                kw["q_seg"][0].cpu().numpy(), kw["k_seg"][0].cpu().numpy(),
+                causal, q_off, k_off, window)
+            log(f"  bf16 forward key tiles streamed: {B * H * streamed} of "
+                f"{B * H * in_range} in the causal ranges")
         if window is None:
             fwd, bwd = sdpa_times(q, k, v, do, causal, mask=allowed)
+            if "flash_fwd_state" in (timed or OUTPUTS):
+                library["flash_fwd_state"] = sdpa_state_ms(
+                    q, k, v, mask=allowed, kw=kw)
     else:
         pairs = B * H * visible_pairs(T, Tk, causal, q_off, k_off, window)
         if window is None and q_off == k_off:
             fwd, bwd = sdpa_times(q, k, v, do, causal)
     if fwd is not None:
-        library = {"flash_fwd": fwd, "flash_fwd_train": fwd,
-                   "flash_bwd_dq": bwd, "flash_bwd_dkv": bwd,
-                   "flash_bwd_dq_f32": bwd, "flash_bwd_dkv_f32": bwd}
+        library.update({"flash_fwd": fwd, "flash_fwd_train": fwd,
+                        "flash_bwd_dq": bwd, "flash_bwd_dkv": bwd,
+                        "flash_bwd_dq_f32": bwd, "flash_bwd_dkv_f32": bwd})
     return time_rows(modes(*args, kw, timed or OUTPUTS), (B, T, Tk, H, D),
                      dtype, pairs, library, errs, ids_bytes)
 
@@ -892,10 +963,10 @@ def docs(*lengths, first=1):
 
 
 def id_patterns():
-    """The (b) cases of the backward kernels' id tables (culling by
-    document, the compare only in a tile that mixes ids), each run in
-    bf16 at D 64 and 128: {label: (ids of the global positions,
-    kernel_case arguments)}. Every tile edge named is a multiple of 64."""
+    """The (b) cases of the bf16 kernels' id tables (culling by document,
+    the compare only in a tile that mixes ids), each run in bf16 at D 64
+    and 128: {label: (ids of the global positions, kernel_case
+    arguments)}. Every tile edge named is a multiple of 64."""
     import numpy as np
 
     short = np.random.RandomState(0).randint(1, 64, size=64)
@@ -928,7 +999,84 @@ def id_patterns():
         # k side's id table follows an odd count of ranges in the scratch
         "ids-batch-one": (docs(200, 333, 427),
                           dict(T=960, causal=True, B=1)),
+        # a ring's past block (q_off = Tk) whose middle query document
+        # has no key in the block: rows 151..799 see nothing, so the
+        # forward's CTAs over rows 256..767 and one warpgroup of rows
+        # 128..255 are left with no tile; the last rows' document comes
+        # back from the block's start (keys 0..299), so a dropped last
+        # q tile still shows in dK/dV; ragged Tk and Tq
+        "ids-rows-without-keys": (np.concatenate([docs(300, first=5),
+                                                  docs(351, first=6),
+                                                  docs(649, first=7),
+                                                  docs(200, first=5)]),
+                                  dict(T=1000, Tk=500, q_off=500,
+                                       causal=True)),
     }
+
+
+# The bf16 forward's tiles: FBM query rows a CTA (two consumer warpgroups
+# of 64), FBN keys a streamed tile, and the id table's ranges of ID_TILE
+# tokens (csrc/flash_attention.cu's Sm90Cfg and ID_TILE).
+FWD_ROWS, FWD_KEYS, ID_TILE = 128, 128, 64
+
+
+def key_tile_range(q_base, k_off, nkt, causal, window):
+    """The key tiles [lo, hi) that FWD_ROWS rows from global position
+    ``q_base`` can see (the kernels' ``key_tiles``)."""
+    if not causal:
+        return 0, nkt
+    hi = min(nkt, (q_base + FWD_ROWS - 1 - k_off) // FWD_KEYS + 1)
+    lo = 0
+    if window:
+        lo = max(0, -(-(q_base - (window - 1) - (FWD_KEYS - 1) - k_off)
+                      // FWD_KEYS))
+    return lo, max(hi, lo)
+
+
+def forward_tiles(q_ids, k_ids, causal, q_off=0, k_off=0, window=None):
+    """The key tiles the bf16 forward with ids visits on one batch row's
+    ids, modelled as the kernel computes them (each side's 64-token id
+    ranges, ``tile_class`` for each warpgroup, ``narrow`` over the causal
+    range): ({(query tile, warpgroup): key tiles it computes}, {(query
+    tile, warpgroup): those of them that take the id-free path (ONE_ID)},
+    key tiles streamed, key tiles in the causal ranges)."""
+    import numpy as np
+
+    q_ids, k_ids = np.asarray(q_ids), np.asarray(k_ids)
+    none = (np.iinfo(np.int32).max, np.iinfo(np.int32).min)
+
+    def ranges(ids):
+        return [(int(ids[i:i + ID_TILE].min()), int(ids[i:i + ID_TILE].max()))
+                for i in range(0, len(ids), ID_TILE)]
+
+    def union(rs):
+        return (min(r[0] for r in rs), max(r[1] for r in rs)) if rs else none
+
+    def tile_class(t, r):
+        if t[0] > r[1] or r[0] > t[1]:
+            return "no-pair"
+        return "one-id" if t[0] == t[1] == r[0] == r[1] else "mixed"
+
+    qr, kr = ranges(q_ids), ranges(k_ids)
+    per = FWD_KEYS // ID_TILE
+    nkt = -(-len(k_ids) // FWD_KEYS)
+    computed, one_id, streamed, in_range = {}, {}, 0, 0
+    for qt in range(-(-len(q_ids) // FWD_ROWS)):
+        lo, hi = key_tile_range(q_off + qt * FWD_ROWS, k_off, nkt, causal,
+                                window)
+        in_range += hi - lo
+        rows = [union(qr[2 * qt + w:2 * qt + w + 1]) for w in (0, 1)]
+        cls = {kt: [tile_class(union(kr[kt * per:kt * per + per]), r)
+                    for r in rows] for kt in range(lo, hi)}
+        kept = [kt for kt in range(lo, hi) if cls[kt] != ["no-pair"] * 2]
+        lo, hi = (kept[0], kept[-1] + 1) if kept else (hi, hi)
+        streamed += hi - lo
+        for w in (0, 1):
+            computed[qt, w] = {kt for kt in range(lo, hi)
+                               if cls[kt][w] != "no-pair"}
+            one_id[qt, w] = {kt for kt in computed[qt, w]
+                             if cls[kt][w] == "one-id"}
+    return computed, one_id, streamed, in_range
 
 
 def id_pattern_cases():
@@ -954,9 +1102,9 @@ def bits(t):
 
 def one_document_case(label, B, T, H, D, Tk=None, q_off=0, k_off=0,
                       fused=False):
-    """All-equal ids: every tile takes the id-free path, so the backward
-    modes with them must give bitwise the outputs of the same launches
-    without ids."""
+    """All-equal ids: every tile takes the id-free path, so every mode
+    (the forward's three and the backward's four) with them must give
+    bitwise the outputs of the same launches without ids."""
     import torch
 
     from horovod_tpu_torch.ops import flash_attention as fa
@@ -970,7 +1118,8 @@ def one_document_case(label, B, T, H, D, Tk=None, q_off=0, k_off=0,
     one = dict(kw, q_seg=torch.full((B, T), 7, dtype=torch.int32,
                                     device="cuda"),
                k_seg=torch.full((B, Tk), 7, dtype=torch.int32, device="cuda"))
-    names = ("flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_dq_f32",
+    names = ("flash_fwd", "flash_fwd_train", "flash_fwd_state",
+             "flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_dq_f32",
              "flash_bwd_dkv_f32")
     plain, ided = modes(*args, kw, names), modes(*args, one, names)
     differ = []
@@ -981,12 +1130,85 @@ def one_document_case(label, B, T, H, D, Tk=None, q_off=0, k_off=0,
             if n:
                 differ.append(f"{name} {out}: {n} elements")
     log(f"case {label}: B={B} Tq={T} Tk={Tk} H={H} D={D} bf16 causal "
-        f"q_off={q_off} k_off={k_off}, one document: the backward modes "
-        f"with all-equal ids {'bitwise' if not differ else 'NOT bitwise'} "
-        f"the launches without ids {differ or ''}")
+        f"q_off={q_off} k_off={k_off}, one document: every mode with "
+        f"all-equal ids {'bitwise' if not differ else 'NOT bitwise'} the "
+        f"launches without ids {differ or ''}")
     if differ:
         raise AssertionError(f"case {label}: all-equal ids change the "
-                             f"backward's bits: {differ}")
+                             f"kernels' bits: {differ}")
+
+
+def id_table_builds_case():
+    """One build of the id tables a call, counted by the profiler:
+    ``flash_attention``'s training forward builds them and its two
+    backward kernels read them, and ``flash_attention_block_grads`` builds
+    them once for its two kernels. Their outputs must equal bitwise those
+    of the same kernels launched one by one, each building its own."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    B, T, H, D = 2, 1024, 4, 64
+    q, k, v, do = case_inputs(B, T, T, H, D, torch.bfloat16, True, seed=5)
+    ids = segment_ids(B, T, 4, torch.Generator().manual_seed(5)).cuda()
+    kw = dict(causal=True, q_off=0, k_off=0, window=None, q_seg=ids,
+              k_seg=ids)
+    kernels = ("flash_id_table", "flash_fwd_sm90", "flash_bwd_dq_sm90",
+               "flash_bwd_dkv_sm90")
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = fn()
+            torch.cuda.synchronize()
+        n = dict.fromkeys(kernels, 0)
+        for e in prof.key_averages():
+            for name in kernels:
+                n[name] += e.count if name in e.key else 0
+        return out, n
+
+    def attention():
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+        o = fa.flash_attention(qg, kg, vg, causal=True, q_segment_ids=ids,
+                               k_segment_ids=ids)
+        o.backward(do)
+        return o.detach(), qg.grad, kg.grad, vg.grad
+
+    def alone():
+        o, lse = fa.flash_fwd(q, k, v, with_lse=True, **kw)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        return (o, fa.flash_bwd_dq(q, k, v, do, lse, delta, **kw),
+                *fa.flash_bwd_dkv(q, k, v, do, lse, delta, **kw))
+
+    o, lse = fa.flash_fwd(q, k, v, with_lse=True, **kw)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    f32 = dict(kw, out_dtype=torch.float32)
+    runs = {
+        "flash_attention": (counted(attention), dict(zip(kernels,
+                                                          (1, 1, 1, 1)))),
+        "flash_attention_block_grads": (counted(
+            lambda: fa.flash_attention_block_grads(
+                q, k, v, do, lse, delta, 0, 0, True, ids, ids)),
+            dict(zip(kernels, (1, 0, 1, 1)))),
+    }
+    alone_outs = {"flash_attention": alone(),
+                  "flash_attention_block_grads": (
+                      fa.flash_bwd_dq(q, k, v, do, lse, delta, **f32),
+                      *fa.flash_bwd_dkv(q, k, v, do, lse, delta, **f32))}
+    bad = []
+    for name, ((outs, got), want) in runs.items():
+        differ = sum(int((bits(a) != bits(b)).sum())
+                     for a, b in zip(outs, alone_outs[name]))
+        log(f"case id-table-builds: {name} (B={B} T={T} H={H} D={D} bf16, "
+            f"4 segments) launched {got}; outputs "
+            f"{'bitwise' if not differ else f'{differ} elements off'} the "
+            f"kernels launched one by one")
+        if got != want or differ:
+            bad.append(name)
+    if bad:
+        raise AssertionError(f"id tables not built once a call, or read "
+                             f"wrong: {bad}")
 
 
 def ring_inputs():
@@ -5791,8 +6013,9 @@ def packed_inputs(B, T, H, q_off):
 def sass_digests(path):
     """{function: sha256 of its SASS} of each flash_* function in the
     library at ``path`` (``cuobjdump -sass``), named without the
-    anonymous namespace's per-build tag; {} without cuobjdump. Two builds
-    whose function runs the same instructions give the same digest."""
+    anonymous namespace's per-build tag and with each line's runs of
+    blanks made one; {} without cuobjdump. Two builds whose function runs
+    the same instructions give the same digest."""
     import hashlib
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -5808,7 +6031,8 @@ def sass_digests(path):
             fn = m.group(1)
             funcs[fn] = []
         elif fn and line.strip():
-            funcs[fn].append(line.strip())
+            # the listing pads its columns to the widest line of the file
+            funcs[fn].append(" ".join(line.split()))
     return {n: hashlib.sha256("\n".join(lines).encode()).hexdigest()[:16]
             for n, lines in sorted(funcs.items()) if "flash_" in n}
 
@@ -5838,10 +6062,11 @@ def time_tree(tree, *flags):
     slice's shape (B=8, T=1024, H=12, D=64, bf16, causal, q/k/v views of
     one qkv tensor), AB_RING_MODES at the ring's past block
     (``ring_inputs()``), the segment-id modes at PACKED_SHAPES
-    (``<mode>_seg@<shape>``), and the backward at the Ulysses shape
-    without ids and with one document (``@ulysses``,
-    ``_seg@ulysses-one-doc``: the same pairs, so the difference is what
-    the ids cost where no tile is culled). One JSON line, with the SASS
+    (``<mode>_seg@<shape>``), and the train-mode forward and the
+    backward at the Ulysses shape without ids and with one document
+    (``@ulysses``, ``_seg@ulysses-one-doc``: the same pairs, so the
+    difference is what the ids cost where no tile is culled). One JSON
+    line, with the SASS
     digest of each kernel (and, when this run built the library, each
     kernel's registers logged before it). Run parent, change, change,
     parent in one call and compare within it. With ``--outputs FILE`` the
@@ -5885,14 +6110,14 @@ def time_tree(tree, *flags):
         packed.update({f"{name}_seg@{shape}": c
                        for name, c in modes(*args, pkw, names).items()})
         if shape == "ulysses":
-            bwd = ("flash_bwd_dq", "flash_bwd_dkv")
+            train = ("flash_fwd_train", "flash_bwd_dq", "flash_bwd_dkv")
             blind = dict(pkw, q_seg=None, k_seg=None)
             calls.update({f"{name}@ulysses": c for name, c in
-                          modes(*args, blind, bwd).items()})
+                          modes(*args, blind, train).items()})
             one = dict(pkw, q_seg=torch.ones_like(pkw["q_seg"]),
                        k_seg=torch.ones_like(pkw["k_seg"]))
             calls.update({f"{name}_seg@ulysses-one-doc": c for name, c in
-                          modes(*args, one, bwd).items()})
+                          modes(*args, one, train).items()})
     calls.update(packed)
     ms = {name: time_ms(kern, iters=50, warmup=5)
           for name, (kern, _) in calls.items()}
@@ -5991,13 +6216,16 @@ def device_and_kernels(started):
     table.update(ring_case())   # the state and fp32 rows at the ring's shape
     kernel_case("segments-bf16", 8, 2048, 12, 64, torch.bfloat16, True,
                 fused=True, segments=4, faults=True)
-    # The backward kernels' id tables: padding, a recurring id, short
+    # The bf16 kernels' id tables: padding, a recurring id, short
     # documents, boundaries on tile edges, ragged T with offsets and with
-    # a window; then one document, bitwise the launches without ids.
+    # a window, one batch row, rows whose document has no key in a past
+    # block; then one document, bitwise the launches without ids; then
+    # one build of the tables a call.
     id_pattern_cases()
     one_document_case("one-document", 8, 1024, 12, 64, fused=True)
     one_document_case("one-document-d128-offsets", 2, 1000, 4, 128, Tk=700,
                       q_off=300)
+    id_table_builds_case()
     # The segment-id modes at the shapes of (p)'s packed long-context
     # trainer (T 8192 at sp=2, 3 documents a row, packed as the example
     # packs them), timed, with the bound over the pairs visible inside

@@ -23,14 +23,17 @@
 // the kernels, so every T is served. Causal and sliding-window tiles that
 // hold no visible key are culled before they are loaded (the Pallas
 // predicate). Segment ids are a template flag (SEG), so a call without
-// them runs no id code. In the forward they mask pairs inside a tile and
-// never cull one. The bf16 backward kernels cull by document too: ahead of
+// them runs no id code. The bf16 kernels cull by document too: ahead of
 // them a small kernel (flash_id_table) writes each side's id table, the
 // ids padded to whole tiles and each 64-token tile's [min, max]; a tile
 // whose range misses the rows' range holds no pair of one id, so its P is
-// exactly 0 and skipping it changes no bit of dQ, dK or dV. In state mode
-// a block whose every tile is culled (a future block of the ring) still
-// writes m = -1e30, l = 0 and acc = 0, the state the merge expects.
+// exactly 0 and skipping it changes no bit of any output (in the forward
+// such a tile's row max is -inf, so it rescales nothing and adds nothing).
+// One call's tables serve all its kernels: the training forward builds
+// them and both backward kernels read them. In state mode a block whose
+// every tile is culled (a future block of the ring, or rows whose
+// document has no key in the block) still writes m = -1e30, l = 0 and
+// acc = 0, the state the merge expects.
 //
 // Bounds on an H100 SXM (989 TFLOP/s bf16, 3.35 TB/s). At the slice's
 // shape (B=8, T=1024, H=12, D=64, causal, bf16, one layer) the forward
@@ -81,26 +84,29 @@
 //     tiles wholly visible to a warpgroup skip the per-element mask; the
 //     causal forward and dQ launch their heaviest (last) query tiles
 //     first; a kernel's shared-memory attribute is set once per device.
-//  6. Segment ids in dQ and dK/dV (the forward's are point 2's ids, loaded
-//     by the producer's lanes, compared in every tile). Each CTA narrows
-//     its causal/window range of streamed tiles to the first through the
+//  6. Segment ids, in all three kernels. Each CTA narrows its
+//     causal/window range of streamed tiles to the first through the
 //     last whose id range meets its own rows' (a warp ballot over the
 //     table, 32 tiles a vote, by the producer warp and every consumer
 //     warp alike): for ids that never decrease along a row, as a packer
 //     writes them, exactly the tiles that hold a pair; the tiles between
 //     stay visited and masked, so padding or an id that comes back later
 //     in the row is still served. A CTA left with no tile loads nothing
-//     and writes zeros. The producer classes each streamed tile for each
-//     consumer warpgroup (tile_class, passed in shared memory with the
-//     stage): all one id, the same as the warpgroup's rows, takes the
-//     id-free path, masked only at a ragged edge or by causality; no id
-//     in the rows' range is skipped (every P is 0); only a mixed tile
-//     compares ids pair by pair, and only it has its ids in shared
-//     memory, brought by one bulk copy counted on the stage's full
-//     barrier (256 or 512 bytes) rather than by the producer's lanes.
-//     The elementwise work per score, not the tensor cores, sets these
-//     kernels' time, so a tile that needs no mask runs a P loop compiled
-//     without one (tile_probs): no per-element test or branch.
+//     and writes what a row with no key gets (dQ, dK, dV and O zero; lse
+//     +1e30; the empty state). The producer classes each streamed tile
+//     for each consumer warpgroup (tile_class, passed in shared memory
+//     with the stage): all one id, the same as the warpgroup's rows,
+//     takes the id-free path, masked only at a ragged edge or by
+//     causality; no id in the rows' range is skipped (every P is 0; the
+//     forward's state is left as it is); only a mixed tile compares ids
+//     pair by pair, and only it has its ids in shared memory, brought by
+//     one bulk copy counted on the stage's full barrier (256 or 512
+//     bytes) rather than by the producer's lanes. The elementwise work
+//     per score, not the tensor cores, sets these kernels' time, so a
+//     tile that needs no mask runs a loop compiled without one
+//     (tile_probs in the backward, where the mask zeroes P; the forward
+//     masks scores before the row max and runs tile_mask only on a tile
+//     that needs it): no per-element test or branch.
 //
 // fp32 inputs keep a simpler design by choice (fp32 stays fp32, with no
 // TF32 rounding; the model runs in bf16): one CTA owns one 64-row tile (32
@@ -307,7 +313,7 @@ __device__ __forceinline__ bool all_visible(int q0, int nq, int k0, int nk, int 
   return q0 >= k0 + nk - 1 && (window <= 0 || q0 + nq - 1 - k0 < window);
 }
 
-// ---- segment ids of the bf16 backward kernels: the id table ----------------------
+// ---- segment ids of the bf16 kernels: the id table -------------------------------
 
 constexpr int ID_TILE = 64;  // tokens per range of the table: a warpgroup's rows
 constexpr int ID_ROW = 128;  // the padded ids of a row: a multiple of the widest tile
@@ -343,10 +349,10 @@ inline long long id_table_ints(int B, int T) {
 }
 
 // The id tables of both sides (blockIdx.z: 0 q, 1 k), one warp per tile.
-// Replaces no Pallas kernel: the backward kernels read it to cull tiles
-// and to skip the id compare (see the note at the top). It moves each id
-// in once and out about once: bound by bytes, a few microseconds at the
-// long-context shapes, launch latency included.
+// Replaces no Pallas kernel: the bf16 kernels with ids read it to cull
+// tiles and to skip the id compare (see the note at the top). It moves
+// each id in once and out about once: bound by bytes, a few microseconds
+// at the long-context shapes, launch latency included.
 __global__ void __launch_bounds__(256)
     flash_id_table(const int* __restrict__ q_ids, const int* __restrict__ k_ids, int* q_tab,
                    int* k_tab, int B, int Tq, int Tk) {
@@ -460,6 +466,19 @@ __device__ __forceinline__ void tile_probs(float (&x)[N / 2], int lane, P p, Ok 
     }
 }
 
+// The forward's counterpart of tile_probs, which masks scores before the
+// row max rather than P: x = -inf at column c of the thread's row r where
+// not ok(c, r). The forward with ids calls it only for a tile that needs
+// a mask, and with the id compare only in a tile that mixes ids.
+template <int N, class Ok>
+__device__ __forceinline__ void tile_mask(float (&x)[N / 2], int lane, Ok ok) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (!ok(8 * j + 2 * (lane % 4) + (e & 1), e >> 1)) x[4 * j + e] = -INFINITY;
+}
+
 // A [rows][D] bf16 tile at (row0, h, b) into shared memory as D / 64
 // swizzled [rows][64] tiles, one TMA box each.
 template <int D>
@@ -525,20 +544,16 @@ __device__ __forceinline__ void store_acc(void* out, Strides so, int b, int h, i
   }
 }
 
-// The producer warp's K/V stream: key tiles [lo, hi) of BN keys (and,
-// with SEG, their ids) through the ST stages of sK/sV/sKid, each stage
-// handed to the consumers on full[s] and taken back on empty[s].
-template <int D, int BN, int ST, bool SEG>
-__device__ __forceinline__ void stream_kv(bf16* sK, bf16* sV, int* sKid, uint64_t* full,
-                                          uint64_t* empty, const CUtensorMap* mk,
-                                          const CUtensorMap* mv, const int* k_ids, int b,
-                                          int h, int Tk, int lo, int hi, int lane) {
+// The producer warp's K/V stream without ids: key tiles [lo, hi) of BN
+// keys through the ST stages of sK/sV, each stage handed to the consumers
+// on full[s] and taken back on empty[s].
+template <int D, int BN, int ST>
+__device__ __forceinline__ void stream_kv(bf16* sK, bf16* sV, uint64_t* full, uint64_t* empty,
+                                          const CUtensorMap* mk, const CUtensorMap* mv, int b,
+                                          int h, int lo, int hi, int lane) {
   for (int i = 0; i < hi - lo; ++i) {
     const int s = i % ST, k0 = (lo + i) * BN;
     if (i >= ST) hopper::mbar_wait(&empty[s], (i / ST - 1) & 1);
-    if (SEG)
-      for (int c = lane; c < BN; c += 32)
-        sKid[s * BN + c] = k0 + c < Tk ? k_ids[(long long)b * Tk + k0 + c] : 0;
     if (lane == 0) {
       hopper::mbar_expect_tx(&full[s], 2 * BN * D * 2);
       tma_tile<D>(sK + s * BN * D, BN, mk, &full[s], h, k0, b);
@@ -549,7 +564,8 @@ __device__ __forceinline__ void stream_kv(bf16* sK, bf16* sV, int* sKid, uint64_
   }
 }
 
-// dQ's K/V stream with segment ids: key tiles [lo, hi) as stream_kv, each
+// The K/V stream with segment ids (the forward's and dQ's): key tiles
+// [lo, hi) as stream_kv, each
 // stage's tile_class in sCls[s], and the tile's padded ids by one bulk
 // copy on full[s] where a consumer warpgroup compares them.
 template <int D, int BN, int ST, class F>
@@ -579,9 +595,12 @@ __device__ __forceinline__ void stream_kv_ids(bf16* sK, bf16* sV, int* sKid, int
 }
 
 // bf16 forward. One CTA owns FBM query rows of one (b, h); the producer
-// warp loads Q once and streams K/V tiles (and, with SEG, their ids)
-// through the ring; each consumer warpgroup runs the online softmax for
-// its 64 rows with S and O in registers. Modes as in flash_fwd_kernel.
+// warp loads Q once and streams K/V tiles (and, with SEG, their classes
+// and a mixed tile's ids) through the ring; each consumer warpgroup runs
+// the online softmax for its 64 rows with S and O in registers. A CTA
+// that sees no key tile (a future block of the ring, or rows whose
+// documents have no key here) loads nothing and writes the empty rows.
+// Modes as in flash_fwd_kernel.
 template <int D, bool SEG>
 __global__ void __launch_bounds__(Sm90Cfg<D>::NT, 1)
     flash_fwd_sm90(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
@@ -601,6 +620,7 @@ __global__ void __launch_bounds__(Sm90Cfg<D>::NT, 1)
   uint64_t* q_full = reinterpret_cast<uint64_t*>(sKid + ST * BN);
   uint64_t* full = q_full + 1;
   uint64_t* empty = full + ST;
+  [[maybe_unused]] int* sCls = reinterpret_cast<int*>(empty + ST);  // SEG: tile_class
 
   const int nqt = (Tq + BM - 1) / BM;
   const int qt = causal ? nqt - 1 - blockIdx.x : blockIdx.x;  // longest rows first
@@ -609,6 +629,14 @@ __global__ void __launch_bounds__(Sm90Cfg<D>::NT, 1)
   int lo, hi;
   key_tiles(q_base, BM, k_off, BN, (Tk + BN - 1) / BN, causal, window, lo, hi);
   const int wg = threadIdx.x / WG;
+  // SEG: q_ids and k_ids are the id tables; a key tile's class.
+  const IdTable qtab = id_table(q_ids, gridDim.y / H, Tq);
+  const IdTable ktab = id_table(k_ids, gridDim.y / H, Tk);
+  [[maybe_unused]] const auto key_class = [&](int kt) {
+    return tile_class(id_range<BN / ID_TILE>(ktab, b, kt * (BN / ID_TILE)),
+                      id_range<1>(qtab, b, row0 / ID_TILE),
+                      id_range<1>(qtab, b, row0 / ID_TILE + 1));
+  };
 
   if (threadIdx.x == 0) {
     hopper::mbar_init(q_full, 1);
@@ -625,6 +653,9 @@ __global__ void __launch_bounds__(Sm90Cfg<D>::NT, 1)
     // their registers.
     hopper::regs_dec<40>();
     const int lane = threadIdx.x % 32;
+    if constexpr (SEG) {
+      if (threadIdx.x / 32 == C::CW * 4) narrow(lo, hi, lane, key_class);
+    }
     if (threadIdx.x / 32 != C::CW * 4 || hi == lo) return;
     if (lane == 0) {
       hopper::prefetch_map(&mq);
@@ -633,13 +664,18 @@ __global__ void __launch_bounds__(Sm90Cfg<D>::NT, 1)
       hopper::mbar_expect_tx(q_full, C::FWD_Q);
       tma_tile<D>(sQ, BM, &mq, q_full, h, row0, b);
     }
-    stream_kv<D, BN, ST, SEG>(sK, sV, sKid, full, empty, &mk, &mv, k_ids, b, h, Tk, lo, hi, lane);
+    if constexpr (SEG)
+      stream_kv_ids<D, BN, ST>(sK, sV, sKid, sCls, full, empty, &mk, &mv, ktab, b, h, lo, hi,
+                               lane, key_class);
+    else
+      stream_kv<D, BN, ST>(sK, sV, full, empty, &mk, &mv, b, h, lo, hi, lane);
     return;
   }
 
   // Consumer warpgroup wg: query rows [64 wg, 64 wg + 64) of the tile.
   hopper::regs_inc<232>();
   const int t = threadIdx.x % WG, warp = t / 32, lane = t % 32;
+  if constexpr (SEG) narrow(lo, hi, lane, key_class);  // the producer's range
   const int wrow0 = 64 * wg;
   const float c2 = scale * LOG2E;
   int qpos[2], qid[2];
@@ -647,7 +683,7 @@ __global__ void __launch_bounds__(Sm90Cfg<D>::NT, 1)
   for (int r = 0; r < 2; ++r) {
     const int tq = row0 + wrow0 + 16 * warp + lane / 4 + 8 * r;
     qpos[r] = q_off + tq;
-    qid[r] = SEG && tq < Tq ? q_ids[(long long)b * Tq + tq] : 0;
+    qid[r] = SEG && tq < Tq ? qtab.ids[(long long)b * qtab.pad + tq] : 0;
   }
   float acc[D / 2], sc[BN / 2];
 #pragma unroll
@@ -662,6 +698,11 @@ __global__ void __launch_bounds__(Sm90Cfg<D>::NT, 1)
     const bf16* tK = sK + s * BN * D;
     const bf16* tV = sV + s * BN * D;
     hopper::mbar_wait(&full[s], (i / ST) & 1);
+    const int cls = SEG ? (sCls[s] >> 2 * wg) & 3 : 0;
+    if (cls & NO_PAIR) {  // no pair of one id in these rows: the state stays
+      hopper::mbar_arrive(&empty[s]);
+      continue;
+    }
 
     // S = Q . K^T for this warpgroup's 64 rows.
     hopper::fence_regs(sc);
@@ -673,15 +714,26 @@ __global__ void __launch_bounds__(Sm90Cfg<D>::NT, 1)
     hopper::wgmma_wait<0>();
     hopper::fence_regs(sc);
 
-    if (SEG || k0 + BN > Tk ||
-        !all_visible(q_base + wrow0, 64, k_off + k0, BN, causal, window)) {
+    // The score mask, before the row max: at a ragged edge or by
+    // causality/window; ids are compared only in a tile that mixes them.
+    const bool edge =
+        k0 + BN > Tk || !all_visible(q_base + wrow0, 64, k_off + k0, BN, causal, window);
+    if constexpr (SEG) {
+      const auto seen = [&](int c, int r) {
+        return k0 + c < Tk && visible_pair(qpos[r], k_off + k0 + c, causal, window);
+      };
+      const int* kid = sKid + s * BN;
+      if (cls == 0)
+        tile_mask<BN>(sc, lane, [&](int c, int r) { return seen(c, r) && kid[c] == qid[r]; });
+      else if (edge)
+        tile_mask<BN>(sc, lane, seen);
+    } else if (edge) {
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int c = 8 * j + 2 * (lane % 4) + (e & 1), r = e >> 1;
-          const bool ok = k0 + c < Tk && visible_pair(qpos[r], k_off + k0 + c, causal, window) &&
-                          (!SEG || sKid[s * BN + c] == qid[r]);
+          const bool ok = k0 + c < Tk && visible_pair(qpos[r], k_off + k0 + c, causal, window);
           if (!ok) sc[4 * j + e] = -INFINITY;
         }
     }
@@ -826,8 +878,7 @@ __global__ void __launch_bounds__(Sm90Cfg<D>::NT, 1)
       stream_kv_ids<D, BN, ST>(sK, sV, sKid, sCls, full, empty, &mk, &mv, ktab, b, h, lo, hi,
                                lane, key_class);
     else
-      stream_kv<D, BN, ST, SEG>(sK, sV, sKid, full, empty, &mk, &mv, k_ids, b, h, Tk, lo, hi,
-                                lane);
+      stream_kv<D, BN, ST>(sK, sV, full, empty, &mk, &mv, b, h, lo, hi, lane);
     return;
   }
 
@@ -1519,21 +1570,45 @@ int tensor_map(CUtensorMap* map, const void* base, int B, int T, int H, int D, S
   return r == CUDA_SUCCESS ? 0 : kTensorMapRefused;
 }
 
+// The id tables of both sides of a bf16 kernel with segment ids, in
+// `scratch` (id_table_ints(B, Tq) + id_table_ints(B, Tk) ints): built
+// there from q_ids and k_ids when they are given, else read as an earlier
+// launch on the same ids built them. Points q_ids and k_ids at them.
+int id_tables(int B, int Tq, int Tk, const void*& q_ids, const void*& k_ids, void* scratch,
+              cudaStream_t stream) {
+  if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+  int* q_tab = static_cast<int*>(scratch);
+  int* k_tab = q_tab + id_table_ints(B, Tq);
+  if (q_ids != nullptr) {
+    if (k_ids == nullptr) return (int)cudaErrorInvalidValue;
+    const int tiles = (std::max(Tq, Tk) + ID_ROW - 1) / ID_ROW * (ID_ROW / ID_TILE);
+    flash_id_table<<<dim3((tiles + 7) / 8, B, 2), 256, 0, stream>>>(
+        (const int*)q_ids, (const int*)k_ids, q_tab, k_tab, B, Tq, Tk);
+    if (int err = (int)cudaGetLastError()) return err;
+  }
+  q_ids = q_tab;
+  k_ids = k_tab;
+  return 0;
+}
+
 template <int D>
 int launch_fwd_sm90(int B, int H, int Tq, int Tk, const void* q, const void* k, const void* v,
                     void* o, void* lse, void* m, void* l, const void* q_ids, const void* k_ids,
-                    const long long* s, int causal, int q_off, int k_off, int window,
-                    float scale, cudaStream_t stream) {
+                    void* id_scratch, const long long* s, int causal, int q_off, int k_off,
+                    int window, float scale, cudaStream_t stream) {
   using C = Sm90Cfg<D>;
   constexpr auto seg = flash_fwd_sm90<D, true>;
   constexpr auto plain = flash_fwd_sm90<D, false>;
-  if (int err = q_ids ? prepare<seg>(C::FWD_SMEM) : prepare<plain>(C::FWD_SMEM)) return err;
+  const bool ids = q_ids || id_scratch;
+  if (int err = ids ? prepare<seg>(C::FWD_SMEM) : prepare<plain>(C::FWD_SMEM)) return err;
+  if (ids)
+    if (int err = id_tables(B, Tq, Tk, q_ids, k_ids, id_scratch, stream)) return err;
   CUtensorMap mq, mk, mv;
   if (int err = tensor_map(&mq, q, B, Tq, H, D, strides_at(s, 0), C::FBM)) return err;
   if (int err = tensor_map(&mk, k, B, Tk, H, D, strides_at(s, 1), C::FBN)) return err;
   if (int err = tensor_map(&mv, v, B, Tk, H, D, strides_at(s, 2), C::FBN)) return err;
   dim3 grid((Tq + C::FBM - 1) / C::FBM, B * H);
-  (q_ids ? seg : plain)<<<grid, C::NT, C::FWD_SMEM, stream>>>(
+  (ids ? seg : plain)<<<grid, C::NT, C::FWD_SMEM, stream>>>(
       mq, mk, mv, o, (float*)lse, (float*)m, (float*)l, (const int*)q_ids, (const int*)k_ids,
       strides_at(s, 3), H, Tq, Tk, causal, q_off, k_off, window, scale);
   return (int)cudaGetLastError();
@@ -1542,11 +1617,11 @@ int launch_fwd_sm90(int B, int H, int Tq, int Tk, const void* q, const void* k, 
 template <typename T, int D>
 int launch_fwd(int B, int H, int Tq, int Tk, const void* q, const void* k, const void* v,
                void* o, void* lse, void* m, void* l, const void* q_ids, const void* k_ids,
-               const long long* s, int causal, int q_off, int k_off, int window, float scale,
-               cudaStream_t stream) {
+               void* id_scratch, const long long* s, int causal, int q_off, int k_off,
+               int window, float scale, cudaStream_t stream) {
   if constexpr (std::is_same<T, bf16>::value) {
-    return launch_fwd_sm90<D>(B, H, Tq, Tk, q, k, v, o, lse, m, l, q_ids, k_ids, s, causal,
-                              q_off, k_off, window, scale, stream);
+    return launch_fwd_sm90<D>(B, H, Tq, Tk, q, k, v, o, lse, m, l, q_ids, k_ids, id_scratch, s,
+                              causal, q_off, k_off, window, scale, stream);
   } else {
     using C = Cfg<T, D>;
     constexpr auto seg = flash_fwd_kernel<T, D, true>;
@@ -1561,23 +1636,6 @@ int launch_fwd(int B, int H, int Tq, int Tk, const void* q, const void* k, const
   }
 }
 
-// The id tables of both sides into `scratch` (id_table_ints(B, Tq) +
-// id_table_ints(B, Tk) ints) ahead of a bf16 backward kernel with segment
-// ids; points q_ids and k_ids at them.
-int launch_id_tables(int B, int Tq, int Tk, const void*& q_ids, const void*& k_ids,
-                     void* scratch, cudaStream_t stream) {
-  if (scratch == nullptr) return (int)cudaErrorInvalidValue;
-  int* q_tab = static_cast<int*>(scratch);
-  int* k_tab = q_tab + id_table_ints(B, Tq);
-  const int tiles = (std::max(Tq, Tk) + ID_ROW - 1) / ID_ROW * (ID_ROW / ID_TILE);
-  flash_id_table<<<dim3((tiles + 7) / 8, B, 2), 256, 0, stream>>>(
-      (const int*)q_ids, (const int*)k_ids, q_tab, k_tab, B, Tq, Tk);
-  if (int err = (int)cudaGetLastError()) return err;
-  q_ids = q_tab;
-  k_ids = k_tab;
-  return 0;
-}
-
 template <int D>
 int launch_dq_sm90(int B, int H, int Tq, int Tk, const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta, void* dq,
@@ -1587,16 +1645,17 @@ int launch_dq_sm90(int B, int H, int Tq, int Tk, const void* q, const void* k, c
   using C = Sm90Cfg<D>;
   constexpr auto seg = flash_bwd_dq_sm90<D, true>;
   constexpr auto plain = flash_bwd_dq_sm90<D, false>;
-  if (int err = q_ids ? prepare<seg>(C::DQ_SMEM) : prepare<plain>(C::DQ_SMEM)) return err;
-  if (q_ids)
-    if (int err = launch_id_tables(B, Tq, Tk, q_ids, k_ids, id_scratch, stream)) return err;
+  const bool ids = q_ids || id_scratch;
+  if (int err = ids ? prepare<seg>(C::DQ_SMEM) : prepare<plain>(C::DQ_SMEM)) return err;
+  if (ids)
+    if (int err = id_tables(B, Tq, Tk, q_ids, k_ids, id_scratch, stream)) return err;
   CUtensorMap mq, mk, mv, mdo;
   if (int err = tensor_map(&mq, q, B, Tq, H, D, strides_at(s, 0), C::QBM)) return err;
   if (int err = tensor_map(&mk, k, B, Tk, H, D, strides_at(s, 1), C::QBN)) return err;
   if (int err = tensor_map(&mv, v, B, Tk, H, D, strides_at(s, 2), C::QBN)) return err;
   if (int err = tensor_map(&mdo, dout, B, Tq, H, D, strides_at(s, 3), C::QBM)) return err;
   dim3 grid((Tq + C::QBM - 1) / C::QBM, B * H);
-  (q_ids ? seg : plain)<<<grid, C::NT, C::DQ_SMEM, stream>>>(
+  (ids ? seg : plain)<<<grid, C::NT, C::DQ_SMEM, stream>>>(
       mq, mk, mv, mdo, (const float*)lse, (const float*)delta, dq, (const int*)q_ids,
       (const int*)k_ids, strides_at(s, 4), out_f32, H, Tq, Tk, causal, q_off, k_off, window,
       scale);
@@ -1637,16 +1696,17 @@ int launch_dkv_sm90(int B, int H, int Tq, int Tk, const void* q, const void* k, 
   using C = Sm90Cfg<D>;
   constexpr auto seg = flash_bwd_dkv_sm90<D, true>;
   constexpr auto plain = flash_bwd_dkv_sm90<D, false>;
-  if (int err = q_ids ? prepare<seg>(C::DKV_SMEM) : prepare<plain>(C::DKV_SMEM)) return err;
-  if (q_ids)
-    if (int err = launch_id_tables(B, Tq, Tk, q_ids, k_ids, id_scratch, stream)) return err;
+  const bool ids = q_ids || id_scratch;
+  if (int err = ids ? prepare<seg>(C::DKV_SMEM) : prepare<plain>(C::DKV_SMEM)) return err;
+  if (ids)
+    if (int err = id_tables(B, Tq, Tk, q_ids, k_ids, id_scratch, stream)) return err;
   CUtensorMap mq, mk, mv, mdo;
   if (int err = tensor_map(&mq, q, B, Tq, H, D, strides_at(s, 0), C::BBQ)) return err;
   if (int err = tensor_map(&mk, k, B, Tk, H, D, strides_at(s, 1), C::BBN)) return err;
   if (int err = tensor_map(&mv, v, B, Tk, H, D, strides_at(s, 2), C::BBN)) return err;
   if (int err = tensor_map(&mdo, dout, B, Tq, H, D, strides_at(s, 3), C::BBQ)) return err;
   dim3 grid((Tk + C::BBN - 1) / C::BBN, B * H);
-  (q_ids ? seg : plain)<<<grid, C::NT, C::DKV_SMEM, stream>>>(
+  (ids ? seg : plain)<<<grid, C::NT, C::DKV_SMEM, stream>>>(
       mq, mk, mv, mdo, (const float*)lse, (const float*)delta, dk, dv, (const int*)q_ids,
       (const int*)k_ids, strides_at(s, 4), strides_at(s, 5), out_f32, H, Tq, Tk, causal, q_off,
       k_off, window, scale);
@@ -1691,13 +1751,19 @@ int launch_dkv(int B, int H, int Tq, int Tk, const void* q, const void* k, const
 
 // C interface, bound with ctypes (horovod_tpu_torch/ops/_build.py).
 // dtype: 0 = fp32, 1 = bf16. `strides` holds (b, t, h) element strides of
-// each tensor argument in order. Null q_ids/k_ids: no segment ids. Forward
-// modes: lse set = train; m and l set = state (o is fp32). out_f32: the
-// backward kernels write fp32 outputs. id_scratch: the backward kernels'
-// id tables, for bf16 inputs with segment ids: id_table_ints(B, Tq) +
-// id_table_ints(B, Tk) int32 values, 16-byte aligned. Returns 0 or the
-// cudaError_t of the launch (-1 for an unsupported dtype/D pair, -2 for a
-// refused tensor map).
+// each tensor argument in order. Forward modes: lse set = train; m and l
+// set = state (o is fp32). out_f32: the backward kernels write fp32
+// outputs. Segment ids: q_ids/k_ids are int32 [B, Tq] and [B, Tk], and
+// id_scratch the id tables of bf16 inputs (id_table_ints(B, Tq) +
+// id_table_ints(B, Tk) int32 values, 16-byte aligned):
+//   q_ids, k_ids and id_scratch null: no segment ids;
+//   q_ids and k_ids set: fp32 reads them as given; bf16 first builds the
+//     tables from them into id_scratch, which must be set;
+//   q_ids and k_ids null, id_scratch set (bf16 only): the tables are
+//     already in id_scratch, built by an earlier call on the same ids and
+//     shapes (one call's forward builds them, its backward kernels read).
+// Returns 0 or the cudaError_t of the launch (-1 for an unsupported
+// dtype/D pair, -2 for a refused tensor map).
 extern "C" {
 
 const char* hvd_error_string(int err) {
@@ -1709,10 +1775,11 @@ const char* hvd_error_string(int err) {
 
 int hvd_flash_fwd(int dtype, int D, int B, int H, int Tq, int Tk, const void* q,
                   const void* k, const void* v, void* o, void* lse, void* m, void* l,
-                  const void* q_ids, const void* k_ids, const long long* strides, int causal,
-                  int q_off, int k_off, int window, float scale, void* stream) {
-  HVD_DISPATCH(launch_fwd, B, H, Tq, Tk, q, k, v, o, lse, m, l, q_ids, k_ids, strides, causal,
-               q_off, k_off, window, scale, (cudaStream_t)stream);
+                  const void* q_ids, const void* k_ids, void* id_scratch,
+                  const long long* strides, int causal, int q_off, int k_off, int window,
+                  float scale, void* stream) {
+  HVD_DISPATCH(launch_fwd, B, H, Tq, Tk, q, k, v, o, lse, m, l, q_ids, k_ids, id_scratch,
+               strides, causal, q_off, k_off, window, scale, (cudaStream_t)stream);
 }
 
 // Keys per tile of the forward kernel (P is rounded to bf16 against the

@@ -38,8 +38,8 @@ _F = ctypes.c_float
 SIGNATURES: Dict[str, Dict[str, List]] = {
     "flash_attention": {
         # dtype, D, B, H, Tq, Tk; q, k, v, o, lse, m, l, q_ids, k_ids,
-        # strides; causal, q_off, k_off, window; scale; stream
-        "hvd_flash_fwd": [_I] * 6 + [_P] * 10 + [_I] * 4 + [_F, _P],
+        # id_scratch, strides; causal, q_off, k_off, window; scale; stream
+        "hvd_flash_fwd": [_I] * 6 + [_P] * 11 + [_I] * 4 + [_F, _P],
         # ...; q, k, v, dout, lse, delta, dq, q_ids, k_ids, id_scratch,
         # strides; out_f32, causal, q_off, k_off, window; scale; stream
         "hvd_flash_bwd_dq": [_I] * 6 + [_P] * 11 + [_I] * 5 + [_F, _P],

@@ -16,7 +16,9 @@ wrapper              replaces (Pallas kernel)        plain version
 ``flash_fwd`` and ``flash_fwd_state`` are the three output modes of one
 kernel. Every wrapper takes packed-sequence segment ids, and the backward
 wrappers write fp32 outputs on request (``out_dtype``), as ring attention's
-backward needs (``flash_attention_block_grads``).
+backward needs (``flash_attention_block_grads``). With bf16 inputs the
+kernels read the ids through id tables (``IdTables``) that the first
+launch of a call builds and its later launches share.
 
 Dispatch: a wrapper given CPU tensors computes its plain version; given
 CUDA tensors it launches its kernel or raises. There is no other path —
@@ -270,14 +272,48 @@ def _id_table_ints(B, T):
 
 
 def _id_scratch(q, k, q_seg):
-    """Scratch for the id tables that the bf16 backward kernels build
-    from segment ids before they run (None without ids, and for fp32
-    inputs, whose kernels read the ids as given)."""
+    """Scratch for the id tables that the bf16 kernels build from
+    segment ids before they run: the q side's table, then the k side's
+    (None without ids, and for fp32 inputs, whose kernels read the ids as
+    given)."""
     if q_seg is None or q.dtype != torch.bfloat16:
         return None
     B = q.shape[0]
     n = _id_table_ints(B, q.shape[1]) + _id_table_ints(B, k.shape[1])
     return torch.empty(n, dtype=torch.int32, device=q.device)
+
+
+class IdTables:
+    """The id tables of one call's segment ids, for the bf16 kernels on
+    the card: the first launch handed them builds them into ``scratch``
+    (``flash_id_table``, ahead of its kernel), and every later launch on
+    the same ids reads them as built. ``flash_attention``'s forward builds
+    them and its two backward kernels read them;
+    ``flash_attention_block_grads`` builds them once for its two kernels.
+    Without ids, for fp32 inputs or on the CPU there is nothing to build
+    (``scratch`` None)."""
+
+    def __init__(self, q, k, q_seg):
+        self.shape = (q.shape[0], q.shape[1], k.shape[1])
+        self.scratch = _id_scratch(q, k, q_seg) if q.is_cuda else None
+        self.built = False
+
+
+def _seg_args(name, q, k, q_seg, k_seg, tables):
+    """(q_ids, k_ids, id_scratch, tables) of one launch, as the C
+    interface takes them: the ids (int32) while the tables are not built,
+    with the scratch to build them in (bf16); the scratch alone once they
+    are. ``tables`` None: this launch's own."""
+    if tables is None:
+        tables = IdTables(q, k, q_seg)
+    elif q_seg is None or tables.shape != (q.shape[0], q.shape[1],
+                                           k.shape[1]):
+        raise ValueError(f"{name}: id tables of {tables.shape} for a call "
+                         f"of {(q.shape[0], q.shape[1], k.shape[1])}"
+                         f"{'' if q_seg is not None else ' without ids'}")
+    if tables.built:
+        return None, None, tables.scratch, tables
+    return _ids(q_seg), _ids(k_seg), tables.scratch, tables
 
 
 def _out_f32(name, q, out_dtype) -> bool:
@@ -288,25 +324,29 @@ def _out_f32(name, q, out_dtype) -> bool:
 
 
 def _launch_fwd(q, k, v, o, lse, m, l, causal, q_off, k_off, window, q_seg,
-                k_seg):
+                k_seg, id_tables):
     """One launch of the forward kernel in the mode its outputs select."""
     B, Tq, H, D = q.shape
-    q_ids, k_ids = _ids(q_seg), _ids(k_seg)
+    q_ids, k_ids, scratch, tables = _seg_args("flash_fwd", q, k, q_seg,
+                                              k_seg, id_tables)
     lib = _build.load("flash_attention")
     with torch.cuda.device(q.device):
         err = lib.hvd_flash_fwd(
             _DTYPE_CODE[q.dtype], D, B, H, Tq, k.shape[1], q.data_ptr(),
             k.data_ptr(), v.data_ptr(), o.data_ptr(), _ptr(lse), _ptr(m),
-            _ptr(l), _ptr(q_ids), _ptr(k_ids), _strides(q, k, v, o),
-            int(causal), q_off, k_off, window or 0, _scale(q), _stream(q))
+            _ptr(l), _ptr(q_ids), _ptr(k_ids), _ptr(scratch),
+            _strides(q, k, v, o), int(causal), q_off, k_off, window or 0,
+            _scale(q), _stream(q))
     _build.check(lib, err, "flash_fwd")
+    tables.built = scratch is not None
 
 
 def flash_fwd(q, k, v, causal=True, q_off=0, k_off=0, window=None,
-              q_seg=None, k_seg=None, with_lse=False
+              q_seg=None, k_seg=None, with_lse=False, id_tables=None
               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Attention forward: (O [B,Tq,H,D] in q's dtype, lse fp32 [B,H,Tq]
-    when ``with_lse`` (the train mode), else None)."""
+    when ``with_lse`` (the train mode), else None). ``id_tables``: an
+    ``IdTables`` of these ids to build (or read) the tables in."""
     if not _use_kernel("flash_fwd", q, k, v, q_seg=q_seg, k_seg=k_seg):
         return flash_fwd_plain(q, k, v, causal, q_off, k_off, window, q_seg,
                                k_seg, with_lse)
@@ -315,17 +355,17 @@ def flash_fwd(q, k, v, causal=True, q_off=0, k_off=0, window=None,
     lse = (torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
            if with_lse else None)
     _launch_fwd(q, k, v, o, lse, None, None, causal, q_off, k_off, window,
-                q_seg, k_seg)
+                q_seg, k_seg, id_tables)
     _launched("flash_fwd_train" if with_lse else "flash_fwd", q_seg)
     return o, lse
 
 
 def flash_fwd_state(q, k, v, causal=True, q_off=0, k_off=0, window=None,
-                    q_seg=None, k_seg=None
+                    q_seg=None, k_seg=None, id_tables=None
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The forward's state mode, one K/V block's unmerged online-softmax
     state: (acc fp32 [B,Tq,H,D] unnormalized, m and l fp32 [B,H,Tq]). A
-    block with no visible key gives acc = 0, m = -1e30, l = 0."""
+    row with no visible key gives acc = 0, m = -1e30, l = 0."""
     if not _use_kernel("flash_fwd_state", q, k, v, q_seg=q_seg, k_seg=k_seg):
         return flash_fwd_state_plain(q, k, v, causal, q_off, k_off, window,
                                      q_seg, k_seg)
@@ -334,14 +374,14 @@ def flash_fwd_state(q, k, v, causal=True, q_off=0, k_off=0, window=None,
     m, l = torch.empty((2, B, H, Tq), dtype=torch.float32,
                        device=q.device).unbind(0)
     _launch_fwd(q, k, v, acc, None, m, l, causal, q_off, k_off, window,
-                q_seg, k_seg)
+                q_seg, k_seg, id_tables)
     _launched("flash_fwd_state", q_seg)
     return acc, m, l
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, causal=True, q_off=0, k_off=0,
                  window=None, q_seg=None, k_seg=None,
-                 out_dtype=None) -> torch.Tensor:
+                 out_dtype=None, id_tables=None) -> torch.Tensor:
     """dQ [B,Tq,H,D] in ``out_dtype`` (default q's dtype; float32 for the
     ring's accumulation) from the saved lse and delta."""
     if not _use_kernel("flash_bwd_dq", q, k, v, do, lse, delta, q_seg=q_seg,
@@ -352,9 +392,9 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal=True, q_off=0, k_off=0,
     out_f32 = _out_f32("flash_bwd_dq", q, out_dtype)
     B, Tq, H, D = q.shape
     dq = torch.empty(q.shape, dtype=out_dtype or q.dtype, device=q.device)
-    q_ids, k_ids = _ids(q_seg), _ids(k_seg)
+    q_ids, k_ids, scratch, tables = _seg_args("flash_bwd_dq", q, k, q_seg,
+                                              k_seg, id_tables)
     lib = _build.load("flash_attention")
-    scratch = _id_scratch(q, k, q_seg)
     with torch.cuda.device(q.device):
         err = lib.hvd_flash_bwd_dq(
             _DTYPE_CODE[q.dtype], D, B, H, Tq, k.shape[1], q.data_ptr(),
@@ -363,14 +403,15 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal=True, q_off=0, k_off=0,
             _ptr(scratch), _strides(q, k, v, do, dq), int(out_f32),
             int(causal), q_off, k_off, window or 0, _scale(q), _stream(q))
     _build.check(lib, err, "flash_bwd_dq")
+    tables.built = scratch is not None
     _launched("flash_bwd_dq_f32" if out_dtype == torch.float32
               else "flash_bwd_dq", q_seg)
     return dq
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, causal=True, q_off=0, k_off=0,
-                  window=None, q_seg=None, k_seg=None, out_dtype=None
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+                  window=None, q_seg=None, k_seg=None, out_dtype=None,
+                  id_tables=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dK, dV) [B,Tk,H,D] in ``out_dtype`` (default k's/v's dtype) from
     the saved lse and delta."""
     if not _use_kernel("flash_bwd_dkv", q, k, v, do, lse, delta,
@@ -382,9 +423,9 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal=True, q_off=0, k_off=0,
     B, Tq, H, D = q.shape
     dk = torch.empty(k.shape, dtype=out_dtype or k.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=out_dtype or v.dtype, device=q.device)
-    q_ids, k_ids = _ids(q_seg), _ids(k_seg)
+    q_ids, k_ids, scratch, tables = _seg_args("flash_bwd_dkv", q, k, q_seg,
+                                              k_seg, id_tables)
     lib = _build.load("flash_attention")
-    scratch = _id_scratch(q, k, q_seg)
     with torch.cuda.device(q.device):
         err = lib.hvd_flash_bwd_dkv(
             _DTYPE_CODE[q.dtype], D, B, H, Tq, k.shape[1], q.data_ptr(),
@@ -394,6 +435,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal=True, q_off=0, k_off=0,
             int(out_f32), int(causal), q_off, k_off, window or 0, _scale(q),
             _stream(q))
     _build.check(lib, err, "flash_bwd_dkv")
+    tables.built = scratch is not None
     _launched("flash_bwd_dkv_f32" if out_dtype == torch.float32
               else "flash_bwd_dkv", q_seg)
     return dk, dv
@@ -411,14 +453,16 @@ def kernel_ready(t: torch.Tensor) -> torch.Tensor:
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Training attention: the forward saves lse; the backward computes
-    delta = rowsum(dO * O) in fp32 as plain torch (it lies outside the
-    Pallas kernels in the JAX package too), then launches dQ and dK/dV."""
+    """Training attention: the forward saves lse (and, with ids, the id
+    tables it built); the backward computes delta = rowsum(dO * O) in fp32
+    as plain torch (it lies outside the Pallas kernels in the JAX package
+    too), then launches dQ and dK/dV on the forward's tables."""
 
     @staticmethod
     def forward(ctx, q, k, v, q_seg, k_seg, causal, q_off, k_off, window):
+        ctx.tables = IdTables(q, k, q_seg) if q_seg is not None else None
         o, lse = flash_fwd(q, k, v, causal, q_off, k_off, window, q_seg,
-                           k_seg, with_lse=True)
+                           k_seg, with_lse=True, id_tables=ctx.tables)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.segs = (q_seg, k_seg)
         ctx.args = (causal, q_off, k_off, window)
@@ -432,9 +476,9 @@ class _FlashAttention(torch.autograd.Function):
         delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
         do = kernel_ready(do)
         dq = flash_bwd_dq(q, k, v, do, lse, delta, causal, q_off, k_off,
-                          window, q_seg, k_seg)
+                          window, q_seg, k_seg, id_tables=ctx.tables)
         dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal, q_off, k_off,
-                               window, q_seg, k_seg)
+                               window, q_seg, k_seg, id_tables=ctx.tables)
         return dq, dk, dv, None, None, None, None, None, None
 
 
@@ -496,6 +540,8 @@ def flash_attention_block_grads(q, k, v, do, lse, delta, q_off, k_off,
     _check_window(window, causal)
     args = (q, k, v, do, lse, delta, causal, q_off, k_off, window,
             q_segment_ids, k_segment_ids)
-    dq = flash_bwd_dq(*args, out_dtype=torch.float32)
-    dk, dv = flash_bwd_dkv(*args, out_dtype=torch.float32)
+    tables = (IdTables(q, k, q_segment_ids) if q_segment_ids is not None
+              else None)
+    dq = flash_bwd_dq(*args, out_dtype=torch.float32, id_tables=tables)
+    dk, dv = flash_bwd_dkv(*args, out_dtype=torch.float32, id_tables=tables)
     return dq, dk, dv

@@ -39,6 +39,7 @@ about a minute marked ``slow``.
 """
 
 import importlib.util
+import math
 import os
 import subprocess
 import sys
@@ -483,7 +484,7 @@ def test_core_phase_on_the_cpu(monkeypatch, capsys):
 @pytest.mark.parametrize("name", ["ids-padding", "ids-recurring",
                                   "ids-short-docs", "ids-tile-edges",
                                   "ids-ragged-offsets", "ids-window",
-                                  "ids-batch-one"])
+                                  "ids-batch-one", "ids-rows-without-keys"])
 def test_id_patterns_refuse_their_faults(name):
     """Phase (b)'s id patterns: each is what its comment says (ids of
     every global position the case reads), and the plain versions that
@@ -541,6 +542,29 @@ def test_id_patterns_hold_what_they_name():
     one, kw = pats["ids-batch-one"]
     assert kw["B"] == 1 and len(one) == kw["T"] and -(-kw["T"] // 64) % 2
     assert len(np.unique(one)) >= 3
+    # a past block: the middle query document has no key, so the rows of
+    # the forward's CTAs 2 to 5 (rows 256..767) see none; the last rows'
+    # document has keys, so a dropped last q tile moves dK/dV
+    ids, kw = pats["ids-rows-without-keys"]
+    assert kw["q_off"] == kw["Tk"] and len(ids) == kw["q_off"] + kw["T"]
+    q_ids, k_ids = ids[kw["q_off"]:], ids[:kw["Tk"]]
+    without = ~np.isin(q_ids, k_ids)
+    assert without[256:768].all() and not without[:128].any()
+    assert not without[-64:].any() and kw["T"] % 128 and kw["Tk"] % 128
+
+
+def test_rel_err_holds_the_rows_without_keys_exactly():
+    """The value of a row with no key (lse +1e30, m -1e30) must come back
+    exactly, and stays out of the norms: beside it the other rows'
+    error still shows."""
+    cs = _chip_smoke()
+    want = torch.tensor([1e30, 2.0, 4.0, -1e30])
+    assert cs.rel_err(want.clone(), want) == 0.0
+    near = torch.tensor([1e30, 2.0, 4.4, -1e30])
+    assert abs(cs.rel_err(near, want) - 0.4 / 20 ** 0.5) < 1e-7
+    assert cs.rel_err(torch.tensor([9.0, 2.0, 4.0, -1e30]), want) == math.inf
+    assert cs.rel_err(torch.tensor([1e30, 2.0, 4.0, -1e30]),
+                      torch.tensor([1e30, 2.0, 4.0, 3.0])) > 1e20
 
 
 def test_same_outputs_reads_bits():

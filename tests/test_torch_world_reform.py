@@ -9,16 +9,22 @@ wait for the lost world's groups to be torn down.
 - In a world of two, rank 0's store listens on its port again while the
   old world's default group is still alive: the groups hold a client of
   their own, and ``shutdown`` closes the server. The old group, held by
-  the caller, is torn down once the caller lets it go.
+  the caller, is torn down once the caller lets it go. A rank that hangs
+  there has its Python stacks dumped (faulthandler on SIGUSR1) into the
+  failure, beside both ranks' output.
 
 Each case runs in processes of its own: it changes torch's tables.
 """
 
 import json
 import os
+import signal
 import subprocess
 import sys
 import textwrap
+import time
+
+import pytest
 
 from horovod_tpu_torch.common.config import free_port_pair
 from proc_harness import REPO
@@ -73,7 +79,8 @@ _SLOW_TEARDOWN = REFUSE_JAX + textwrap.dedent("""
 """)
 
 _OLD_GROUP_ALIVE = REFUSE_JAX + textwrap.dedent("""
-    import json, os, sys, time
+    import faulthandler, json, os, signal, sys, time
+    faulthandler.register(signal.SIGUSR1, all_threads=True)
     sys.path.insert(0, sys.argv[1])
     import torch
     import torch.distributed as dist
@@ -106,6 +113,25 @@ _OLD_GROUP_ALIVE = REFUSE_JAX + textwrap.dedent("""
     if error is None:
         state.shutdown()
 """)
+
+
+def _fail_with_stacks(procs):
+    """A rank ran past its time: dump the Python stacks of every rank still
+    running (SIGUSR1, which the case's faulthandler answers), then fail
+    with each rank's exit code and the ends of its output."""
+    for p in procs:
+        if p.poll() is None:
+            p.send_signal(signal.SIGUSR1)
+    time.sleep(2.0)
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+    report = []
+    for rank, p in enumerate(procs):
+        out, err = p.communicate()
+        report.append(f"rank {rank} (exit {p.returncode}):\n{out[-3000:]}\n"
+                      f"{err[-12000:]}")
+    pytest.fail("a rank did not finish within 150 s\n" + "\n".join(report))
 
 
 def _result(out):
@@ -149,6 +175,8 @@ def test_the_new_store_listens_while_the_old_group_is_alive(tmp_path):
             stdout=subprocess.PIPE, stderr=subprocess.PIPE))
     try:
         outs = [p.communicate(timeout=150) for p in procs]
+    except subprocess.TimeoutExpired:
+        _fail_with_stacks(procs)
     finally:
         for p in procs:
             if p.poll() is None:
