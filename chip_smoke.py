@@ -15,8 +15,10 @@ failure exits nonzero:
     for sm_90a into ``build/horovod_tpu_torch/`` (the native core of
     ``csrc/hvd`` with g++ beside them), with each kernel's
     registers and spill bytes (``-Xptxas -v``) and HGMMA instructions
-    (``cuobjdump -sass``) logged, and the forward's key tile in the
-    library held equal to ``FWD_KEY_TILE``.
+    (``cuobjdump -sass``) logged for every instantiation (the three tile
+    widths 64, 128 and 256 of each kernel, with and without segment ids),
+    the build's seconds, and the forward's key tile in the library held
+    equal to ``FWD_KEY_TILE`` at each tile width.
 (b) kernels: every mode of each kernel (forward plain, train and state;
     dQ and dK/dV in the input dtype and in fp32) against its plain
     PyTorch version on the card, by normwise relative error — at the
@@ -51,7 +53,15 @@ failure exits nonzero:
     documents and the library on the same boolean mask, rows of the
     kernel line as ``<mode>_seg``, the ring modes' with their
     ``past_block`` timings) and ragged fp32, where ignoring the ids must
-    be refused.
+    be refused. Then the head dims the tile widths serve
+    (``head_dim_cases``): every mode in bf16 at D 32, 80, 96, 160 and 256
+    (ragged with offsets and the planted faults, and windowed), fp32 at 80
+    and 256 and ``id_patterns`` at 80 and 256, each reading q/k/v/dO and
+    writing its outputs through views of [B, T, H, D + 8] buffers whose
+    spare columns hold NaN, checked after every launch; D 20 through the
+    wrappers' zero-padded copies (counted), with ``flash_attention``'s
+    gradients; D 320 and fp16 raising; every mode timed at (c)'s width
+    runs' shapes, rows ``<mode>_d128`` and ``<mode>_d256``.
 (c) the slice: a small transformer's loss and gradients through the
     kernels against the same model on the CPU; then the GPT-2-small-class
     trainer (12 layers, d_model 768, T 1024, bf16, batch 8) for 2 warm-up
@@ -62,6 +72,12 @@ failure exits nonzero:
     tolerance of the first run's and every later loss within 1 % of the
     distance the first run's fell, lower peak memory, the forward's train
     mode launched twice per layer and step (the recompute), and a profile.
+    Then the width runs (``width_runs``): ``transformer_bench.run`` at
+    Pythia-2.8B's width (d_model 2560, 32 heads of 80) and Pythia-1B's
+    (2048, 8 heads of 256), 2 layers, RoPE, T 2048, batch 4, bf16, AdamW,
+    1 + 3 steps and a no-grad forward: losses finite and falling, launches
+    as the layers and steps say, no layout copy, tokens/s, step ms and
+    peak memory.
 (e) sp on the card: two worker processes on cuda:0 form an NCCL world
     (each its own ``NCCL_HOSTID``, so NCCL's duplicate-GPU check, which
     compares host hashes, lets two ranks share one card; sockets over
@@ -291,9 +307,10 @@ failure exits nonzero:
     d=1 (ResNet-50, batch 32, 224 px, 2 + 10 steps; (f)'s images/s
     printed beside it), each ``python -m`` from the checkout; then in
     this process ``examples.synthetic_benchmark --num-iters 5``,
-    ``tools.kernel_bench`` at T 2048 and 4096, again with ``--packed 4``
-    (every numerics check passing), and ``tools.profile_resnet --model
-    resnet50 --steps 3`` (a summary with op rows).
+    ``tools.kernel_bench`` at T 2048 and 4096, again with ``--packed 4``,
+    and at head dim 80 (every numerics check passing), and
+    ``tools.profile_resnet --model resnet50 --steps 3`` (a summary with op
+    rows).
 (d) the kernel table as one JSON line (the segment-id rows with (p)'s
     launches), the card's name and power limit, and last the result line
     ``{"ok": true, "device": {...}}``.
@@ -339,8 +356,10 @@ TOLERANCE = {"torch.bfloat16": 5e-3, "torch.float32": 1e-5}
 ROW_STATS = ("lse", "m", "l")
 # Keys (rows of q for dK/dV) that a planted last-tile fault drops: the
 # smallest tile any kernel loops over, so a kernel whose loop ends one tile
-# early loses at least this many.
-DROPPED = 64
+# early loses at least this many; DROPPED_NARROW where a kernel streams
+# 32-row tiles (bf16 at the 256 tile width: dQ's keys, dK/dV's queries;
+# fp32 above the 64 tile width).
+DROPPED, DROPPED_NARROW = 64, 32
 # The bf16 limit cannot tell an fp32 output from one rounded through bf16:
 # the plain versions keep P and dS in fp32 (P rounded only against the
 # final row max), and that alone reads ~1.7e-3, as much as rounding the
@@ -627,7 +646,8 @@ def check_modes(label, calls, in_dtype, rounded=None):
         outs = dict(zip(OUTPUTS[mode], got))
         exact = {}
         q = rounded[0]
-        tile = fa.FWD_KEY_TILE[(q.dtype, q.shape[-1])]
+        tile = fa.FWD_KEY_TILE[(q.dtype,
+                                fa.kernel_layout(q.shape[-1], q.dtype)[0])]
         for out, w in zip(F32_OUTPUTS[mode],
                           rounded_plain(mode, *rounded[:6], rounded[6], tile)):
             exact[f"{mode} {out}"] = w
@@ -665,16 +685,24 @@ def dropped_tile_faults(q, k, v, do, lse, delta, kw, names):
     """The plain versions with the last tile of the inner loop dropped,
     as a kernel whose loop ends one tile early would compute them (for
     dK/dV the last q-tile)."""
+    import torch
+
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    tile = fa.kernel_layout(q.shape[-1], q.dtype)[0]
+    wide = tile == 64 or (q.dtype == torch.bfloat16 and tile == 128)
+    drop = DROPPED if wide else DROPPED_NARROW
+
     def cut(ids):
-        return None if ids is None else ids[:, :-DROPPED].contiguous()
+        return None if ids is None else ids[:, :-drop].contiguous()
 
     kw_k = dict(kw, k_seg=cut(kw.get("k_seg")))
     kw_q = dict(kw, q_seg=cut(kw.get("q_seg")))
-    short = modes(q, k[:, :-DROPPED], v[:, :-DROPPED], do, lse, delta, kw_k,
+    short = modes(q, k[:, :-drop], v[:, :-drop], do, lse, delta, kw_k,
                   [n for n in names if "dkv" not in n])
-    short.update(modes(q[:, :-DROPPED], k, v, do[:, :-DROPPED],
-                       lse[..., :-DROPPED].contiguous(),
-                       delta[..., :-DROPPED].contiguous(), kw_q,
+    short.update(modes(q[:, :-drop], k, v, do[:, :-drop],
+                       lse[..., :-drop].contiguous(),
+                       delta[..., :-drop].contiguous(), kw_q,
                        [n for n in names if "dkv" in n]))
     return {f"{mode} {out}": t for mode, (_, plain) in short.items()
             for out, t in zip(OUTPUTS[mode], plain())}
@@ -861,9 +889,84 @@ def case_inputs(B, T, Tk, H, D, dtype, fused, seed=0):
     return q, k, v, randn(T)
 
 
+# Spare columns of (b)'s sentinel buffers: a [B, T, H, D] operand or output
+# is a view of a [B, T, H, D + SPARE] buffer whose spare columns hold NaN.
+SPARE = 8
+
+
+def sentinel_view(shape, dtype, fill=None):
+    """A [B, T, H, D] view on the card of a [B, T, H, D + SPARE] buffer of
+    NaN, with ``fill`` copied into it."""
+    import torch
+
+    buf = torch.full((*shape[:3], shape[3] + SPARE), math.nan, dtype=dtype,
+                     device="cuda")
+    view = buf[..., :shape[3]]
+    if fill is not None:
+        view.copy_(fill)
+    return view
+
+
+def sentinel_modes(q, k, v, do, lse, delta, kw, names=OUTPUTS):
+    """``modes`` with each kernel call launched by the wrappers' launch
+    helpers (``fa._launch_fwd``, ``_launch_dq``, ``_launch_dkv``) on
+    q/k/v/dO as ``sentinel_view``s, writing its [B, T, H, D] outputs into
+    fresh ``sentinel_view``s: after each launch every spare column of
+    every operand and output must still be NaN, or the call raises. In
+    [B, T, H, D] a column past D is the next head's, so a kernel that
+    stores past D shows here, and one that reads past D gives NaN."""
+    import torch
+
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    B, Tq, H, D = q.shape
+    Tk, f32 = k.shape[1], torch.float32
+    qs, ks, vs, dos = (sentinel_view(x.shape, x.dtype, x)
+                       for x in (q, k, v, do))
+    args = dict(causal=kw["causal"], q_off=kw["q_off"], k_off=kw["k_off"],
+                window=kw["window"], q_seg=kw.get("q_seg"),
+                k_seg=kw.get("k_seg"), id_tables=None, scale=D ** -0.5)
+
+    def rows(dtype, T=Tq):
+        return sentinel_view((B, T, H, D), dtype)
+
+    def launch(mode):
+        out_dt = f32 if mode.endswith("_f32") else q.dtype
+        if mode in ("flash_fwd", "flash_fwd_train"):
+            o = rows(q.dtype)
+            lse_o = (torch.empty((B, H, Tq), dtype=f32, device="cuda")
+                     if mode == "flash_fwd_train" else None)
+            fa._launch_fwd(qs, ks, vs, o, lse_o, None, None, **args)
+            outs = (o,) if lse_o is None else (o, lse_o)
+        elif mode == "flash_fwd_state":
+            acc = rows(f32)
+            m, l = torch.empty((2, B, H, Tq), dtype=f32,
+                               device="cuda").unbind(0)
+            fa._launch_fwd(qs, ks, vs, acc, None, m, l, **args)
+            outs = (acc, m, l)
+        elif mode.startswith("flash_bwd_dq"):
+            outs = (rows(out_dt),)
+            fa._launch_dq(qs, ks, vs, dos, lse, delta, *outs, **args)
+        else:
+            outs = (rows(out_dt, Tk), rows(out_dt, Tk))
+            fa._launch_dkv(qs, ks, vs, dos, lse, delta, *outs, **args)
+        stomped = [i for i, t in enumerate((qs, ks, vs, dos, *outs))
+                   if t.dim() == 4 and
+                   not bool(torch.isnan(t._base[..., D:]).all())]
+        if stomped:
+            raise AssertionError(f"{mode}: the NaN in the spare columns of "
+                                 f"tensors {stomped} (q, k, v, dO, then the "
+                                 f"outputs) was overwritten")
+        return outs
+
+    plain = modes(q, k, v, do, lse, delta, kw, names)
+    return {m: ((lambda m=m: launch(m)), plain[m][1]) for m in names}
+
+
 def kernel_case(label, B, T, H, D, dtype, causal, window=None, Tk=None,
                 q_off=0, k_off=0, fused=False, timing=False, segments=0,
-                packed_over=0, ids=None, faults=False, timed=None):
+                packed_over=0, ids=None, faults=False, timed=None,
+                sentinel=False):
     """Every kernel mode against its plain version on one shape; with
     ``fused`` q/k/v are views of one [B, T, 3, H, D] tensor, as the
     model's qkv projection gives them; with ``segments`` that many
@@ -873,17 +976,21 @@ def kernel_case(label, B, T, H, D, dtype, causal, window=None, Tk=None,
     positions (``id_patterns``), and the plain versions without them as a
     fault the comparison must refuse; with ``faults`` the planted
     last-tile faults; with ``timing`` the time of
-    every mode in ``timed`` (default all). Returns {kernel: row} for the
+    every mode in ``timed`` (default all); with ``sentinel`` every kernel
+    launch through ``sentinel_modes`` (NaN past column D of every operand
+    and output, checked after each launch). Returns {kernel: row} for the
     table."""
     import torch
 
     Tk = Tk or T
     if ids is not None:
         segments = len(set(ids))
+    layout = ("views of one [B,T,3,H,D]" if fused else
+              f"views of [B,T,H,D+{SPARE}] NaN-sentinel buffers, outputs "
+              f"too" if sentinel else "contiguous")
     log(f"case {label}: B={B} Tq={T} Tk={Tk} H={H} D={D} {dtype} "
         f"causal={causal} window={window} q_off={q_off} k_off={k_off} "
-        f"segments={segments} q/k/v "
-        f"{'views of one [B,T,3,H,D]' if fused else 'contiguous'}")
+        f"segments={segments} q/k/v {layout}")
     q, k, v, do = case_inputs(B, T, Tk, H, D, dtype, fused)
     kw = dict(causal=causal, q_off=q_off, k_off=k_off, window=window)
     if segments:
@@ -907,7 +1014,8 @@ def kernel_case(label, B, T, H, D, dtype, causal, window=None, Tk=None,
     o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, with_lse=True, **kw)
     delta = (do.float() * o_ref.float()).sum(-1).transpose(1, 2).contiguous()
     args = (q, k, v, do, lse_ref, delta)
-    errs, refs = check_modes(label, modes(*args, kw), dtype,
+    calls = (sentinel_modes if sentinel else modes)(*args, kw)
+    errs, refs = check_modes(label, calls, dtype,
                              (*args, kw) if dtype == torch.bfloat16 else None)
     if segments:
         empty_rows(q, k, v, kw)
@@ -945,6 +1053,8 @@ def kernel_case(label, B, T, H, D, dtype, causal, window=None, Tk=None,
         pairs = B * H * visible_pairs(T, Tk, causal, q_off, k_off, window)
         if window is None and q_off == k_off:
             fwd, bwd = sdpa_times(q, k, v, do, causal)
+            if "flash_fwd_state" in (timed or OUTPUTS):
+                library["flash_fwd_state"] = sdpa_state_ms(q, k, v, causal)
     if fwd is not None:
         library.update({"flash_fwd": fwd, "flash_fwd_train": fwd,
                         "flash_bwd_dq": bwd, "flash_bwd_dkv": bwd,
@@ -1079,18 +1189,19 @@ def forward_tiles(q_ids, k_ids, causal, q_off=0, k_off=0, window=None):
     return computed, one_id, streamed, in_range
 
 
-def id_pattern_cases():
+def id_pattern_cases(dims=(64, 128), sentinel=False):
     """Every mode with each of ``id_patterns`` against its plain version,
-    bf16 at D 64 and 128 (B=2 unless the pattern says, 4 heads), ignoring
-    the ids and dropping the last tile refused."""
+    bf16 at each head dim of ``dims`` (B=2 unless the pattern says, 4
+    heads), ignoring the ids and dropping the last tile refused; with
+    ``sentinel`` through ``sentinel_modes``."""
     import torch
 
     for label, (ids, kw) in id_patterns().items():
         kw = dict(kw)
         T, causal, B = kw.pop("T"), kw.pop("causal"), kw.pop("B", 2)
-        for D in (64, 128):
+        for D in dims:
             kernel_case(f"{label}-d{D}", B, T, 4, D, torch.bfloat16, causal,
-                        ids=ids, faults=True, **kw)
+                        ids=ids, faults=True, sentinel=sentinel, **kw)
 
 
 def bits(t):
@@ -1937,6 +2048,74 @@ def expected_launches(layers, steps, remat=False, microbatches=1):
     n = layers * steps * microbatches
     return {"flash_fwd": 0, "flash_fwd_train": n * (2 if remat else 1),
             "flash_bwd_dq": n, "flash_bwd_dkv": n}
+
+
+# (c)'s width runs: the decoder at two public models' widths (Biderman et
+# al. 2023, Pythia, Table 1; EleutherAI/pythia-2.8b and pythia-1b
+# config.json, hidden_size / num_attention_heads): (d_model, heads), head
+# dims 80 and 256; d_ff 4 d_model and vocab 50304 as the repo's decoder
+# takes them, depth cut from 32 and 16 layers to WIDTH_LAYERS.
+WIDTHS = {"pythia-2.8b": (2560, 32), "pythia-1b": (2048, 8)}
+WIDTH_LAYERS, WIDTH_STEPS = 2, (1, 3)   # layers; warm-up and timed steps
+WIDTH_FLAGS = ["--n-layers", str(WIDTH_LAYERS), "--seq-len", "2048",
+               "--batch-size", "4", "--rope",
+               "--num-warmup", str(WIDTH_STEPS[0]),
+               "--num-iters", str(WIDTH_STEPS[1])]
+
+
+def width_runs(gpu):
+    """(c)'s width runs: ``transformer_bench.run`` at each of WIDTHS (bf16,
+    AdamW, RoPE, T 2048, batch 4, size 1), then one no-grad forward. Losses
+    finite and falling, the kernels launched as ``expected_launches`` says
+    (the no-grad forward's plain mode once a layer), and no layout copy.
+    Returns {"<mode>_d<tile width>": launches} for the kernel line."""
+    import torch
+
+    from horovod_tpu_torch import transformer_bench
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    counts = {}
+    for name, (d_model, heads) in WIDTHS.items():
+        D = d_model // heads
+        tile = fa.kernel_layout(D, torch.bfloat16)[0]
+        args = transformer_bench.parse_args(
+            ["--d-model", str(d_model), "--n-heads", str(heads),
+             *WIDTH_FLAGS])
+        fa.reset_launches()
+        run = transformer_bench.run(args)
+        train = dict(fa.LAUNCHES)
+        with torch.no_grad():
+            logits = run.model(run.tokens)
+        torch.cuda.synchronize()
+        launches, copies = dict(fa.LAUNCHES), dict(fa.LAYOUT_COPIES)
+        res = run.result
+        log(f"    {name} (d_model {d_model}, {heads} heads of {D}, tile "
+            f"width {tile}, {WIDTH_LAYERS} layers, {res['n_params']} "
+            f"parameters): losses {[round(x, 4) for x in run.losses]}; "
+            f"{res['value']} tokens/s, step {res['step_ms']} ms, peak memory "
+            f"{run.peak_mem_bytes / 2**30:.2f} GiB, MFU {res.get('mfu')} on "
+            f"{gpu}; launches {launches}; layout copies {copies}")
+        want = expected_launches(WIDTH_LAYERS, sum(WIDTH_STEPS))
+        got = {k: train[k] for k in want}
+        if got != want:
+            raise AssertionError(f"{name}: launches {got}, expected {want}")
+        if launches["flash_fwd"] != WIDTH_LAYERS:
+            raise AssertionError(f"{name}: the no-grad forward launched "
+                                 f"{launches['flash_fwd']} plain forwards")
+        if any(copies.values()):
+            raise AssertionError(f"{name}: layout copies {copies}, "
+                                 f"expected none")
+        if not all(math.isfinite(x) for x in run.losses) or \
+                not run.losses[-1] < run.losses[0]:
+            raise AssertionError(f"{name}: losses {run.losses} not finite "
+                                 f"and falling")
+        if logits.shape != (args.batch_size, args.seq_len, args.vocab) or \
+                not torch.isfinite(logits).all():
+            raise AssertionError(f"{name}: bad no-grad logits")
+        counts.update({f"{m}_d{tile}": launches[m] for m in OUTPUTS})
+        del run, logits
+        torch.cuda.empty_cache()
+    return counts
 
 
 def per_layer(leaves):
@@ -5959,7 +6138,8 @@ def tools_phase(gpu, resnet50_img_s):
         raise AssertionError("synthetic_benchmark: missing lines")
 
     for flags in (["--seq-lens", "2048,4096"],
-                  ["--seq-lens", "2048,4096", "--packed", "4"]):
+                  ["--seq-lens", "2048,4096", "--packed", "4"],
+                  ["--seq-lens", "2048", "--dim", "80"]):
         log(f"  kernel_bench {' '.join(flags)}")
         out, _ = run_main("horovod_tpu_torch.tools.kernel_bench", *flags)
         summary = last_json(out)
@@ -6152,6 +6332,95 @@ def time_tree(tree, *flags):
     return 0
 
 
+def copy_path_case():
+    """Head dim 20 in bf16 (40-byte rows, not whole 16-byte words): each
+    wrapper copies its operands into contiguous buffers zero-padded to 24
+    columns (``LAYOUT_COPIES``, one per operand and launch), launches the
+    same kernels and slices the outputs. Every mode against its plain
+    version, then ``flash_attention``'s output and gradients through
+    autograd against the plain version's. Head dim 320 and fp16 inputs
+    raise, naming ROADMAP §A."""
+    import torch
+
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    bf16 = torch.bfloat16
+    fa.reset_launches()
+    kernel_case("d20-copied", 2, 1000, 4, 20, bf16, True, Tk=700, q_off=300,
+                faults=True)
+    n = fa.LAUNCHES
+    expect = {"flash_fwd": 3 * (n["flash_fwd"] + n["flash_fwd_train"]),
+              "flash_fwd_state": 3 * n["flash_fwd_state"],
+              "flash_bwd_dq": 4 * (n["flash_bwd_dq"] + n["flash_bwd_dq_f32"]),
+              "flash_bwd_dkv": 4 * (n["flash_bwd_dkv"] +
+                                    n["flash_bwd_dkv_f32"])}
+    log(f"  layout copies {fa.LAYOUT_COPIES} (one per operand and launch: "
+        f"{expect})")
+    if fa.LAYOUT_COPIES != expect or not all(expect.values()):
+        raise AssertionError(f"d20: layout copies {fa.LAYOUT_COPIES}, "
+                             f"expected {expect}")
+    q, k, v, do = case_inputs(2, 1000, 1000, 4, 20, bf16, False, seed=2)
+    got, want = [], []
+    for fn, out in ((fa.flash_attention, got),
+                    (lambda *a, **kw: fa.flash_fwd_plain(*a, **kw)[0], want)):
+        leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+        o = fn(*leaves, causal=True)
+        o.backward(do)
+        out += [o.detach(), *(x.grad for x in leaves)]
+    bad = []
+    for name, g, w in zip(("O", "dQ", "dK", "dV"), got, want):
+        compare(f"flash_attention {name}", g, w, TOLERANCE[str(bf16)], bad)
+    if bad:
+        raise AssertionError(f"d20: flash_attention through autograd "
+                             f"disagrees with the plain version: {bad}")
+    for shape, dt in (((1, 64, 2, 320), bf16), ((1, 64, 2, 64),
+                                                torch.float16)):
+        x = torch.zeros(shape, dtype=dt, device="cuda")
+        try:
+            fa.flash_attention(x, x, x)
+        except ValueError as e:
+            if "ROADMAP §A" not in str(e):
+                raise
+            log(f"  {dt} D={shape[-1]} raises: {e}")
+        else:
+            raise AssertionError(f"{dt} D={shape[-1]} did not raise")
+
+
+def head_dim_cases():
+    """(b)'s head dims other than 64 and 128: every mode at D 32, 80, 96,
+    160 (a 64-column box wholly past D) and 256 in bf16, ragged with
+    offsets and the planted last-tile faults, and with a window; fp32
+    ragged with offsets at 80 and 256; ``id_patterns`` at 80 and 256;
+    all through ``sentinel_modes``. Then D 20 through the copy path
+    (``copy_path_case``), and every mode timed at the width runs' shapes
+    in (c) (B 4, T 2048, causal, q/k/v views of one qkv tensor: 32 heads
+    of 80, 8 of 256), their rows named ``<mode>_d<tile width>``."""
+    import torch
+
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    for D in (32, 80, 96, 160, 256):
+        kernel_case(f"d{D}-ragged-offsets", 2, 1000, 4, D, bf16, True, Tk=700,
+                    q_off=300, faults=True, sentinel=True)
+        kernel_case(f"d{D}-window", 2, 1024, 4, D, bf16, True, window=256,
+                    sentinel=True)
+    for D in (80, 256):
+        kernel_case(f"ragged-fp32-d{D}-offsets", 1, 1000, 2, D, f32, True,
+                    Tk=700, q_off=300, sentinel=True)
+    id_pattern_cases(dims=(80, 256), sentinel=True)
+    copy_path_case()
+    rows = {}
+    for name, (d_model, heads) in WIDTHS.items():
+        D = d_model // heads
+        tile = fa.kernel_layout(D, bf16)[0]
+        timed = kernel_case(f"{name}-heads", 4, 2048, heads, D, bf16, True,
+                            fused=True, timing=True)
+        rows.update({f"{m}_d{tile}": dict(row, name=f"{m}_d{tile}")
+                     for m, row in timed.items()})
+    return rows
+
+
 def device_and_kernels(started):
     """Phases (a) and (b): the card, the build, and every kernel against
     its plain version. Returns (the card's line, {kernel: row} of the
@@ -6252,6 +6521,9 @@ def device_and_kernels(started):
     seg_table = segment_rows(ulysses, diagonal, past=past)
     kernel_case("segments-ragged-fp32", 2, 1000, 4, 128, torch.float32, True,
                 segments=4)
+    # Head dims other than 64 and 128, and the rows of every mode at the
+    # 128 and 256 tile widths (the shapes of (c)'s width runs).
+    table.update(head_dim_cases())
 
     return gpu, table, seg_table
 
@@ -6357,6 +6629,10 @@ def main():
     if not remat.peak_mem_bytes < plain_peak:
         raise AssertionError("--remat did not lower peak memory")
     del remat
+    torch.cuda.empty_cache()
+    # The decoder at head dims 80 and 256 (the 128 and 256 tile widths).
+    log(f"    width runs {since()}")
+    launches.update(width_runs(gpu))
     hvd.shutdown()
 
     # (e) sp on the card

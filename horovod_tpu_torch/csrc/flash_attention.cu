@@ -110,9 +110,27 @@
 //
 // fp32 inputs keep a simpler design by choice (fp32 stays fp32, with no
 // TF32 rounding; the model runs in bf16): one CTA owns one 64-row tile (32
-// rows at D=128) and loops over the tiles of the other dimension, each
-// warp a 16-row strip of every per-tile matrix, its products an FMA loop
-// through shared memory.
+// rows at D_T 128 and 256) and loops over the tiles of the other
+// dimension, each warp a 16-row strip of every per-tile matrix, its
+// products an FMA loop through shared memory.
+//
+// Head dims. Every kernel takes any head dim D from 1 to 256 (D a multiple
+// of 8 in bf16 and of 4 in fp32, so that a row is whole 16-byte words; the
+// wrapper pads a copy of other widths). Each is instantiated at three tile
+// widths D_T = 64, 128 and 256 and runs D at the smallest that holds it,
+// with the true D at run time: the bf16 tensor maps have D as their inner
+// extent, so TMA fills the columns of a tile past D with zeros (a 64-column
+// box wholly past D too), and the fp32 loads zero them; zero columns leave
+// every product exact. The softmax scale is the caller's (1/sqrt(D)), and
+// every store stops at column D: in [B, T, H, D] a column past D is the
+// next head's. At D_T = 256 the bf16 rows are 512 bytes and the tiles
+// shrink to fit 227 KB of shared memory and the consumers' 232 registers:
+// the forward streams 64-key tiles (Q 64 KB + two stages of K/V 128 KB),
+// dQ 32-key tiles (Q and dO 128 KB + 64 KB), and dK/dV, whose dK and dV
+// of 64 keys would take 256 registers a thread, gives both consumer
+// warpgroups the same 64 keys: each computes S^T and dP^T over the whole
+// head dim and owns half of dK and dV's columns, on 32-query tiles.
+// Products of N = 256 (P.V, dS.K) issue one m64n128k16 per half.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -135,24 +153,23 @@ struct Strides {
 };
 
 // One fp32 output row of D values from a fp32 shared row.
-template <int D>
-__device__ __forceinline__ void store_row(float* row, const float* src, int lane) {
+__device__ __forceinline__ void store_row(float* row, const float* src, int lane, int D) {
   for (int d = lane; d < D; d += 32) row[d] = src[d];
 }
 
 __host__ __device__ constexpr int align128(int x) { return (x + 127) & ~127; }
 
-// Tile geometry of the fp32 kernels. BM rows per tile (of Q and of K
-// alike); one warp per 16-row strip. Leading dimensions are padded against
-// bank conflicts.
-template <typename T, int D>
+// Tile geometry of the fp32 kernels at tile width DT. BM rows per tile (of
+// Q and of K alike); one warp per 16-row strip. Leading dimensions are
+// padded against bank conflicts.
+template <typename T, int DT>
 struct Cfg {
   static_assert(std::is_same<T, float>::value, "bf16 runs the sm90 kernels");
-  static constexpr int BM = D == 128 ? 32 : 64;
+  static constexpr int BM = DT == 64 ? 64 : 32;
   static constexpr int NW = BM / 16;
   static constexpr int NT = NW * 32;
-  static constexpr int LDT = D + 4;   // [BM][D] input tiles
-  static constexpr int LDF = D + 4;   // [BM][D] accumulators
+  static constexpr int LDT = DT + 4;  // [BM][DT] input tiles
+  static constexpr int LDF = DT + 4;  // [BM][DT] accumulators
   static constexpr int LDS = BM + 4;  // [BM][BM] scores
   static constexpr int LDP = BM + 4;  // [BM][BM] probabilities
   static constexpr int TILE = align128(BM * LDT * 4);
@@ -196,18 +213,20 @@ __device__ __forceinline__ void warp_gemm_nn(const T* A, int lda, const T* B, in
   __syncwarp();
 }
 
-// Rows [row0, row0 + BM) of one (b, h) slice into a [BM][ld] shared tile,
-// 16 bytes per thread per step; rows at or past `rows` are zero-filled.
-template <typename T, int D, int BM, int NT>
+// Rows [row0, row0 + BM) of one (b, h) slice into a [BM][ld] shared tile
+// of DT columns, 16 bytes per thread per step; rows at or past `rows` and
+// columns at or past D (a multiple of 16 bytes) are zero-filled.
+template <typename T, int DT, int BM, int NT>
 __device__ __forceinline__ void load_tile(T* dst, int ld, const T* base, long long st,
-                                          int row0, int rows) {
+                                          int row0, int rows, int D) {
   constexpr int VEC = 16 / (int)sizeof(T);
-  constexpr int CPR = D / VEC;
+  constexpr int CPR = DT / VEC;
   for (int c = threadIdx.x; c < BM * CPR; c += NT) {
     const int r = c / CPR, col = (c % CPR) * VEC;
     const int t = row0 + r;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (t < rows) val = *reinterpret_cast<const uint4*>(base + (long long)t * st + col);
+    if (t < rows && col < D)
+      val = *reinterpret_cast<const uint4*>(base + (long long)t * st + col);
     *reinterpret_cast<uint4*>(dst + r * ld + col) = val;
   }
 }
@@ -244,31 +263,40 @@ constexpr int WG = 128;  // threads of a warpgroup
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-// Tile geometry of the bf16 kernels at head dim D: two consumer
-// warpgroups of 64 rows each and one producer warpgroup.
-template <int D>
+// Tile geometry of the bf16 kernels at tile width DT (head dims up to
+// DT): two consumer warpgroups of 64 rows each and one producer warpgroup.
+template <int DT>
 struct Sm90Cfg {
+  static_assert(DT == 64 || DT == 128 || DT == 256, "tile widths 64, 128, 256");
   static constexpr int CW = 2;              // consumer warpgroups
   static constexpr int NT = (CW + 1) * WG;  // threads per CTA
   static constexpr int STAGES = 2;          // depth of the streamed-tile ring
-  static constexpr int ROW_BYTES = D * 2;   // one bf16 row
-  // Forward: FBM query rows per CTA, FBN keys per streamed tile.
+  static constexpr int ROW_BYTES = DT * 2;  // one bf16 row
+  // Forward: FBM query rows per CTA, FBN keys per streamed tile (64 at
+  // DT=256, so that Q and two stages of K/V fit 227 KB).
   static constexpr int FBM = 64 * CW;
-  static constexpr int FBN = 128;
+  static constexpr int FBN = DT == 256 ? 64 : 128;
   static constexpr int FWD_Q = FBM * ROW_BYTES;
   static constexpr int FWD_KV = FBN * ROW_BYTES;
   static constexpr int FWD_SMEM = FWD_Q + 2 * STAGES * FWD_KV + STAGES * FBN * 4 + 1024 + 1024;
   // dQ: QBM query rows per CTA, QBN keys per streamed tile. Consumers hold
-  // dQ (D / 2 floats), S and dP (QBN / 2 each) and the dS fragments
-  // (QBN / 4 words): 128-key tiles at D=128 would need ~224 and spill.
+  // dQ (DT / 2 floats), S and dP (QBN / 2 each) and the dS fragments
+  // (QBN / 4 words): 128-key tiles at D=128 would need ~224 and spill. At
+  // DT=256 Q and dO take 128 KB, so the K/V stages take 32 keys.
   static constexpr int QBM = 64 * CW;
-  static constexpr int QBN = D == 64 ? 128 : 64;
+  static constexpr int QBN = DT == 64 ? 128 : DT == 128 ? 64 : 32;
   static constexpr int DQ_Q = QBM * ROW_BYTES;
   static constexpr int DQ_KV = QBN * ROW_BYTES;
   static constexpr int DQ_SMEM = 2 * DQ_Q + 2 * STAGES * DQ_KV + STAGES * QBN * 4 + 1024 + 1024;
-  // dK/dV: BBN keys per CTA, BBQ queries per streamed tile.
-  static constexpr int BBN = 64 * CW;
-  static constexpr int BBQ = 64;
+  // dK/dV: BBN keys per CTA, BBQ queries per streamed tile; each consumer
+  // warpgroup holds DKV_N columns of dK and of dV. Below DT=256 each owns
+  // 64 keys and every column; at DT=256 (SPLIT) both own the same 64 keys
+  // and half the columns each, on 32-query tiles (registers: 64 + 64 for
+  // dK and dV, 16 + 16 for S^T and dP^T, 16 of fragments).
+  static constexpr bool SPLIT = DT == 256;
+  static constexpr int BBN = SPLIT ? 64 : 64 * CW;
+  static constexpr int BBQ = SPLIT ? 32 : 64;
+  static constexpr int DKV_N = SPLIT ? DT / CW : DT;
   static constexpr int DKV_KV = BBN * ROW_BYTES;
   static constexpr int DKV_Q = BBQ * ROW_BYTES;
   static constexpr int DKV_SMEM =
@@ -392,6 +420,14 @@ __device__ __forceinline__ int2 id_range(const IdTable& t, int b, int i) {
   return r;
 }
 
+// [min, max] of the ids of the N-token tile t of row b: the ranges of the
+// ID_TILE-token tiles that cover it (a tile of 32 takes its 64-token
+// tile's range, a superset, so its class errs towards comparing ids).
+template <int N>
+__device__ __forceinline__ int2 tile_ids(const IdTable& tab, int b, int t) {
+  return id_range<(N + ID_TILE - 1) / ID_TILE>(tab, b, t * N / ID_TILE);
+}
+
 // A streamed tile's class for each of the two consumer warpgroups, two
 // bits each from bit 2 w: ONE_ID, the tile and the warpgroup's rows all
 // carry one id (no compare); NO_PAIR, no id of the tile is in the rows'
@@ -479,13 +515,14 @@ __device__ __forceinline__ void tile_mask(float (&x)[N / 2], int lane, Ok ok) {
       if (!ok(8 * j + 2 * (lane % 4) + (e & 1), e >> 1)) x[4 * j + e] = -INFINITY;
 }
 
-// A [rows][D] bf16 tile at (row0, h, b) into shared memory as D / 64
-// swizzled [rows][64] tiles, one TMA box each.
-template <int D>
+// A [rows][DT] bf16 tile at (row0, h, b) into shared memory as DT / 64
+// swizzled [rows][64] tiles, one TMA box each; columns past the map's
+// head dim arrive as zeros, and each box counts its full bytes.
+template <int DT>
 __device__ __forceinline__ void tma_tile(bf16* dst, int rows, const CUtensorMap* map,
                                          uint64_t* bar, int h, int row0, int b) {
 #pragma unroll
-  for (int c = 0; c < D / 64; ++c)
+  for (int c = 0; c < DT / 64; ++c)
     hopper::tma_load_4d(dst + c * rows * 64, map, bar, 64 * c, h, row0, b);
 }
 
@@ -508,6 +545,23 @@ __device__ __forceinline__ void a_frag(uint32_t (&a)[4], const float (&x)[N], in
   for (int i = 0; i < 4; ++i) a[i] = hopper::pack_bf16(x[8 * kk + 2 * i], x[8 * kk + 2 * i + 1]);
 }
 
+// acc[64 x N] += A . B at k step kk: A a register fragment, B columns
+// [0, N) of a [rows][..] tile read MN-major. wgmma's N tops out at 128
+// here, so N = 256 issues one product per 128-column half (the halves'
+// accumulators are acc[0, 64) and acc[64, 128) in the wgmma layout).
+template <int N>
+__device__ __forceinline__ void mma_rs(float (&acc)[N / 2], const uint32_t (&a)[4],
+                                       const bf16* tile, int rows, int kk) {
+  if constexpr (N <= 128) {
+    hopper::wgmma_rs<N>(acc, a, mnmajor(tile, rows, kk));
+  } else {
+#pragma unroll
+    for (int half = 0; half < N / 128; ++half)
+      hopper::wgmma_rs<128>(*reinterpret_cast<float(*)[64]>(acc + 64 * half), a,
+                            mnmajor(tile + half * 2 * rows * 64, rows, kk));
+  }
+}
+
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -526,12 +580,14 @@ __device__ __forceinline__ void store2(void* row, int col, float x, float y, boo
         __floats2bfloat162_rn(x, y);
 }
 
-// A thread's two rows (t0 and t0 + 8) of a 64 x D accumulator in the
-// wgmma layout into a [B, T, H, D] output with strides `so`, in bf16 or
-// fp32; rows at or past T are not stored.
-template <int D>
+// A thread's two rows (t0 and t0 + 8) of a 64 x N accumulator in the
+// wgmma layout into columns [col0, col0 + N) of a [B, T, H, D] output with
+// strides `so`, in bf16 or fp32; rows at or past T and columns at or past
+// D (a multiple of 8: whole 8-column chunks) are not stored.
+template <int N>
 __device__ __forceinline__ void store_acc(void* out, Strides so, int b, int h, int t0, int T,
-                                          const float (&acc)[D / 2], bool f32, int lane) {
+                                          const float (&acc)[N / 2], bool f32, int lane,
+                                          int col0, int D) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int t = t0 + 8 * r;
@@ -539,15 +595,17 @@ __device__ __forceinline__ void store_acc(void* out, Strides so, int b, int h, i
     unsigned char* row = static_cast<unsigned char*>(out) +
                          (b * so.b + (long long)t * so.t + h * so.h) * (f32 ? 4 : 2);
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      store2(row, 8 * j + 2 * (lane % 4), acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1], f32);
+    for (int j = 0; j < N / 8; ++j)
+      if (col0 + 8 * j < D)
+        store2(row, col0 + 8 * j + 2 * (lane % 4), acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1],
+               f32);
   }
 }
 
 // The producer warp's K/V stream without ids: key tiles [lo, hi) of BN
 // keys through the ST stages of sK/sV, each stage handed to the consumers
 // on full[s] and taken back on empty[s].
-template <int D, int BN, int ST>
+template <int DT, int BN, int ST>
 __device__ __forceinline__ void stream_kv(bf16* sK, bf16* sV, uint64_t* full, uint64_t* empty,
                                           const CUtensorMap* mk, const CUtensorMap* mv, int b,
                                           int h, int lo, int hi, int lane) {
@@ -555,9 +613,9 @@ __device__ __forceinline__ void stream_kv(bf16* sK, bf16* sV, uint64_t* full, ui
     const int s = i % ST, k0 = (lo + i) * BN;
     if (i >= ST) hopper::mbar_wait(&empty[s], (i / ST - 1) & 1);
     if (lane == 0) {
-      hopper::mbar_expect_tx(&full[s], 2 * BN * D * 2);
-      tma_tile<D>(sK + s * BN * D, BN, mk, &full[s], h, k0, b);
-      tma_tile<D>(sV + s * BN * D, BN, mv, &full[s], h, k0, b);
+      hopper::mbar_expect_tx(&full[s], 2 * BN * DT * 2);
+      tma_tile<DT>(sK + s * BN * DT, BN, mk, &full[s], h, k0, b);
+      tma_tile<DT>(sV + s * BN * DT, BN, mv, &full[s], h, k0, b);
     } else {
       hopper::mbar_arrive(&full[s]);
     }
@@ -568,7 +626,7 @@ __device__ __forceinline__ void stream_kv(bf16* sK, bf16* sV, uint64_t* full, ui
 // [lo, hi) as stream_kv, each
 // stage's tile_class in sCls[s], and the tile's padded ids by one bulk
 // copy on full[s] where a consumer warpgroup compares them.
-template <int D, int BN, int ST, class F>
+template <int DT, int BN, int ST, class F>
 __device__ __forceinline__ void stream_kv_ids(bf16* sK, bf16* sV, int* sKid, int* sCls,
                                               uint64_t* full, uint64_t* empty,
                                               const CUtensorMap* mk, const CUtensorMap* mv,
@@ -582,9 +640,9 @@ __device__ __forceinline__ void stream_kv_ids(bf16* sK, bf16* sV, int* sKid, int
     if (lane == 0) {
       const bool ids = compares_ids(c);
       sCls[s] = c;
-      hopper::mbar_expect_tx(&full[s], 2 * BN * D * 2 + (ids ? BN * 4 : 0));
-      tma_tile<D>(sK + s * BN * D, BN, mk, &full[s], h, k0, b);
-      tma_tile<D>(sV + s * BN * D, BN, mv, &full[s], h, k0, b);
+      hopper::mbar_expect_tx(&full[s], 2 * BN * DT * 2 + (ids ? BN * 4 : 0));
+      tma_tile<DT>(sK + s * BN * DT, BN, mk, &full[s], h, k0, b);
+      tma_tile<DT>(sV + s * BN * DT, BN, mv, &full[s], h, k0, b);
       if (ids)
         hopper::bulk_load(sKid + s * BN, ktab.ids + (long long)b * ktab.pad + k0, BN * 4,
                           &full[s]);
@@ -600,16 +658,16 @@ __device__ __forceinline__ void stream_kv_ids(bf16* sK, bf16* sV, int* sKid, int
 // the online softmax for its 64 rows with S and O in registers. A CTA
 // that sees no key tile (a future block of the ring, or rows whose
 // documents have no key here) loads nothing and writes the empty rows.
-// Modes as in flash_fwd_kernel.
-template <int D, bool SEG>
-__global__ void __launch_bounds__(Sm90Cfg<D>::NT, 1)
+// Modes as in flash_fwd_kernel. DT: the tile width; D <= DT the head dim.
+template <int DT, bool SEG>
+__global__ void __launch_bounds__(Sm90Cfg<DT>::NT, 1)
     flash_fwd_sm90(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
                    const __grid_constant__ CUtensorMap mv, void* __restrict__ o,
                    float* __restrict__ lse, float* __restrict__ m_out, float* __restrict__ l_out,
                    const int* __restrict__ q_ids, const int* __restrict__ k_ids, Strides so,
-                   int H, int Tq, int Tk, int causal, int q_off, int k_off, int window,
+                   int D, int H, int Tq, int Tk, int causal, int q_off, int k_off, int window,
                    float scale) {
-  using C = Sm90Cfg<D>;
+  using C = Sm90Cfg<DT>;
   constexpr int BM = C::FBM, BN = C::FBN, ST = C::STAGES;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
@@ -633,8 +691,7 @@ __global__ void __launch_bounds__(Sm90Cfg<D>::NT, 1)
   const IdTable qtab = id_table(q_ids, gridDim.y / H, Tq);
   const IdTable ktab = id_table(k_ids, gridDim.y / H, Tk);
   [[maybe_unused]] const auto key_class = [&](int kt) {
-    return tile_class(id_range<BN / ID_TILE>(ktab, b, kt * (BN / ID_TILE)),
-                      id_range<1>(qtab, b, row0 / ID_TILE),
+    return tile_class(tile_ids<BN>(ktab, b, kt), id_range<1>(qtab, b, row0 / ID_TILE),
                       id_range<1>(qtab, b, row0 / ID_TILE + 1));
   };
 
@@ -662,13 +719,13 @@ __global__ void __launch_bounds__(Sm90Cfg<D>::NT, 1)
       hopper::prefetch_map(&mk);
       hopper::prefetch_map(&mv);
       hopper::mbar_expect_tx(q_full, C::FWD_Q);
-      tma_tile<D>(sQ, BM, &mq, q_full, h, row0, b);
+      tma_tile<DT>(sQ, BM, &mq, q_full, h, row0, b);
     }
     if constexpr (SEG)
-      stream_kv_ids<D, BN, ST>(sK, sV, sKid, sCls, full, empty, &mk, &mv, ktab, b, h, lo, hi,
-                               lane, key_class);
+      stream_kv_ids<DT, BN, ST>(sK, sV, sKid, sCls, full, empty, &mk, &mv, ktab, b, h, lo, hi,
+                                lane, key_class);
     else
-      stream_kv<D, BN, ST>(sK, sV, full, empty, &mk, &mv, b, h, lo, hi, lane);
+      stream_kv<DT, BN, ST>(sK, sV, full, empty, &mk, &mv, b, h, lo, hi, lane);
     return;
   }
 
@@ -685,9 +742,9 @@ __global__ void __launch_bounds__(Sm90Cfg<D>::NT, 1)
     qpos[r] = q_off + tq;
     qid[r] = SEG && tq < Tq ? qtab.ids[(long long)b * qtab.pad + tq] : 0;
   }
-  float acc[D / 2], sc[BN / 2];
+  float acc[DT / 2], sc[BN / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < DT / 2; ++i) acc[i] = 0.0f;
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) sc[i] = 0.0f;
   float m2[2] = {-INFINITY, -INFINITY}, lsum[2] = {0.0f, 0.0f};  // m2: log2 units
@@ -695,8 +752,8 @@ __global__ void __launch_bounds__(Sm90Cfg<D>::NT, 1)
   if (hi > lo) hopper::mbar_wait(q_full, 0);
   for (int i = 0; i < hi - lo; ++i) {
     const int s = i % ST, k0 = (lo + i) * BN;
-    const bf16* tK = sK + s * BN * D;
-    const bf16* tV = sV + s * BN * D;
+    const bf16* tK = sK + s * BN * DT;
+    const bf16* tV = sV + s * BN * DT;
     hopper::mbar_wait(&full[s], (i / ST) & 1);
     const int cls = SEG ? (sCls[s] >> 2 * wg) & 3 : 0;
     if (cls & NO_PAIR) {  // no pair of one id in these rows: the state stays
@@ -708,7 +765,7 @@ __global__ void __launch_bounds__(Sm90Cfg<D>::NT, 1)
     hopper::fence_regs(sc);
     hopper::wgmma_fence();
 #pragma unroll
-    for (int k = 0; k < D / 16; ++k)
+    for (int k = 0; k < DT / 16; ++k)
       hopper::wgmma_ss<BN>(sc, kmajor(sQ, BM, wrow0, k), kmajor(tK, BN, 0, k), k > 0);
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
@@ -763,7 +820,7 @@ __global__ void __launch_bounds__(Sm90Cfg<D>::NT, 1)
 #pragma unroll
     for (int r = 0; r < 2; ++r) lsum[r] = lsum[r] * corr[r] + psum[r];
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DT / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[4 * j + e] *= corr[e >> 1];
 
@@ -774,7 +831,7 @@ __global__ void __launch_bounds__(Sm90Cfg<D>::NT, 1)
     hopper::fence_regs(acc);
     hopper::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) hopper::wgmma_rs<D>(acc, pa[kk], mnmajor(tV, BN, kk));
+    for (int kk = 0; kk < BN / 16; ++kk) mma_rs<DT>(acc, pa[kk], tV, BN, kk);
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
     hopper::fence_regs(acc);
@@ -790,9 +847,10 @@ __global__ void __launch_bounds__(Sm90Cfg<D>::NT, 1)
                 (b * so.b + (long long)tq * so.t + h * so.h) * (m_out ? 4 : 2);
     const float inv = m_out ? 1.0f : 1.0f / fmaxf(l, 1e-30f);
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      store2(row, 8 * j + 2 * (lane % 4), acc[4 * j + 2 * r] * inv, acc[4 * j + 2 * r + 1] * inv,
-             m_out != nullptr);
+    for (int j = 0; j < DT / 8; ++j)
+      if (8 * j < D)
+        store2(row, 8 * j + 2 * (lane % 4), acc[4 * j + 2 * r] * inv,
+               acc[4 * j + 2 * r + 1] * inv, m_out != nullptr);
     if (lane % 4 != 0) continue;
     const long long at = (long long)bh * Tq + tq;
     if (m_out != nullptr) {
@@ -810,17 +868,17 @@ __global__ void __launch_bounds__(Sm90Cfg<D>::NT, 1)
 // warpgroup keeps dQ of its 64 rows in registers over the whole key loop.
 // A CTA that sees no key tile (a future block of the ring) loads nothing
 // and writes dQ = 0.
-template <int D, bool SEG>
-__global__ void __launch_bounds__(Sm90Cfg<D>::NT, 1)
+template <int DT, bool SEG>
+__global__ void __launch_bounds__(Sm90Cfg<DT>::NT, 1)
     flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap mq,
                       const __grid_constant__ CUtensorMap mk,
                       const __grid_constant__ CUtensorMap mv,
                       const __grid_constant__ CUtensorMap mdo, const float* __restrict__ lse,
                       const float* __restrict__ delta, void* __restrict__ dq,
                       const int* __restrict__ q_ids, const int* __restrict__ k_ids, Strides sdq,
-                      int out_f32, int H, int Tq, int Tk, int causal, int q_off, int k_off,
+                      int out_f32, int D, int H, int Tq, int Tk, int causal, int q_off, int k_off,
                       int window, float scale) {
-  using C = Sm90Cfg<D>;
+  using C = Sm90Cfg<DT>;
   constexpr int BM = C::QBM, BN = C::QBN, ST = C::STAGES;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
@@ -845,8 +903,7 @@ __global__ void __launch_bounds__(Sm90Cfg<D>::NT, 1)
   const IdTable qtab = id_table(q_ids, gridDim.y / H, Tq);
   const IdTable ktab = id_table(k_ids, gridDim.y / H, Tk);
   [[maybe_unused]] const auto key_class = [&](int kt) {
-    return tile_class(id_range<BN / ID_TILE>(ktab, b, kt * (BN / ID_TILE)),
-                      id_range<1>(qtab, b, row0 / ID_TILE),
+    return tile_class(tile_ids<BN>(ktab, b, kt), id_range<1>(qtab, b, row0 / ID_TILE),
                       id_range<1>(qtab, b, row0 / ID_TILE + 1));
   };
 
@@ -871,14 +928,14 @@ __global__ void __launch_bounds__(Sm90Cfg<D>::NT, 1)
       hopper::prefetch_map(&mk);
       hopper::prefetch_map(&mv);
       hopper::mbar_expect_tx(q_full, 2 * C::DQ_Q);
-      tma_tile<D>(sQ, BM, &mq, q_full, h, row0, b);
-      tma_tile<D>(sDO, BM, &mdo, q_full, h, row0, b);
+      tma_tile<DT>(sQ, BM, &mq, q_full, h, row0, b);
+      tma_tile<DT>(sDO, BM, &mdo, q_full, h, row0, b);
     }
     if constexpr (SEG)
-      stream_kv_ids<D, BN, ST>(sK, sV, sKid, sCls, full, empty, &mk, &mv, ktab, b, h, lo, hi,
-                               lane, key_class);
+      stream_kv_ids<DT, BN, ST>(sK, sV, sKid, sCls, full, empty, &mk, &mv, ktab, b, h, lo, hi,
+                                lane, key_class);
     else
-      stream_kv<D, BN, ST>(sK, sV, full, empty, &mk, &mv, b, h, lo, hi, lane);
+      stream_kv<DT, BN, ST>(sK, sV, full, empty, &mk, &mv, b, h, lo, hi, lane);
     return;
   }
 
@@ -900,17 +957,17 @@ __global__ void __launch_bounds__(Sm90Cfg<D>::NT, 1)
     lse2[r] = in ? lse[(long long)bh * Tq + tq] * LOG2E : -NEG_INF;
     dlt[r] = in ? delta[(long long)bh * Tq + tq] : 0.0f;
   }
-  float dq_acc[D / 2], sc[BN / 2], dps[BN / 2];
+  float dq_acc[DT / 2], sc[BN / 2], dps[BN / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.0f;
+  for (int i = 0; i < DT / 2; ++i) dq_acc[i] = 0.0f;
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) sc[i] = dps[i] = 0.0f;
 
   if (hi > lo) hopper::mbar_wait(q_full, 0);
   for (int i = 0; i < hi - lo; ++i) {
     const int s = i % ST, k0 = (lo + i) * BN;
-    const bf16* tK = sK + s * BN * D;
-    const bf16* tV = sV + s * BN * D;
+    const bf16* tK = sK + s * BN * DT;
+    const bf16* tV = sV + s * BN * DT;
     hopper::mbar_wait(&full[s], (i / ST) & 1);
     const int cls = SEG ? (sCls[s] >> 2 * wg) & 3 : 0;
     if (cls & NO_PAIR) {  // no pair of one id in these rows: every P is 0
@@ -923,11 +980,11 @@ __global__ void __launch_bounds__(Sm90Cfg<D>::NT, 1)
     hopper::fence_regs(dps);
     hopper::wgmma_fence();
 #pragma unroll
-    for (int k = 0; k < D / 16; ++k)
+    for (int k = 0; k < DT / 16; ++k)
       hopper::wgmma_ss<BN>(sc, kmajor(sQ, BM, wrow0, k), kmajor(tK, BN, 0, k), k > 0);
     hopper::wgmma_commit();
 #pragma unroll
-    for (int k = 0; k < D / 16; ++k)
+    for (int k = 0; k < DT / 16; ++k)
       hopper::wgmma_ss<BN>(dps, kmajor(sDO, BM, wrow0, k), kmajor(tV, BN, 0, k), k > 0);
     hopper::wgmma_commit();
     hopper::wgmma_wait<1>();
@@ -980,23 +1037,25 @@ __global__ void __launch_bounds__(Sm90Cfg<D>::NT, 1)
     hopper::fence_regs(dq_acc);
     hopper::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) hopper::wgmma_rs<D>(dq_acc, da[kk], mnmajor(tK, BN, kk));
+    for (int kk = 0; kk < BN / 16; ++kk) mma_rs<DT>(dq_acc, da[kk], tK, BN, kk);
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
     hopper::fence_regs(dq_acc);
     hopper::mbar_arrive(&empty[s]);
   }
 
-  store_acc<D>(dq, sdq, b, h, row0 + wrow0 + 16 * warp + lane / 4, Tq, dq_acc, out_f32, lane);
+  store_acc<DT>(dq, sdq, b, h, row0 + wrow0 + 16 * warp + lane / 4, Tq, dq_acc, out_f32, lane,
+                0, D);
 }
 
 // bf16 dK/dV. One CTA owns BBN keys of one (b, h): the producer warp loads
 // K and V once, then streams Q and dO tiles with their rows' lse (in log2
 // units), delta and (SEG) ids through the ring, from the first query tile
 // that can see these keys; each consumer warpgroup keeps dK and dV of its
-// 64 keys in registers over the whole query loop.
-template <int D, bool SEG>
-__global__ void __launch_bounds__(Sm90Cfg<D>::NT, 1)
+// 64 keys (SPLIT: of half the columns of the CTA's 64) in registers over
+// the whole query loop.
+template <int DT, bool SEG>
+__global__ void __launch_bounds__(Sm90Cfg<DT>::NT, 1)
     flash_bwd_dkv_sm90(const __grid_constant__ CUtensorMap mq,
                        const __grid_constant__ CUtensorMap mk,
                        const __grid_constant__ CUtensorMap mv,
@@ -1004,10 +1063,12 @@ __global__ void __launch_bounds__(Sm90Cfg<D>::NT, 1)
                        const float* __restrict__ delta, void* __restrict__ dk,
                        void* __restrict__ dv, const int* __restrict__ q_ids,
                        const int* __restrict__ k_ids, Strides sdk, Strides sdv, int out_f32,
-                       int H, int Tq, int Tk, int causal, int q_off, int k_off, int window,
-                       float scale) {
-  using C = Sm90Cfg<D>;
-  constexpr int BN = C::BBN, BQ = C::BBQ, ST = C::STAGES;
+                       int D, int H, int Tq, int Tk, int causal, int q_off, int k_off,
+                       int window, float scale) {
+  using C = Sm90Cfg<DT>;
+  constexpr int BN = C::BBN, BQ = C::BBQ, ST = C::STAGES, DN = C::DKV_N;
+  // Warpgroup w's keys start at row KW * w of the CTA's tile.
+  constexpr int KW = C::SPLIT ? 0 : 64;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (hopper::smem_addr(smem_raw) & 1023)) & 1023);
   bf16* sK = reinterpret_cast<bf16*>(smem);
@@ -1031,9 +1092,8 @@ __global__ void __launch_bounds__(Sm90Cfg<D>::NT, 1)
   const IdTable qtab = id_table(q_ids, gridDim.y / H, Tq);
   const IdTable ktab = id_table(k_ids, gridDim.y / H, Tk);
   [[maybe_unused]] const auto query_class = [&](int qt) {
-    return tile_class(id_range<BQ / ID_TILE>(qtab, b, qt * (BQ / ID_TILE)),
-                      id_range<1>(ktab, b, key0 / ID_TILE),
-                      id_range<1>(ktab, b, key0 / ID_TILE + 1));
+    return tile_class(tile_ids<BQ>(qtab, b, qt), id_range<1>(ktab, b, key0 / ID_TILE),
+                      id_range<1>(ktab, b, (key0 + KW) / ID_TILE));
   };
 
   if (threadIdx.x == 0) {
@@ -1057,8 +1117,8 @@ __global__ void __launch_bounds__(Sm90Cfg<D>::NT, 1)
       hopper::prefetch_map(&mq);
       hopper::prefetch_map(&mdo);
       hopper::mbar_expect_tx(kv_full, 2 * C::DKV_KV);
-      tma_tile<D>(sK, BN, &mk, kv_full, h, key0, b);
-      tma_tile<D>(sV, BN, &mv, kv_full, h, key0, b);
+      tma_tile<DT>(sK, BN, &mk, kv_full, h, key0, b);
+      tma_tile<DT>(sV, BN, &mv, kv_full, h, key0, b);
     }
     [[maybe_unused]] int mine = 0;
     for (int i = 0; i < hi - lo; ++i) {
@@ -1079,8 +1139,8 @@ __global__ void __launch_bounds__(Sm90Cfg<D>::NT, 1)
         const bool ids = SEG && compares_ids(cls);
         if constexpr (SEG) sCls[s] = cls;
         hopper::mbar_expect_tx(&full[s], 2 * C::DKV_Q + (ids ? BQ * 4 : 0));
-        tma_tile<D>(sQ + s * BQ * D, BQ, &mq, &full[s], h, q0, b);
-        tma_tile<D>(sDO + s * BQ * D, BQ, &mdo, &full[s], h, q0, b);
+        tma_tile<DT>(sQ + s * BQ * DT, BQ, &mq, &full[s], h, q0, b);
+        tma_tile<DT>(sDO + s * BQ * DT, BQ, &mdo, &full[s], h, q0, b);
         if (ids)
           hopper::bulk_load(sQid + s * BQ, qtab.ids + (long long)b * qtab.pad + q0, BQ * 4,
                             &full[s]);
@@ -1091,11 +1151,12 @@ __global__ void __launch_bounds__(Sm90Cfg<D>::NT, 1)
     return;
   }
 
-  // Consumer warpgroup wg: keys [64 wg, 64 wg + 64) of the CTA's tile.
+  // Consumer warpgroup wg: keys [krow0, krow0 + 64) of the CTA's tile, and
+  // of dK and dV the columns [dcol0, dcol0 + DN).
   hopper::regs_inc<232>();
   const int t = threadIdx.x % WG, warp = t / 32, lane = t % 32;
   if constexpr (SEG) narrow(lo, hi, lane, query_class);  // the producer's range
-  const int krow0 = 64 * wg;
+  const int krow0 = KW * wg, dcol0 = C::SPLIT ? DN * wg : 0;
   const float c2 = scale * LOG2E;
   int kpos[2], kid[2];
 #pragma unroll
@@ -1104,17 +1165,17 @@ __global__ void __launch_bounds__(Sm90Cfg<D>::NT, 1)
     kpos[r] = k_off + tk;
     kid[r] = SEG && tk < Tk ? ktab.ids[(long long)b * ktab.pad + tk] : 0;
   }
-  float dk_acc[D / 2], dv_acc[D / 2], st[BQ / 2], dpt[BQ / 2];
+  float dk_acc[DN / 2], dv_acc[DN / 2], st[BQ / 2], dpt[BQ / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.0f;
+  for (int i = 0; i < DN / 2; ++i) dk_acc[i] = dv_acc[i] = 0.0f;
 #pragma unroll
   for (int i = 0; i < BQ / 2; ++i) st[i] = dpt[i] = 0.0f;
 
   if (hi > lo) hopper::mbar_wait(kv_full, 0);
   for (int i = 0; i < hi - lo; ++i) {
     const int s = i % ST, q0 = (lo + i) * BQ;
-    const bf16* tQ = sQ + s * BQ * D;
-    const bf16* tDO = sDO + s * BQ * D;
+    const bf16* tQ = sQ + s * BQ * DT;
+    const bf16* tDO = sDO + s * BQ * DT;
     const float* rLse = sLse + s * BQ;
     const float* rDelta = sDelta + s * BQ;
     hopper::mbar_wait(&full[s], (i / ST) & 1);
@@ -1129,11 +1190,11 @@ __global__ void __launch_bounds__(Sm90Cfg<D>::NT, 1)
     hopper::fence_regs(dpt);
     hopper::wgmma_fence();
 #pragma unroll
-    for (int k = 0; k < D / 16; ++k)
+    for (int k = 0; k < DT / 16; ++k)
       hopper::wgmma_ss<BQ>(st, kmajor(sK, BN, krow0, k), kmajor(tQ, BQ, 0, k), k > 0);
     hopper::wgmma_commit();
 #pragma unroll
-    for (int k = 0; k < D / 16; ++k)
+    for (int k = 0; k < DT / 16; ++k)
       hopper::wgmma_ss<BQ>(dpt, kmajor(sV, BN, krow0, k), kmajor(tDO, BQ, 0, k), k > 0);
     hopper::wgmma_commit();
     hopper::wgmma_wait<1>();
@@ -1179,7 +1240,8 @@ __global__ void __launch_bounds__(Sm90Cfg<D>::NT, 1)
         dpt[4 * j + e] = st[4 * j + e] * (dpt[4 * j + e] - rDelta[c]) * scale;
       }
 
-    // dV += P^T . dO and dK += dS^T . Q, P and dS rounded to bf16.
+    // dV += P^T . dO and dK += dS^T . Q over this warpgroup's columns (the
+    // 64-column tiles from dcol0 / 64 on), P and dS rounded to bf16.
     uint32_t pa[BQ / 16][4], da[BQ / 16][4];
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk) {
@@ -1191,8 +1253,8 @@ __global__ void __launch_bounds__(Sm90Cfg<D>::NT, 1)
     hopper::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BQ / 16; ++kk) {
-      hopper::wgmma_rs<D>(dv_acc, pa[kk], mnmajor(tDO, BQ, kk));
-      hopper::wgmma_rs<D>(dk_acc, da[kk], mnmajor(tQ, BQ, kk));
+      mma_rs<DN>(dv_acc, pa[kk], tDO + dcol0 / 64 * BQ * 64, BQ, kk);
+      mma_rs<DN>(dk_acc, da[kk], tQ + dcol0 / 64 * BQ * 64, BQ, kk);
     }
     hopper::wgmma_commit();
     hopper::wgmma_wait<0>();
@@ -1202,24 +1264,24 @@ __global__ void __launch_bounds__(Sm90Cfg<D>::NT, 1)
   }
 
   const int tk = key0 + krow0 + 16 * warp + lane / 4;
-  store_acc<D>(dk, sdk, b, h, tk, Tk, dk_acc, out_f32, lane);
-  store_acc<D>(dv, sdv, b, h, tk, Tk, dv_acc, out_f32, lane);
+  store_acc<DN>(dk, sdk, b, h, tk, Tk, dk_acc, out_f32, lane, dcol0, D);
+  store_acc<DN>(dv, sdv, b, h, tk, Tk, dv_acc, out_f32, lane, dcol0, D);
 }
 
 // fp32 forward. Plain mode (lse == m_out == nullptr): o = normalized O in T.
 // Train mode (lse set): also lse, +1e30 on rows with no visible key.
 // State mode (m_out and l_out set): o is fp32 and receives the
 // unnormalized accumulator; m and l are written, no lse.
-template <typename T, int D, bool SEG>
-__global__ void __launch_bounds__(Cfg<T, D>::NT)
+template <typename T, int DT, bool SEG>
+__global__ void __launch_bounds__(Cfg<T, DT>::NT)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, void* __restrict__ o, float* __restrict__ lse,
                      float* __restrict__ m_out, float* __restrict__ l_out,
                      const int* __restrict__ q_ids, const int* __restrict__ k_ids, Strides sq,
-                     Strides sk, Strides sv, Strides so, int H, int Tq, int Tk, int causal,
+                     Strides sk, Strides sv, Strides so, int D, int H, int Tq, int Tk, int causal,
                      int q_off, int k_off, int window, float scale) {
   static_assert(std::is_same<T, float>::value, "bf16 runs flash_fwd_sm90");
-  using C = Cfg<T, D>;
+  using C = Cfg<T, DT>;
   constexpr int BM = C::BM;
   extern __shared__ __align__(128) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem);
@@ -1238,7 +1300,7 @@ __global__ void __launch_bounds__(Cfg<T, D>::NT)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int r0 = warp * 16;
 
-  load_tile<T, D, BM, C::NT>(sQ, C::LDT, q + b * sq.b + h * sq.h, sq.t, row0, Tq);
+  load_tile<T, DT, BM, C::NT>(sQ, C::LDT, q + b * sq.b + h * sq.h, sq.t, row0, Tq, D);
   if (SEG) load_ids<BM, C::NT>(sQid, q_ids, b, row0, Tq);
   for (int i = threadIdx.x; i < BM * C::LDF; i += C::NT) sAcc[i] = 0.0f;
   for (int i = threadIdx.x; i < BM; i += C::NT) {
@@ -1252,12 +1314,12 @@ __global__ void __launch_bounds__(Cfg<T, D>::NT)
   for (int kt = 0; kt < nkt; ++kt) {
     const int k_base = k_off + kt * BM;
     if (!visible_tile(q_base, k_base, BM, causal, window)) continue;
-    load_tile<T, D, BM, C::NT>(sK, C::LDT, k + b * sk.b + h * sk.h, sk.t, kt * BM, Tk);
-    load_tile<T, D, BM, C::NT>(sV, C::LDT, v + b * sv.b + h * sv.h, sv.t, kt * BM, Tk);
+    load_tile<T, DT, BM, C::NT>(sK, C::LDT, k + b * sk.b + h * sk.h, sk.t, kt * BM, Tk, D);
+    load_tile<T, DT, BM, C::NT>(sV, C::LDT, v + b * sv.b + h * sv.h, sv.t, kt * BM, Tk, D);
     if (SEG) load_ids<BM, C::NT>(sKid, k_ids, b, kt * BM, Tk);
     __syncthreads();
 
-    warp_gemm_nt<T, BM, D>(sQ + r0 * C::LDT, C::LDT, sK, C::LDT, sS + r0 * C::LDS, C::LDS);
+    warp_gemm_nt<T, BM, DT>(sQ + r0 * C::LDT, C::LDT, sK, C::LDT, sS + r0 * C::LDS, C::LDS);
     {
       // Online softmax over the strip's 16 rows at once: two lanes per
       // row, each taking every other column, combined by one shuffle.
@@ -1295,7 +1357,7 @@ __global__ void __launch_bounds__(Cfg<T, D>::NT)
       }
     }
     __syncwarp();
-    warp_gemm_nn<T, D, BM>(sP + r0 * C::LDP, C::LDP, sV, C::LDT, sAcc + r0 * C::LDF, C::LDF);
+    warp_gemm_nn<T, DT, BM>(sP + r0 * C::LDP, C::LDP, sV, C::LDT, sAcc + r0 * C::LDF, C::LDF);
     __syncthreads();
   }
 
@@ -1322,17 +1384,17 @@ __global__ void __launch_bounds__(Cfg<T, D>::NT)
 }
 
 // fp32 dQ (bf16 runs flash_bwd_dq_sm90).
-template <typename T, int D, bool SEG>
-__global__ void __launch_bounds__(Cfg<T, D>::NT)
+template <typename T, int DT, bool SEG>
+__global__ void __launch_bounds__(Cfg<T, DT>::NT)
     flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         const T* __restrict__ v, const T* __restrict__ dout,
                         const float* __restrict__ lse, const float* __restrict__ delta,
                         float* __restrict__ dq, const int* __restrict__ q_ids,
                         const int* __restrict__ k_ids, Strides sq, Strides sk, Strides sv,
-                        Strides sdo, Strides sdq, int H, int Tq, int Tk, int causal, int q_off,
-                        int k_off, int window, float scale) {
+                        Strides sdo, Strides sdq, int D, int H, int Tq, int Tk, int causal,
+                        int q_off, int k_off, int window, float scale) {
   static_assert(std::is_same<T, float>::value, "bf16 runs flash_bwd_dq_sm90");
-  using C = Cfg<T, D>;
+  using C = Cfg<T, DT>;
   constexpr int BM = C::BM;
   extern __shared__ __align__(128) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem);
@@ -1353,8 +1415,8 @@ __global__ void __launch_bounds__(Cfg<T, D>::NT)
   const int r0 = warp * 16;
   T* sDS = reinterpret_cast<T*>(sS + r0 * C::LDS);  // this strip's dS, [16][LDP]
 
-  load_tile<T, D, BM, C::NT>(sQ, C::LDT, q + b * sq.b + h * sq.h, sq.t, row0, Tq);
-  load_tile<T, D, BM, C::NT>(sDO, C::LDT, dout + b * sdo.b + h * sdo.h, sdo.t, row0, Tq);
+  load_tile<T, DT, BM, C::NT>(sQ, C::LDT, q + b * sq.b + h * sq.h, sq.t, row0, Tq, D);
+  load_tile<T, DT, BM, C::NT>(sDO, C::LDT, dout + b * sdo.b + h * sdo.h, sdo.t, row0, Tq, D);
   if (SEG) load_ids<BM, C::NT>(sQid, q_ids, b, row0, Tq);
   for (int i = threadIdx.x; i < BM * C::LDF; i += C::NT) sAcc[i] = 0.0f;
   for (int i = threadIdx.x; i < BM; i += C::NT) {
@@ -1370,13 +1432,13 @@ __global__ void __launch_bounds__(Cfg<T, D>::NT)
   for (int kt = 0; kt < nkt; ++kt) {
     const int k_base = k_off + kt * BM;
     if (!visible_tile(q_base, k_base, BM, causal, window)) continue;
-    load_tile<T, D, BM, C::NT>(sK, C::LDT, k + b * sk.b + h * sk.h, sk.t, kt * BM, Tk);
-    load_tile<T, D, BM, C::NT>(sV, C::LDT, v + b * sv.b + h * sv.h, sv.t, kt * BM, Tk);
+    load_tile<T, DT, BM, C::NT>(sK, C::LDT, k + b * sk.b + h * sk.h, sk.t, kt * BM, Tk, D);
+    load_tile<T, DT, BM, C::NT>(sV, C::LDT, v + b * sv.b + h * sv.h, sv.t, kt * BM, Tk, D);
     if (SEG) load_ids<BM, C::NT>(sKid, k_ids, b, kt * BM, Tk);
     __syncthreads();
 
-    warp_gemm_nt<T, BM, D>(sQ + r0 * C::LDT, C::LDT, sK, C::LDT, sS + r0 * C::LDS, C::LDS);
-    warp_gemm_nt<T, BM, D>(sDO + r0 * C::LDT, C::LDT, sV, C::LDT, sDP + r0 * C::LDS, C::LDS);
+    warp_gemm_nt<T, BM, DT>(sQ + r0 * C::LDT, C::LDT, sK, C::LDT, sS + r0 * C::LDS, C::LDS);
+    warp_gemm_nt<T, BM, DT>(sDO + r0 * C::LDT, C::LDT, sV, C::LDT, sDP + r0 * C::LDS, C::LDS);
     float ds[16][BM / 32];
 #pragma unroll
     for (int i = 0; i < 16; ++i) {
@@ -1399,7 +1461,7 @@ __global__ void __launch_bounds__(Cfg<T, D>::NT)
 #pragma unroll
       for (int j = 0; j < BM / 32; ++j) sDS[i * C::LDP + lane + 32 * j] = ds[i][j];
     __syncwarp();
-    warp_gemm_nn<T, D, BM>(sDS, C::LDP, sK, C::LDT, sAcc + r0 * C::LDF, C::LDF);
+    warp_gemm_nn<T, DT, BM>(sDS, C::LDP, sK, C::LDT, sAcc + r0 * C::LDF, C::LDF);
     __syncthreads();
   }
 
@@ -1407,23 +1469,23 @@ __global__ void __launch_bounds__(Cfg<T, D>::NT)
     const int r = r0 + i;
     const int t = row0 + r;
     if (t >= Tq) break;
-    store_row<D>(dq + b * sdq.b + (long long)t * sdq.t + h * sdq.h, sAcc + r * C::LDF, lane);
+    store_row(dq + b * sdq.b + (long long)t * sdq.t + h * sdq.h, sAcc + r * C::LDF, lane, D);
   }
 }
 
 // fp32 dK/dV (bf16 runs flash_bwd_dkv_sm90).
-template <typename T, int D, bool SEG>
-__global__ void __launch_bounds__(Cfg<T, D>::NT)
+template <typename T, int DT, bool SEG>
+__global__ void __launch_bounds__(Cfg<T, DT>::NT)
     flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                          const T* __restrict__ v, const T* __restrict__ dout,
                          const float* __restrict__ lse, const float* __restrict__ delta,
                          float* __restrict__ dk, float* __restrict__ dv,
                          const int* __restrict__ q_ids, const int* __restrict__ k_ids,
                          Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdk,
-                         Strides sdv, int H, int Tq, int Tk, int causal, int q_off, int k_off,
-                         int window, float scale) {
+                         Strides sdv, int D, int H, int Tq, int Tk, int causal, int q_off,
+                         int k_off, int window, float scale) {
   static_assert(std::is_same<T, float>::value, "bf16 runs flash_bwd_dkv_sm90");
-  using C = Cfg<T, D>;
+  using C = Cfg<T, DT>;
   constexpr int BM = C::BM;
   extern __shared__ __align__(128) unsigned char smem[];
   T* sK = reinterpret_cast<T*>(smem);
@@ -1446,8 +1508,8 @@ __global__ void __launch_bounds__(Cfg<T, D>::NT)
   T* sP = reinterpret_cast<T*>(sS + r0 * C::LDS);    // this strip's P^T,  [16][LDP]
   T* sDS = reinterpret_cast<T*>(sDP + r0 * C::LDS);  // this strip's dS^T, [16][LDP]
 
-  load_tile<T, D, BM, C::NT>(sK, C::LDT, k + b * sk.b + h * sk.h, sk.t, row0, Tk);
-  load_tile<T, D, BM, C::NT>(sV, C::LDT, v + b * sv.b + h * sv.h, sv.t, row0, Tk);
+  load_tile<T, DT, BM, C::NT>(sK, C::LDT, k + b * sk.b + h * sk.h, sk.t, row0, Tk, D);
+  load_tile<T, DT, BM, C::NT>(sV, C::LDT, v + b * sv.b + h * sv.h, sv.t, row0, Tk, D);
   if (SEG) load_ids<BM, C::NT>(sKid, k_ids, b, row0, Tk);
   for (int i = threadIdx.x; i < BM * C::LDF; i += C::NT) {
     sDK[i] = 0.0f;
@@ -1460,8 +1522,8 @@ __global__ void __launch_bounds__(Cfg<T, D>::NT)
     const int q_base = q_off + qt * BM;
     if (!visible_tile(q_base, k_base, BM, causal, window)) continue;
     __syncthreads();  // the previous tile's readers are done with sQ/sDO/rows
-    load_tile<T, D, BM, C::NT>(sQ, C::LDT, q + b * sq.b + h * sq.h, sq.t, qt * BM, Tq);
-    load_tile<T, D, BM, C::NT>(sDO, C::LDT, dout + b * sdo.b + h * sdo.h, sdo.t, qt * BM, Tq);
+    load_tile<T, DT, BM, C::NT>(sQ, C::LDT, q + b * sq.b + h * sq.h, sq.t, qt * BM, Tq, D);
+    load_tile<T, DT, BM, C::NT>(sDO, C::LDT, dout + b * sdo.b + h * sdo.h, sdo.t, qt * BM, Tq, D);
     if (SEG) load_ids<BM, C::NT>(sQid, q_ids, b, qt * BM, Tq);
     for (int i = threadIdx.x; i < BM; i += C::NT) {
       const int t = qt * BM + i;
@@ -1470,8 +1532,8 @@ __global__ void __launch_bounds__(Cfg<T, D>::NT)
     }
     __syncthreads();
 
-    warp_gemm_nt<T, BM, D>(sK + r0 * C::LDT, C::LDT, sQ, C::LDT, sS + r0 * C::LDS, C::LDS);
-    warp_gemm_nt<T, BM, D>(sV + r0 * C::LDT, C::LDT, sDO, C::LDT, sDP + r0 * C::LDS, C::LDS);
+    warp_gemm_nt<T, BM, DT>(sK + r0 * C::LDT, C::LDT, sQ, C::LDT, sS + r0 * C::LDS, C::LDS);
+    warp_gemm_nt<T, BM, DT>(sV + r0 * C::LDT, C::LDT, sDO, C::LDT, sDP + r0 * C::LDS, C::LDS);
     float p[16][BM / 32], ds[16][BM / 32];
 #pragma unroll
     for (int i = 0; i < 16; ++i) {
@@ -1496,8 +1558,8 @@ __global__ void __launch_bounds__(Cfg<T, D>::NT)
         sDS[i * C::LDP + lane + 32 * j] = ds[i][j];
       }
     __syncwarp();
-    warp_gemm_nn<T, D, BM>(sP, C::LDP, sDO, C::LDT, sDV + r0 * C::LDF, C::LDF);
-    warp_gemm_nn<T, D, BM>(sDS, C::LDP, sQ, C::LDT, sDK + r0 * C::LDF, C::LDF);
+    warp_gemm_nn<T, DT, BM>(sP, C::LDP, sDO, C::LDT, sDV + r0 * C::LDF, C::LDF);
+    warp_gemm_nn<T, DT, BM>(sDS, C::LDP, sQ, C::LDT, sDK + r0 * C::LDF, C::LDF);
   }
   __syncthreads();
 
@@ -1505,8 +1567,8 @@ __global__ void __launch_bounds__(Cfg<T, D>::NT)
     const int r = r0 + i;
     const int t = row0 + r;
     if (t >= Tk) break;
-    store_row<D>(dk + b * sdk.b + (long long)t * sdk.t + h * sdk.h, sDK + r * C::LDF, lane);
-    store_row<D>(dv + b * sdv.b + (long long)t * sdv.t + h * sdv.h, sDV + r * C::LDF, lane);
+    store_row(dk + b * sdk.b + (long long)t * sdk.t + h * sdk.h, sDK + r * C::LDF, lane, D);
+    store_row(dv + b * sdv.b + (long long)t * sdv.t + h * sdv.h, sDV + r * C::LDF, lane, D);
   }
 }
 
@@ -1553,8 +1615,9 @@ EncodeTiled encode_tiled() {
 // The tensor map of a [B, T, H, D] bf16 tensor with element strides `s`,
 // read in boxes of `rows` rows by 64 columns (the 128-byte swizzle's
 // width), dims (D, H, T, B) innermost first: the q/k/v views of the
-// model's fused [B, T, 3, H, D] tensor are read in place. Rows past T read
-// as zeros.
+// model's fused [B, T, 3, H, D] tensor are read in place. Rows past T and
+// columns past D (the true head dim, which a box of a tile wider than D
+// crosses or starts past) read as zeros.
 int tensor_map(CUtensorMap* map, const void* base, int B, int T, int H, int D, Strides s,
                int rows) {
   const EncodeTiled encode = encode_tiled();
@@ -1591,14 +1654,14 @@ int id_tables(int B, int Tq, int Tk, const void*& q_ids, const void*& k_ids, voi
   return 0;
 }
 
-template <int D>
-int launch_fwd_sm90(int B, int H, int Tq, int Tk, const void* q, const void* k, const void* v,
-                    void* o, void* lse, void* m, void* l, const void* q_ids, const void* k_ids,
-                    void* id_scratch, const long long* s, int causal, int q_off, int k_off,
-                    int window, float scale, cudaStream_t stream) {
-  using C = Sm90Cfg<D>;
-  constexpr auto seg = flash_fwd_sm90<D, true>;
-  constexpr auto plain = flash_fwd_sm90<D, false>;
+template <int DT>
+int launch_fwd_sm90(int D, int B, int H, int Tq, int Tk, const void* q, const void* k,
+                    const void* v, void* o, void* lse, void* m, void* l, const void* q_ids,
+                    const void* k_ids, void* id_scratch, const long long* s, int causal, int q_off,
+                    int k_off, int window, float scale, cudaStream_t stream) {
+  using C = Sm90Cfg<DT>;
+  constexpr auto seg = flash_fwd_sm90<DT, true>;
+  constexpr auto plain = flash_fwd_sm90<DT, false>;
   const bool ids = q_ids || id_scratch;
   if (int err = ids ? prepare<seg>(C::FWD_SMEM) : prepare<plain>(C::FWD_SMEM)) return err;
   if (ids)
@@ -1610,41 +1673,41 @@ int launch_fwd_sm90(int B, int H, int Tq, int Tk, const void* q, const void* k, 
   dim3 grid((Tq + C::FBM - 1) / C::FBM, B * H);
   (ids ? seg : plain)<<<grid, C::NT, C::FWD_SMEM, stream>>>(
       mq, mk, mv, o, (float*)lse, (float*)m, (float*)l, (const int*)q_ids, (const int*)k_ids,
-      strides_at(s, 3), H, Tq, Tk, causal, q_off, k_off, window, scale);
+      strides_at(s, 3), D, H, Tq, Tk, causal, q_off, k_off, window, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
-int launch_fwd(int B, int H, int Tq, int Tk, const void* q, const void* k, const void* v,
+template <typename T, int DT>
+int launch_fwd(int D, int B, int H, int Tq, int Tk, const void* q, const void* k, const void* v,
                void* o, void* lse, void* m, void* l, const void* q_ids, const void* k_ids,
                void* id_scratch, const long long* s, int causal, int q_off, int k_off,
                int window, float scale, cudaStream_t stream) {
   if constexpr (std::is_same<T, bf16>::value) {
-    return launch_fwd_sm90<D>(B, H, Tq, Tk, q, k, v, o, lse, m, l, q_ids, k_ids, id_scratch, s,
-                              causal, q_off, k_off, window, scale, stream);
+    return launch_fwd_sm90<DT>(D, B, H, Tq, Tk, q, k, v, o, lse, m, l, q_ids, k_ids, id_scratch,
+                               s, causal, q_off, k_off, window, scale, stream);
   } else {
-    using C = Cfg<T, D>;
-    constexpr auto seg = flash_fwd_kernel<T, D, true>;
-    constexpr auto plain = flash_fwd_kernel<T, D, false>;
+    using C = Cfg<T, DT>;
+    constexpr auto seg = flash_fwd_kernel<T, DT, true>;
+    constexpr auto plain = flash_fwd_kernel<T, DT, false>;
     if (int err = q_ids ? prepare<seg>(C::FWD_SMEM) : prepare<plain>(C::FWD_SMEM)) return err;
     dim3 grid((Tq + C::BM - 1) / C::BM, B * H);
     (q_ids ? seg : plain)<<<grid, C::NT, C::FWD_SMEM, stream>>>(
         (const T*)q, (const T*)k, (const T*)v, o, (float*)lse, (float*)m, (float*)l,
         (const int*)q_ids, (const int*)k_ids, strides_at(s, 0), strides_at(s, 1),
-        strides_at(s, 2), strides_at(s, 3), H, Tq, Tk, causal, q_off, k_off, window, scale);
+        strides_at(s, 2), strides_at(s, 3), D, H, Tq, Tk, causal, q_off, k_off, window, scale);
     return (int)cudaGetLastError();
   }
 }
 
-template <int D>
-int launch_dq_sm90(int B, int H, int Tq, int Tk, const void* q, const void* k, const void* v,
-                   const void* dout, const void* lse, const void* delta, void* dq,
+template <int DT>
+int launch_dq_sm90(int D, int B, int H, int Tq, int Tk, const void* q, const void* k,
+                   const void* v, const void* dout, const void* lse, const void* delta, void* dq,
                    const void* q_ids, const void* k_ids, void* id_scratch, const long long* s,
                    int out_f32, int causal, int q_off, int k_off, int window, float scale,
                    cudaStream_t stream) {
-  using C = Sm90Cfg<D>;
-  constexpr auto seg = flash_bwd_dq_sm90<D, true>;
-  constexpr auto plain = flash_bwd_dq_sm90<D, false>;
+  using C = Sm90Cfg<DT>;
+  constexpr auto seg = flash_bwd_dq_sm90<DT, true>;
+  constexpr auto plain = flash_bwd_dq_sm90<DT, false>;
   const bool ids = q_ids || id_scratch;
   if (int err = ids ? prepare<seg>(C::DQ_SMEM) : prepare<plain>(C::DQ_SMEM)) return err;
   if (ids)
@@ -1657,45 +1720,45 @@ int launch_dq_sm90(int B, int H, int Tq, int Tk, const void* q, const void* k, c
   dim3 grid((Tq + C::QBM - 1) / C::QBM, B * H);
   (ids ? seg : plain)<<<grid, C::NT, C::DQ_SMEM, stream>>>(
       mq, mk, mv, mdo, (const float*)lse, (const float*)delta, dq, (const int*)q_ids,
-      (const int*)k_ids, strides_at(s, 4), out_f32, H, Tq, Tk, causal, q_off, k_off, window,
+      (const int*)k_ids, strides_at(s, 4), out_f32, D, H, Tq, Tk, causal, q_off, k_off, window,
       scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
-int launch_dq(int B, int H, int Tq, int Tk, const void* q, const void* k, const void* v,
+template <typename T, int DT>
+int launch_dq(int D, int B, int H, int Tq, int Tk, const void* q, const void* k, const void* v,
               const void* dout, const void* lse, const void* delta, void* dq,
               const void* q_ids, const void* k_ids, void* id_scratch, const long long* s,
               int out_f32, int causal, int q_off, int k_off, int window, float scale,
               cudaStream_t stream) {
   if constexpr (std::is_same<T, bf16>::value) {
-    return launch_dq_sm90<D>(B, H, Tq, Tk, q, k, v, dout, lse, delta, dq, q_ids, k_ids,
-                             id_scratch, s, out_f32, causal, q_off, k_off, window, scale,
-                             stream);
+    return launch_dq_sm90<DT>(D, B, H, Tq, Tk, q, k, v, dout, lse, delta, dq, q_ids, k_ids,
+                              id_scratch, s, out_f32, causal, q_off, k_off, window, scale,
+                              stream);
   } else {
-    using C = Cfg<T, D>;
-    constexpr auto seg = flash_bwd_dq_kernel<T, D, true>;
-    constexpr auto plain = flash_bwd_dq_kernel<T, D, false>;
+    using C = Cfg<T, DT>;
+    constexpr auto seg = flash_bwd_dq_kernel<T, DT, true>;
+    constexpr auto plain = flash_bwd_dq_kernel<T, DT, false>;
     if (int err = q_ids ? prepare<seg>(C::DQ_SMEM) : prepare<plain>(C::DQ_SMEM)) return err;
     dim3 grid((Tq + C::BM - 1) / C::BM, B * H);
     (q_ids ? seg : plain)<<<grid, C::NT, C::DQ_SMEM, stream>>>(
         (const T*)q, (const T*)k, (const T*)v, (const T*)dout, (const float*)lse,
         (const float*)delta, (float*)dq, (const int*)q_ids, (const int*)k_ids, strides_at(s, 0),
-        strides_at(s, 1), strides_at(s, 2), strides_at(s, 3), strides_at(s, 4), H, Tq, Tk,
+        strides_at(s, 1), strides_at(s, 2), strides_at(s, 3), strides_at(s, 4), D, H, Tq, Tk,
         causal, q_off, k_off, window, scale);
     return (int)cudaGetLastError();
   }
 }
 
-template <int D>
-int launch_dkv_sm90(int B, int H, int Tq, int Tk, const void* q, const void* k, const void* v,
-                    const void* dout, const void* lse, const void* delta, void* dk, void* dv,
-                    const void* q_ids, const void* k_ids, void* id_scratch, const long long* s,
-                    int out_f32, int causal, int q_off, int k_off, int window, float scale,
-                    cudaStream_t stream) {
-  using C = Sm90Cfg<D>;
-  constexpr auto seg = flash_bwd_dkv_sm90<D, true>;
-  constexpr auto plain = flash_bwd_dkv_sm90<D, false>;
+template <int DT>
+int launch_dkv_sm90(int D, int B, int H, int Tq, int Tk, const void* q, const void* k,
+                    const void* v, const void* dout, const void* lse, const void* delta, void* dk,
+                    void* dv, const void* q_ids, const void* k_ids, void* id_scratch,
+                    const long long* s, int out_f32, int causal, int q_off, int k_off, int window,
+                    float scale, cudaStream_t stream) {
+  using C = Sm90Cfg<DT>;
+  constexpr auto seg = flash_bwd_dkv_sm90<DT, true>;
+  constexpr auto plain = flash_bwd_dkv_sm90<DT, false>;
   const bool ids = q_ids || id_scratch;
   if (int err = ids ? prepare<seg>(C::DKV_SMEM) : prepare<plain>(C::DKV_SMEM)) return err;
   if (ids)
@@ -1708,54 +1771,67 @@ int launch_dkv_sm90(int B, int H, int Tq, int Tk, const void* q, const void* k, 
   dim3 grid((Tk + C::BBN - 1) / C::BBN, B * H);
   (ids ? seg : plain)<<<grid, C::NT, C::DKV_SMEM, stream>>>(
       mq, mk, mv, mdo, (const float*)lse, (const float*)delta, dk, dv, (const int*)q_ids,
-      (const int*)k_ids, strides_at(s, 4), strides_at(s, 5), out_f32, H, Tq, Tk, causal, q_off,
-      k_off, window, scale);
+      (const int*)k_ids, strides_at(s, 4), strides_at(s, 5), out_f32, D, H, Tq, Tk, causal,
+      q_off, k_off, window, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
-int launch_dkv(int B, int H, int Tq, int Tk, const void* q, const void* k, const void* v,
+template <typename T, int DT>
+int launch_dkv(int D, int B, int H, int Tq, int Tk, const void* q, const void* k, const void* v,
                const void* dout, const void* lse, const void* delta, void* dk, void* dv,
                const void* q_ids, const void* k_ids, void* id_scratch, const long long* s,
                int out_f32, int causal, int q_off, int k_off, int window, float scale,
                cudaStream_t stream) {
   if constexpr (std::is_same<T, bf16>::value) {
-    return launch_dkv_sm90<D>(B, H, Tq, Tk, q, k, v, dout, lse, delta, dk, dv, q_ids, k_ids,
-                              id_scratch, s, out_f32, causal, q_off, k_off, window, scale,
-                              stream);
+    return launch_dkv_sm90<DT>(D, B, H, Tq, Tk, q, k, v, dout, lse, delta, dk, dv, q_ids, k_ids,
+                               id_scratch, s, out_f32, causal, q_off, k_off, window, scale,
+                               stream);
   } else {
-    using C = Cfg<T, D>;
-    constexpr auto seg = flash_bwd_dkv_kernel<T, D, true>;
-    constexpr auto plain = flash_bwd_dkv_kernel<T, D, false>;
+    using C = Cfg<T, DT>;
+    constexpr auto seg = flash_bwd_dkv_kernel<T, DT, true>;
+    constexpr auto plain = flash_bwd_dkv_kernel<T, DT, false>;
     if (int err = q_ids ? prepare<seg>(C::DKV_SMEM) : prepare<plain>(C::DKV_SMEM)) return err;
     dim3 grid((Tk + C::BM - 1) / C::BM, B * H);
     (q_ids ? seg : plain)<<<grid, C::NT, C::DKV_SMEM, stream>>>(
         (const T*)q, (const T*)k, (const T*)v, (const T*)dout, (const float*)lse,
         (const float*)delta, (float*)dk, (float*)dv, (const int*)q_ids, (const int*)k_ids,
         strides_at(s, 0), strides_at(s, 1), strides_at(s, 2), strides_at(s, 3),
-        strides_at(s, 4), strides_at(s, 5), H, Tq, Tk, causal, q_off, k_off, window, scale);
+        strides_at(s, 4), strides_at(s, 5), D, H, Tq, Tk, causal, q_off, k_off, window, scale);
     return (int)cudaGetLastError();
   }
 }
 
+// The tile width the kernels run head dim D at (the smallest of 64, 128
+// and 256 that holds it), or 0 for a D they do not take: outside 1..256,
+// or a row that is not whole 16-byte words (bf16 D % 8, fp32 D % 4; the
+// wrapper pads such a D).
+int tile_dim(int dtype, int D) {
+  if (D < 1 || D > 256 || D * (dtype == 1 ? 2 : 4) % 16) return 0;
+  return D <= 64 ? 64 : D <= 128 ? 128 : 256;
+}
 
 }  // namespace
 
-// The four (dtype, head dim) instantiations of one launcher.
-#define HVD_DISPATCH(launcher, ...)                                       \
-  if (dtype == 1 && D == 64) return launcher<bf16, 64>(__VA_ARGS__);      \
-  if (dtype == 1 && D == 128) return launcher<bf16, 128>(__VA_ARGS__);    \
-  if (dtype == 0 && D == 64) return launcher<float, 64>(__VA_ARGS__);     \
-  if (dtype == 0 && D == 128) return launcher<float, 128>(__VA_ARGS__);   \
-  return kUnsupported
+// The six (dtype, tile width) instantiations of one launcher.
+#define HVD_DISPATCH(launcher, ...)                                   \
+  switch (dtype * 1000 + tile_dim(dtype, D)) {                        \
+    case 1064: return launcher<bf16, 64>(__VA_ARGS__);                \
+    case 1128: return launcher<bf16, 128>(__VA_ARGS__);               \
+    case 1256: return launcher<bf16, 256>(__VA_ARGS__);               \
+    case 64: return launcher<float, 64>(__VA_ARGS__);                 \
+    case 128: return launcher<float, 128>(__VA_ARGS__);               \
+    case 256: return launcher<float, 256>(__VA_ARGS__);               \
+    default: return kUnsupported;                                     \
+  }
 
 // C interface, bound with ctypes (horovod_tpu_torch/ops/_build.py).
-// dtype: 0 = fp32, 1 = bf16. `strides` holds (b, t, h) element strides of
-// each tensor argument in order. Forward modes: lse set = train; m and l
-// set = state (o is fp32). out_f32: the backward kernels write fp32
-// outputs. Segment ids: q_ids/k_ids are int32 [B, Tq] and [B, Tk], and
-// id_scratch the id tables of bf16 inputs (id_table_ints(B, Tq) +
-// id_table_ints(B, Tk) int32 values, 16-byte aligned):
+// dtype: 0 = fp32, 1 = bf16. D: the head dim (1..256; a multiple of 8 in
+// bf16, of 4 in fp32). `strides` holds (b, t, h) element strides of each
+// tensor argument in order. Forward modes: lse set = train; m and l set =
+// state (o is fp32). out_f32: the backward kernels write fp32 outputs.
+// Segment ids: q_ids/k_ids are int32 [B, Tq] and [B, Tk], and id_scratch
+// the id tables of bf16 inputs (id_table_ints(B, Tq) + id_table_ints(B,
+// Tk) int32 values, 16-byte aligned):
 //   q_ids, k_ids and id_scratch null: no segment ids;
 //   q_ids and k_ids set: fp32 reads them as given; bf16 first builds the
 //     tables from them into id_scratch, which must be set;
@@ -1778,18 +1854,23 @@ int hvd_flash_fwd(int dtype, int D, int B, int H, int Tq, int Tk, const void* q,
                   const void* q_ids, const void* k_ids, void* id_scratch,
                   const long long* strides, int causal, int q_off, int k_off, int window,
                   float scale, void* stream) {
-  HVD_DISPATCH(launch_fwd, B, H, Tq, Tk, q, k, v, o, lse, m, l, q_ids, k_ids, id_scratch,
+  HVD_DISPATCH(launch_fwd, D, B, H, Tq, Tk, q, k, v, o, lse, m, l, q_ids, k_ids, id_scratch,
                strides, causal, q_off, k_off, window, scale, (cudaStream_t)stream);
 }
 
-// Keys per tile of the forward kernel (P is rounded to bf16 against the
-// running max of each such tile), or -1 for an unsupported pair.
+// Keys per tile of the forward kernel at head dim D (P is rounded to bf16
+// against the running max of each such tile), or -1 for an unsupported
+// pair.
 int hvd_flash_fwd_key_tile(int dtype, int D) {
-  if (dtype == 1 && D == 64) return Sm90Cfg<64>::FBN;
-  if (dtype == 1 && D == 128) return Sm90Cfg<128>::FBN;
-  if (dtype == 0 && D == 64) return Cfg<float, 64>::BM;
-  if (dtype == 0 && D == 128) return Cfg<float, 128>::BM;
-  return kUnsupported;
+  switch (dtype * 1000 + tile_dim(dtype, D)) {
+    case 1064: return Sm90Cfg<64>::FBN;
+    case 1128: return Sm90Cfg<128>::FBN;
+    case 1256: return Sm90Cfg<256>::FBN;
+    case 64: return Cfg<float, 64>::BM;
+    case 128: return Cfg<float, 128>::BM;
+    case 256: return Cfg<float, 256>::BM;
+    default: return kUnsupported;
+  }
 }
 
 int hvd_flash_bwd_dq(int dtype, int D, int B, int H, int Tq, int Tk, const void* q,
@@ -1797,7 +1878,7 @@ int hvd_flash_bwd_dq(int dtype, int D, int B, int H, int Tq, int Tk, const void*
                      const void* delta, void* dq, const void* q_ids, const void* k_ids,
                      void* id_scratch, const long long* strides, int out_f32, int causal,
                      int q_off, int k_off, int window, float scale, void* stream) {
-  HVD_DISPATCH(launch_dq, B, H, Tq, Tk, q, k, v, dout, lse, delta, dq, q_ids, k_ids,
+  HVD_DISPATCH(launch_dq, D, B, H, Tq, Tk, q, k, v, dout, lse, delta, dq, q_ids, k_ids,
                id_scratch, strides, out_f32, causal, q_off, k_off, window, scale,
                (cudaStream_t)stream);
 }
@@ -1808,7 +1889,7 @@ int hvd_flash_bwd_dkv(int dtype, int D, int B, int H, int Tq, int Tk, const void
                       const void* k_ids, void* id_scratch, const long long* strides,
                       int out_f32, int causal, int q_off, int k_off, int window, float scale,
                       void* stream) {
-  HVD_DISPATCH(launch_dkv, B, H, Tq, Tk, q, k, v, dout, lse, delta, dk, dv, q_ids, k_ids,
+  HVD_DISPATCH(launch_dkv, D, B, H, Tq, Tk, q, k, v, dout, lse, delta, dk, dv, q_ids, k_ids,
                id_scratch, strides, out_f32, causal, q_off, k_off, window, scale,
                (cudaStream_t)stream);
 }

@@ -28,6 +28,15 @@ path for a CUDA caller.
 Layouts: q/k/v/dO are ``[B, T, H, D]``; ``lse``, ``delta``, ``m`` and
 ``l`` are fp32 ``[B, H, Tq]``; segment ids are integer ``[B, T]``. The
 kernels read q/k/v/dO by strides.
+
+Head dims: the kernels take fp32 and bf16 at any D from 1 to 256, each
+run at the smallest tile width of ``D_TILES`` that holds D
+(``kernel_layout``). An operand whose rows the kernels cannot read in
+place (D not a whole number of 16-byte words, or a pointer or stride off
+16 bytes) is copied into a contiguous buffer with D padded with zeros to a
+multiple of 8 (``needs_copy``; counted in ``LAYOUT_COPIES``), the same
+kernel runs on it, and the outputs are sliced back to D. fp16 inputs and
+D > 256 raise: they are the next slice's (ROADMAP §A).
 """
 
 from __future__ import annotations
@@ -40,16 +49,21 @@ import torch
 from . import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)
+# The head-dim tile widths the kernels are built at: a head dim D runs at
+# the smallest that holds it, with D itself passed at run time.
+D_TILES = (64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# Where the head dims and dtypes the kernels do not take yet are queued.
+_NEXT_SLICE = "queued in ROADMAP §A (the next slice)"
 
-# Keys per tile of the forward kernel, by (dtype, head dim): the state
+# Keys per tile of the forward kernel, by (dtype, tile width): the state
 # mode's P is rounded to bf16 against the running max of each such tile,
 # so a reference that rounds as the kernel does walks the keys in these
 # tiles. The library reports the tile its launcher uses
 # (``hvd_flash_fwd_key_tile``); ``chip_smoke.py`` holds the two equal.
 FWD_KEY_TILE = {(torch.bfloat16, 64): 128, (torch.bfloat16, 128): 128,
-                (torch.float32, 64): 64, (torch.float32, 128): 32}
+                (torch.bfloat16, 256): 64, (torch.float32, 64): 64,
+                (torch.float32, 128): 32, (torch.float32, 256): 32}
 
 # Launches of each kernel. flash_fwd counts its three output modes apart,
 # and the backward kernels their fp32-output mode; a launch with segment
@@ -57,11 +71,17 @@ FWD_KEY_TILE = {(torch.bfloat16, 64): 128, (torch.bfloat16, 128): 128,
 MODES = ("flash_fwd", "flash_fwd_train", "flash_fwd_state", "flash_bwd_dq",
          "flash_bwd_dkv", "flash_bwd_dq_f32", "flash_bwd_dkv_f32")
 LAUNCHES = {name: 0 for mode in MODES for name in (mode, mode + "_seg")}
+# Operands each wrapper copied into the kernels' layout (``needs_copy``):
+# a main path whose tensors the kernels read in place makes none.
+LAYOUT_COPIES = {name: 0 for name in ("flash_fwd", "flash_fwd_state",
+                                      "flash_bwd_dq", "flash_bwd_dkv")}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    """Zero ``LAUNCHES`` and ``LAYOUT_COPIES``."""
+    for counts in (LAUNCHES, LAYOUT_COPIES):
+        for name in counts:
+            counts[name] = 0
 
 
 def _launched(mode: str, q_seg) -> None:
@@ -186,6 +206,24 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal=True, q_off=0,
 # ---- kernel wrappers --------------------------------------------------------
 
 
+def kernel_layout(D: int, dtype: torch.dtype) -> Tuple[int, int]:
+    """(D_T, D_k) of head dim D: the tile width the kernels run it at (the
+    smallest of ``D_TILES`` that holds it) and the head dim they read, D
+    itself when a row of D values is a whole number of 16-byte words, else
+    D padded to the next multiple of 8 (bf16 D % 8, fp32 D % 4: TMA and
+    the 16-byte loads read whole words). Raises for a dtype without
+    kernels and for D outside 1..256."""
+    if dtype not in _DTYPE_CODE:
+        raise ValueError(f"dtype {dtype} not supported (float32, bfloat16; "
+                         f"float16 is {_NEXT_SLICE})")
+    if not 1 <= D <= D_TILES[-1]:
+        raise ValueError(f"head dim {D} not supported (1 to {D_TILES[-1]}; "
+                         f"wider heads are {_NEXT_SLICE})")
+    es = torch.finfo(dtype).bits // 8
+    Dk = D if D * es % 16 == 0 else -(-D // 8) * 8
+    return next(t for t in D_TILES if D <= t), Dk
+
+
 def _kernel_strides_ok(t: torch.Tensor) -> bool:
     """The kernels read 16 bytes at a time along a contiguous head dim;
     the bf16 kernels' TMA tensor maps also need a 16-byte-aligned base and
@@ -193,6 +231,29 @@ def _kernel_strides_ok(t: torch.Tensor) -> bool:
     es = t.element_size()
     return (t.stride(3) == 1 and t.data_ptr() % 16 == 0
             and all(t.stride(i) * es % 16 == 0 for i in range(3)))
+
+
+def needs_copy(t: torch.Tensor, Dk: int) -> bool:
+    """Whether the wrapper copies operand ``t`` into the kernels' layout
+    before a launch at head dim ``Dk`` (``kernel_layout``): when its head
+    dim is not Dk (it gets zero columns up to Dk) or the kernels cannot
+    read it by its strides."""
+    return t.shape[-1] != Dk or not _kernel_strides_ok(t)
+
+
+def _kernel_operands(name, Dk, *tensors):
+    """``tensors`` as the kernels read them at head dim ``Dk``: each as it
+    is, or a contiguous copy with zero columns from its D up to Dk (counted
+    in ``LAYOUT_COPIES[name]``)."""
+    out = []
+    for t in tensors:
+        if needs_copy(t, Dk):
+            c = t.new_zeros((*t.shape[:3], Dk))
+            c[..., :t.shape[-1]] = t
+            LAYOUT_COPIES[name] += 1
+            t = c
+        out.append(t)
+    return out
 
 
 def _use_kernel(name, q, *tensors, q_seg=None, k_seg=None) -> bool:
@@ -207,12 +268,11 @@ def _use_kernel(name, q, *tensors, q_seg=None, k_seg=None) -> bool:
         return False
     if q.device.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {q.device}")
-    if q.dtype not in _DTYPE_CODE:
-        raise ValueError(f"{name}: dtype {q.dtype} not supported "
-                         f"(float32, bfloat16)")
     B, _, H, D = q.shape
-    if D not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {D} not supported {HEAD_DIMS}")
+    try:
+        kernel_layout(D, q.dtype)
+    except ValueError as e:
+        raise ValueError(f"{name}: {e}") from None
     if B * H > 65535:
         raise ValueError(f"{name}: B*H = {B * H} exceeds the grid limit")
     for t in (q, *tensors[:3]):
@@ -221,10 +281,6 @@ def _use_kernel(name, q, *tensors, q_seg=None, k_seg=None) -> bool:
             raise ValueError(f"{name}: tensors must share dtype, batch, "
                              f"heads and head dim; got {q.dtype}{list(q.shape)}"
                              f" and {t.dtype}{list(t.shape)}")
-        if not _kernel_strides_ok(t):
-            raise ValueError(f"{name}: strides {t.stride()} not taken (head "
-                             f"dim contiguous, strides and pointer 16-byte "
-                             f"aligned)")
     if segs:
         for ids, t in zip(segs, (q, tensors[0])):
             if ids.dtype.is_floating_point or ids.shape != t.shape[:2]:
@@ -324,8 +380,10 @@ def _out_f32(name, q, out_dtype) -> bool:
 
 
 def _launch_fwd(q, k, v, o, lse, m, l, causal, q_off, k_off, window, q_seg,
-                k_seg, id_tables):
-    """One launch of the forward kernel in the mode its outputs select."""
+                k_seg, id_tables, scale):
+    """One launch of the forward kernel in the mode its outputs select, on
+    tensors the kernel reads and writes in place (outputs may be views);
+    ``scale`` the softmax scale of the true head dim."""
     B, Tq, H, D = q.shape
     q_ids, k_ids, scratch, tables = _seg_args("flash_fwd", q, k, q_seg,
                                               k_seg, id_tables)
@@ -336,9 +394,54 @@ def _launch_fwd(q, k, v, o, lse, m, l, causal, q_off, k_off, window, q_seg,
             k.data_ptr(), v.data_ptr(), o.data_ptr(), _ptr(lse), _ptr(m),
             _ptr(l), _ptr(q_ids), _ptr(k_ids), _ptr(scratch),
             _strides(q, k, v, o), int(causal), q_off, k_off, window or 0,
-            _scale(q), _stream(q))
+            scale, _stream(q))
     _build.check(lib, err, "flash_fwd")
     tables.built = scratch is not None
+
+
+def _launch_dq(q, k, v, do, lse, delta, dq, causal, q_off, k_off, window,
+               q_seg, k_seg, id_tables, scale):
+    """One launch of the dQ kernel into ``dq`` (fp32 or q's dtype), as
+    ``_launch_fwd``."""
+    B, Tq, H, D = q.shape
+    q_ids, k_ids, scratch, tables = _seg_args("flash_bwd_dq", q, k, q_seg,
+                                              k_seg, id_tables)
+    lib = _build.load("flash_attention")
+    with torch.cuda.device(q.device):
+        err = lib.hvd_flash_bwd_dq(
+            _DTYPE_CODE[q.dtype], D, B, H, Tq, k.shape[1], q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr(), _ptr(q_ids), _ptr(k_ids),
+            _ptr(scratch), _strides(q, k, v, do, dq),
+            int(dq.dtype == torch.float32), int(causal), q_off, k_off,
+            window or 0, scale, _stream(q))
+    _build.check(lib, err, "flash_bwd_dq")
+    tables.built = scratch is not None
+
+
+def _launch_dkv(q, k, v, do, lse, delta, dk, dv, causal, q_off, k_off,
+                window, q_seg, k_seg, id_tables, scale):
+    """One launch of the dK/dV kernel into ``dk`` and ``dv`` (both fp32 or
+    both the inputs' dtype), as ``_launch_fwd``."""
+    B, Tq, H, D = q.shape
+    q_ids, k_ids, scratch, tables = _seg_args("flash_bwd_dkv", q, k, q_seg,
+                                              k_seg, id_tables)
+    lib = _build.load("flash_attention")
+    with torch.cuda.device(q.device):
+        err = lib.hvd_flash_bwd_dkv(
+            _DTYPE_CODE[q.dtype], D, B, H, Tq, k.shape[1], q.data_ptr(),
+            k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(q_ids),
+            _ptr(k_ids), _ptr(scratch), _strides(q, k, v, do, dk, dv),
+            int(dk.dtype == torch.float32), int(causal), q_off, k_off,
+            window or 0, scale, _stream(q))
+    _build.check(lib, err, "flash_bwd_dkv")
+    tables.built = scratch is not None
+
+
+def _out(t, D):
+    """A kernel output of head dim D_k >= D, as the caller's D columns."""
+    return t if t.shape[-1] == D else t[..., :D]
 
 
 def flash_fwd(q, k, v, causal=True, q_off=0, k_off=0, window=None,
@@ -351,13 +454,15 @@ def flash_fwd(q, k, v, causal=True, q_off=0, k_off=0, window=None,
         return flash_fwd_plain(q, k, v, causal, q_off, k_off, window, q_seg,
                                k_seg, with_lse)
     B, Tq, H, D = q.shape
-    o = torch.empty_like(q, memory_format=torch.contiguous_format)
+    Dk = kernel_layout(D, q.dtype)[1]
+    qk, kk, vk = _kernel_operands("flash_fwd", Dk, q, k, v)
+    o = torch.empty((B, Tq, H, Dk), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
            if with_lse else None)
-    _launch_fwd(q, k, v, o, lse, None, None, causal, q_off, k_off, window,
-                q_seg, k_seg, id_tables)
+    _launch_fwd(qk, kk, vk, o, lse, None, None, causal, q_off, k_off, window,
+                q_seg, k_seg, id_tables, _scale(q))
     _launched("flash_fwd_train" if with_lse else "flash_fwd", q_seg)
-    return o, lse
+    return _out(o, D), lse
 
 
 def flash_fwd_state(q, k, v, causal=True, q_off=0, k_off=0, window=None,
@@ -370,13 +475,15 @@ def flash_fwd_state(q, k, v, causal=True, q_off=0, k_off=0, window=None,
         return flash_fwd_state_plain(q, k, v, causal, q_off, k_off, window,
                                      q_seg, k_seg)
     B, Tq, H, D = q.shape
-    acc = torch.empty((B, Tq, H, D), dtype=torch.float32, device=q.device)
+    Dk = kernel_layout(D, q.dtype)[1]
+    qk, kk, vk = _kernel_operands("flash_fwd_state", Dk, q, k, v)
+    acc = torch.empty((B, Tq, H, Dk), dtype=torch.float32, device=q.device)
     m, l = torch.empty((2, B, H, Tq), dtype=torch.float32,
                        device=q.device).unbind(0)
-    _launch_fwd(q, k, v, acc, None, m, l, causal, q_off, k_off, window,
-                q_seg, k_seg, id_tables)
+    _launch_fwd(qk, kk, vk, acc, None, m, l, causal, q_off, k_off, window,
+                q_seg, k_seg, id_tables, _scale(q))
     _launched("flash_fwd_state", q_seg)
-    return acc, m, l
+    return _out(acc, D), m, l
 
 
 def flash_bwd_dq(q, k, v, do, lse, delta, causal=True, q_off=0, k_off=0,
@@ -391,22 +498,14 @@ def flash_bwd_dq(q, k, v, do, lse, delta, causal=True, q_off=0, k_off=0,
     _row_stats_ok("flash_bwd_dq", q, lse, delta)
     out_f32 = _out_f32("flash_bwd_dq", q, out_dtype)
     B, Tq, H, D = q.shape
-    dq = torch.empty(q.shape, dtype=out_dtype or q.dtype, device=q.device)
-    q_ids, k_ids, scratch, tables = _seg_args("flash_bwd_dq", q, k, q_seg,
-                                              k_seg, id_tables)
-    lib = _build.load("flash_attention")
-    with torch.cuda.device(q.device):
-        err = lib.hvd_flash_bwd_dq(
-            _DTYPE_CODE[q.dtype], D, B, H, Tq, k.shape[1], q.data_ptr(),
-            k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr(), _ptr(q_ids), _ptr(k_ids),
-            _ptr(scratch), _strides(q, k, v, do, dq), int(out_f32),
-            int(causal), q_off, k_off, window or 0, _scale(q), _stream(q))
-    _build.check(lib, err, "flash_bwd_dq")
-    tables.built = scratch is not None
-    _launched("flash_bwd_dq_f32" if out_dtype == torch.float32
-              else "flash_bwd_dq", q_seg)
-    return dq
+    Dk = kernel_layout(D, q.dtype)[1]
+    ops = _kernel_operands("flash_bwd_dq", Dk, q, k, v, do)
+    dq = torch.empty((B, Tq, H, Dk), dtype=out_dtype or q.dtype,
+                     device=q.device)
+    _launch_dq(*ops, lse, delta, dq, causal, q_off, k_off, window, q_seg,
+               k_seg, id_tables, _scale(q))
+    _launched("flash_bwd_dq_f32" if out_f32 else "flash_bwd_dq", q_seg)
+    return _out(dq, D)
 
 
 def flash_bwd_dkv(q, k, v, do, lse, delta, causal=True, q_off=0, k_off=0,
@@ -420,33 +519,17 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, causal=True, q_off=0, k_off=0,
                                    k_off, window, q_seg, k_seg, out_dtype)
     _row_stats_ok("flash_bwd_dkv", q, lse, delta)
     out_f32 = _out_f32("flash_bwd_dkv", q, out_dtype)
-    B, Tq, H, D = q.shape
-    dk = torch.empty(k.shape, dtype=out_dtype or k.dtype, device=q.device)
-    dv = torch.empty(v.shape, dtype=out_dtype or v.dtype, device=q.device)
-    q_ids, k_ids, scratch, tables = _seg_args("flash_bwd_dkv", q, k, q_seg,
-                                              k_seg, id_tables)
-    lib = _build.load("flash_attention")
-    with torch.cuda.device(q.device):
-        err = lib.hvd_flash_bwd_dkv(
-            _DTYPE_CODE[q.dtype], D, B, H, Tq, k.shape[1], q.data_ptr(),
-            k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(q_ids),
-            _ptr(k_ids), _ptr(scratch), _strides(q, k, v, do, dk, dv),
-            int(out_f32), int(causal), q_off, k_off, window or 0, _scale(q),
-            _stream(q))
-    _build.check(lib, err, "flash_bwd_dkv")
-    tables.built = scratch is not None
-    _launched("flash_bwd_dkv_f32" if out_dtype == torch.float32
-              else "flash_bwd_dkv", q_seg)
-    return dk, dv
-
-
-def kernel_ready(t: torch.Tensor) -> torch.Tensor:
-    """``t`` itself when the kernels read it by strides, else a
-    contiguous copy (a CPU tensor is returned as it is)."""
-    if t.device.type == "cuda" and not _kernel_strides_ok(t):
-        return t.contiguous()
-    return t
+    B, Tk, H, D = k.shape
+    Dk = kernel_layout(D, q.dtype)[1]
+    ops = _kernel_operands("flash_bwd_dkv", Dk, q, k, v, do)
+    dk = torch.empty((B, Tk, H, Dk), dtype=out_dtype or k.dtype,
+                     device=q.device)
+    dv = torch.empty((B, Tk, H, Dk), dtype=out_dtype or v.dtype,
+                     device=q.device)
+    _launch_dkv(*ops, lse, delta, dk, dv, causal, q_off, k_off, window,
+                q_seg, k_seg, id_tables, _scale(q))
+    _launched("flash_bwd_dkv_f32" if out_f32 else "flash_bwd_dkv", q_seg)
+    return _out(dk, D), _out(dv, D)
 
 
 # ---- autograd ---------------------------------------------------------------
@@ -474,7 +557,6 @@ class _FlashAttention(torch.autograd.Function):
         q_seg, k_seg = ctx.segs
         causal, q_off, k_off, window = ctx.args
         delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-        do = kernel_ready(do)
         dq = flash_bwd_dq(q, k, v, do, lse, delta, causal, q_off, k_off,
                           window, q_seg, k_seg, id_tables=ctx.tables)
         dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal, q_off, k_off,

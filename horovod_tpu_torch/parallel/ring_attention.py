@@ -25,7 +25,7 @@ import torch
 from ..ops.collectives import ring_exchange
 from ..ops.flash_attention import (NEG_INF, flash_attention,
                                    flash_attention_block,
-                                   flash_attention_block_grads, kernel_ready)
+                                   flash_attention_block_grads)
 
 
 def expand_kv(k, v, g):
@@ -96,7 +96,6 @@ def _ring_forward(q, k, v, seg, axis, causal, window):
 class _RingAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, seg, axis, causal, window):
-        q, k, v = kernel_ready(q), kernel_ready(k), kernel_ready(v)
         o, lse = _ring_forward(q, k, v, seg, axis, causal, window)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.seg = seg
@@ -113,7 +112,6 @@ class _RingAttention(torch.autograd.Function):
         Tk, Hkv = k.shape[1], k.shape[2]
         g = H // Hkv
         delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-        do = kernel_ready(do)
         blocks = [k, v] if seg is None else [k, v, seg]
         dq = dk = dv = None
         for step in range(sp):

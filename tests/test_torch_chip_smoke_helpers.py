@@ -146,12 +146,13 @@ def test_rounded_plain_dq_matches_the_pallas_dq_kernel(causal):
 
 def test_rounded_plain_tile_comes_from_the_wrapper():
     """chip_smoke takes the tile from the wrapper module's FWD_KEY_TILE,
-    which names a tile for every (dtype, head dim) the kernels take."""
+    which names a tile for every (dtype, head-dim tile width) the kernels
+    are built at."""
     from horovod_tpu_torch.ops import flash_attention as fa
 
     assert set(fa.FWD_KEY_TILE) == {(dt, d) for dt in (torch.bfloat16,
                                                        torch.float32)
-                                    for d in fa.HEAD_DIMS}
+                                    for d in fa.D_TILES}
     src = open(os.path.join(REPO, "chip_smoke.py")).read()
     assert "fa.FWD_KEY_TILE[" in src
 
