@@ -6,6 +6,7 @@
     python3 chip_smoke.py --time-tree DIR [--outputs FILE]
                                             # kernel times of one checkout
     python3 chip_smoke.py --sbn-race RUNS [--keep OUT] [DIR[:RUNS] ...]
+    python3 chip_smoke.py --rounding-probe  # why D 1024's rounded limits
 
 Phases, in order (a, b, c, e, f, g, h, i, j, k, l, m, n, o, p, d); any
 failure exits nonzero:
@@ -15,10 +16,12 @@ failure exits nonzero:
     for sm_90a into ``build/horovod_tpu_torch/`` (the native core of
     ``csrc/hvd`` with g++ beside them), with each kernel's
     registers and spill bytes (``-Xptxas -v``) and HGMMA instructions
-    (``cuobjdump -sass``) logged for every instantiation (the three tile
-    widths 64, 128 and 256 of each kernel, with and without segment ids),
-    the build's seconds, and the forward's key tile in the library held
-    equal to ``FWD_KEY_TILE`` at each tile width.
+    (``cuobjdump -sass``) logged for every instantiation (fp32, bf16 and
+    fp16 at the three tile widths 64, 128 and 256 of each kernel and the
+    16-bit kernels' chunked instantiation past 256, with and without
+    segment ids; the attention source in three parts built at once), the
+    build's seconds, and the forward's key tile in the library held equal
+    to ``FWD_KEY_TILE`` at each tile width and past 256.
 (b) kernels: every mode of each kernel (forward plain, train and state;
     dQ and dK/dV in the input dtype and in fp32) against its plain
     PyTorch version on the card, by normwise relative error — at the
@@ -60,8 +63,21 @@ failure exits nonzero:
     writing its outputs through views of [B, T, H, D + 8] buffers whose
     spare columns hold NaN, checked after every launch; D 20 through the
     wrappers' zero-padded copies (counted), with ``flash_attention``'s
-    gradients; D 320 and fp16 raising; every mode timed at (c)'s width
-    runs' shapes, rows ``<mode>_d128`` and ``<mode>_d256``.
+    gradients; fp16 at D 64 and bf16 at D 320 through ``flash_attention``
+    and float64 raising; every mode timed at (c)'s width runs' shapes,
+    rows ``<mode>_d128`` and ``<mode>_d256``. Then fp16 (``fp16_cases``):
+    every mode at D 64, 80 and 256 (ragged with offsets and faults, and
+    windowed), with segment ids and ``id_patterns`` at 80, one document
+    bitwise, against the plain versions at 1e-3 and ``rounded_plain`` at
+    5e-5, timed at the slice's shape (rows ``<mode>_f16``) and at (c)'s
+    fp16 run's (``<mode>_f16_d128``); and head dims past 256
+    (``wide_cases``): every mode in fp32, bf16 and fp16 at D 264, 320 and
+    512 (ragged with offsets and faults) and 1024 (``rounded_plain`` at
+    ROUNDED_LIMITS_D1024), windowed and with ids at 320, all through the
+    NaN sentinels; the row statistics a library variant writes from its
+    last chunk bitwise those chunk 0 writes (``chunk_stats_cases``); timed
+    at (c)'s 512-wide run's shape (``<mode>_d512``, the library's flash
+    call refusing it).
 (c) the slice: a small transformer's loss and gradients through the
     kernels against the same model on the CPU; then the GPT-2-small-class
     trainer (12 layers, d_model 768, T 1024, bf16, batch 8) for 2 warm-up
@@ -77,7 +93,13 @@ failure exits nonzero:
     (2048, 8 heads of 256), 2 layers, RoPE, T 2048, batch 4, bf16, AdamW,
     1 + 3 steps and a no-grad forward: losses finite and falling, launches
     as the layers and steps say, no layout copy, tokens/s, step ms and
-    peak memory.
+    peak memory. Then ``user_runs``, built through ``hvd.init``,
+    ``Transformer(TransformerConfig(...))``, ``hvd.DistributedOptimizer``
+    and ``training.make_train_step``: the decoder in fp16 at Pythia-2.8B's
+    width and in bf16 at d_model 2048 over 4 heads of 512 (2 layers, T
+    2048, batch 4, 1 + 3 steps): losses finite (and falling in bf16),
+    launches as the layers and steps say, no layout copy, step ms and
+    tokens/s beside the card's name and power limit.
 (e) sp on the card: two worker processes on cuda:0 form an NCCL world
     (each its own ``NCCL_HOSTID``, so NCCL's duplicate-GPU check, which
     compares host hashes, lets two ranks share one card; sockets over
@@ -330,7 +352,7 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 
-BF16_PEAK = 989e12      # H100 SXM dense bf16 tensor-core FLOP/s
+BF16_PEAK = 989e12      # H100 SXM dense bf16 and fp16 tensor-core FLOP/s
 FP32_PEAK = 67e12       # H100 SXM fp32 FLOP/s outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 SOURCE = "horovod_tpu_torch/csrc/flash_attention.cu"
@@ -345,33 +367,50 @@ REPLACES = {"flash_fwd": f"{PALLAS}:643", "flash_fwd_train": f"{PALLAS}:695",
 # attention shows; a limit set by max |plain| would be set by the first
 # rows and keys, which are ~100x larger. On an H100 the bf16 rounding of
 # P, dS and the outputs gives 2.1e-3 to 2.7e-3, and a kernel that drops
-# the last tile of its loop reads 2e-2 or more.
-TOLERANCE = {"torch.bfloat16": 5e-3, "torch.float32": 1e-5}
+# the last tile of its loop reads 2e-2 or more. fp16 keeps 3 more bits
+# than bf16, so the same roundings move the outputs about 8 times less
+# (~3e-4); the dropped tile moves them as much.
+TOLERANCE = {"torch.bfloat16": 5e-3, "torch.float16": 1e-3,
+             "torch.float32": 1e-5}
 # What each limit covers: an output is held to the limit of the dtype its
 # products ran in. The row statistics (lse, m, l) come from fp32 scores of
 # exact products, so they take the fp32 limit; every other output went
-# through bf16 products when the inputs are bf16 (the state mode's fp32
-# acc sums P.V with P rounded to bf16; the fp32-output backward rounds P
-# and dS to bf16 before its products), so it takes the inputs' limit.
+# through 16-bit products when the inputs are bf16 or fp16 (the state
+# mode's fp32 acc sums P.V with P rounded to the inputs' dtype; the
+# fp32-output backward rounds P and dS before its products), so it takes
+# the inputs' limit.
 ROW_STATS = ("lse", "m", "l")
 # Keys (rows of q for dK/dV) that a planted last-tile fault drops: the
 # smallest tile any kernel loops over, so a kernel whose loop ends one tile
 # early loses at least this many; DROPPED_NARROW where a kernel streams
-# 32-row tiles (bf16 at the 256 tile width: dQ's keys, dK/dV's queries;
-# fp32 above the 64 tile width).
+# 32-row tiles (bf16 and fp16 at the 256 tile width and past it: dQ's
+# keys, dK/dV's queries; fp32 above the 64 tile width).
 DROPPED, DROPPED_NARROW = 64, 32
 # The bf16 limit cannot tell an fp32 output from one rounded through bf16:
 # the plain versions keep P and dS in fp32 (P rounded only against the
 # final row max), and that alone reads ~1.7e-3, as much as rounding the
-# output does. So the fp32 outputs of bf16 inputs (F32_OUTPUTS) are also
-# held against rounded_plain, which rounds P and dS to bf16 where the
-# kernels do, at ROUNDED_LIMIT; the same reference rounded through bf16
-# is a planted fault that must be refused. On the CPU, perturbing the
-# scores by fp32 summation order moves that comparison by ~3e-5, while
-# rounding the output through bf16 moves it by ~1.7e-3.
+# output does. So the fp32 outputs of 16-bit inputs (F32_OUTPUTS) are also
+# held against rounded_plain, which rounds P and dS to the inputs' dtype
+# where the kernels do, at ROUNDED_LIMITS (bf16's is ROUNDED_LIMIT); the
+# same reference rounded through that dtype is a planted fault that must
+# be refused. On the CPU, perturbing the scores by fp32 summation order
+# moves that comparison by ~3e-5 in bf16, while rounding the output
+# through bf16 moves it by ~1.7e-3; fp16's 3 more bits move both about 8
+# times less (the fault ~2e-4), so its limit is 5e-5.
 F32_OUTPUTS = {"flash_fwd_state": ("acc",), "flash_bwd_dq_f32": ("dQ",),
                "flash_bwd_dkv_f32": ("dK", "dV")}
 ROUNDED_LIMIT = 2e-4
+ROUNDED_LIMITS = {"torch.bfloat16": ROUNDED_LIMIT, "torch.float16": 5e-5}
+# At D 1024 the tensor cores' sums of S and dP over 1024 16-bit products
+# part from the plain versions' fp32 sums by enough to move the rounding
+# of P and dS: on the H100, rounded_plain with S and dP from cuBLAS's
+# tensor-core bmm (fp32 out) reads 2.37e-4 from the fp32 one in bf16 dQ
+# (3.9e-5 in fp16), while summing in fp64 moves it by only 3.5e-5. The
+# kernels read 2.34e-4 (bf16 dQ; 2.49e-4 dK) and 3.9e-5 (fp16) against
+# the fp32 reference, and 6.8e-5 and 3.8e-6 against the tensor-core one.
+# So D 1024 takes limits between those readings and the fault (the
+# output rounded through the dtype: 1.66e-3 bf16, 2.07e-4 fp16).
+ROUNDED_LIMITS_D1024 = {"torch.bfloat16": 5e-4, "torch.float16": 1e-4}
 
 
 def log(msg):
@@ -443,7 +482,7 @@ def visible_pairs(Tq, Tk, causal, q_off=0, k_off=0, window=None):
 def bound(nbytes, flops, dtype):
     import torch
 
-    peak = BF16_PEAK if dtype == torch.bfloat16 else FP32_PEAK
+    peak = FP32_PEAK if dtype == torch.float32 else BF16_PEAK
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
@@ -578,19 +617,20 @@ def kernel_report(name, path):
 
 
 def rounded_plain(mode, q, k, v, do, lse, delta, kw, tile):
-    """The F32_OUTPUTS of ``mode`` for bf16 inputs, computed as the kernels
-    round them: the forward walks the keys in tiles of ``tile`` (the
-    kernel's, ``FWD_KEY_TILE``), takes P = exp(S - running max) and rounds
-    it to bf16 before P.V, rescaling the fp32 accumulator as the max
-    grows; the backward rounds P (for dV) and dS (for dQ and dK) to bf16
-    before their products. Every other step is fp32, as in the kernels."""
+    """The F32_OUTPUTS of ``mode`` for 16-bit inputs, computed as the
+    kernels round them: the forward walks the keys in tiles of ``tile``
+    (the kernel's, ``FWD_KEY_TILE``), takes P = exp(S - running max) and
+    rounds it to the inputs' dtype before P.V, rescaling the fp32
+    accumulator as the max grows; the backward rounds P (for dV) and dS
+    (for dQ and dK) to that dtype before their products. Every other step
+    is fp32, as in the kernels."""
     import torch
 
     from horovod_tpu_torch.ops import flash_attention as fa
 
     args = (kw["causal"], kw["q_off"], kw["k_off"], kw["window"],
             kw.get("q_seg"), kw.get("k_seg"))
-    bf16 = torch.bfloat16
+    low = q.dtype   # the inputs' 16-bit dtype, bf16 or fp16
     if mode == "flash_fwd_state":
         s = fa._scores(q, k)
         allowed = fa._allowed(q, k, *args)
@@ -606,25 +646,26 @@ def rounded_plain(mode, q, k, v, do, lse, delta, kw, tile):
                                1.0)
             p = torch.where(st <= fa.NEG_INF / 2, 0.0, torch.exp(st - m_new))
             acc = acc * corr + torch.einsum(
-                "bhts,bshd->bhtd", p.to(bf16).float(),
+                "bhts,bshd->bhtd", p.to(low).float(),
                 v[:, k0:k0 + tile].float())
             m = m_new
         return (acc.transpose(1, 2),)
     p, ds = fa._probs_and_dscores(q, k, v, do, lse, delta, *args)
-    ds = ds.to(bf16).float()
+    ds = ds.to(low).float()
     if mode == "flash_bwd_dq_f32":
         return (torch.einsum("bhts,bshd->bthd", ds, k.float()),)
     return (torch.einsum("bhts,bthd->bshd", ds, q.float()),
-            torch.einsum("bhts,bthd->bshd", p.to(bf16).float(), do.float()))
+            torch.einsum("bhts,bthd->bshd", p.to(low).float(), do.float()))
 
 
-def check_modes(label, calls, in_dtype, rounded=None):
+def check_modes(label, calls, in_dtype, rounded=None,
+                rounded_limits=ROUNDED_LIMITS):
     """Each mode's kernel against its plain version, output by output;
-    with ``rounded`` (the inputs (q, k, v, do, lse, delta, kw), for bf16
+    with ``rounded`` (the inputs (q, k, v, do, lse, delta, kw), for 16-bit
     inputs) also each F32_OUTPUTS output against ``rounded_plain`` at
-    ROUNDED_LIMIT, with that reference rounded through bf16 as a fault
-    the comparison must refuse. Returns ({mode: max_abs_err}, {"mode
-    out": plain output})."""
+    ``rounded_limits``, with that reference rounded through the inputs'
+    dtype as a fault the comparison must refuse. Returns ({mode: max_abs_err},
+    {"mode out": plain output})."""
     import torch
 
     from horovod_tpu_torch.ops import flash_attention as fa
@@ -652,11 +693,12 @@ def check_modes(label, calls, in_dtype, rounded=None):
                           rounded_plain(mode, *rounded[:6], rounded[6], tile)):
             exact[f"{mode} {out}"] = w
             compare(f"{mode} {out} (rounded P/dS)", outs[out], w,
-                    ROUNDED_LIMIT, bad)
+                    rounded_limits[str(in_dtype)], bad)
         # (A culled block's zero state rounds to itself.)
-        refuse({n: w.to(torch.bfloat16).float() for n, w in exact.items()
+        refuse({n: w.to(in_dtype).float() for n, w in exact.items()
                 if w.abs().max() > 0}, exact, in_dtype,
-               "output rounded through bf16", tol=ROUNDED_LIMIT)
+               f"output rounded through {str(in_dtype)[6:]}",
+               tol=rounded_limits[str(in_dtype)])
     torch.cuda.synchronize()
     if bad:
         raise AssertionError(f"case {label}: kernels disagree with their "
@@ -690,7 +732,7 @@ def dropped_tile_faults(q, k, v, do, lse, delta, kw, names):
     from horovod_tpu_torch.ops import flash_attention as fa
 
     tile = fa.kernel_layout(q.shape[-1], q.dtype)[0]
-    wide = tile == 64 or (q.dtype == torch.bfloat16 and tile == 128)
+    wide = tile == 64 or (q.dtype != torch.float32 and tile == 128)
     drop = DROPPED if wide else DROPPED_NARROW
 
     def cut(ids):
@@ -966,7 +1008,7 @@ def sentinel_modes(q, k, v, do, lse, delta, kw, names=OUTPUTS):
 def kernel_case(label, B, T, H, D, dtype, causal, window=None, Tk=None,
                 q_off=0, k_off=0, fused=False, timing=False, segments=0,
                 packed_over=0, ids=None, faults=False, timed=None,
-                sentinel=False):
+                sentinel=False, rounded=True):
     """Every kernel mode against its plain version on one shape; with
     ``fused`` q/k/v are views of one [B, T, 3, H, D] tensor, as the
     model's qkv projection gives them; with ``segments`` that many
@@ -978,8 +1020,10 @@ def kernel_case(label, B, T, H, D, dtype, causal, window=None, Tk=None,
     last-tile faults; with ``timing`` the time of
     every mode in ``timed`` (default all); with ``sentinel`` every kernel
     launch through ``sentinel_modes`` (NaN past column D of every operand
-    and output, checked after each launch). Returns {kernel: row} for the
-    table."""
+    and output, checked after each launch); 16-bit inputs' fp32 outputs
+    also against ``rounded_plain`` at ROUNDED_LIMITS, or at ``rounded``'s
+    limits where it is a dict, unless it is False. Returns {kernel: row}
+    for the table."""
     import torch
 
     Tk = Tk or T
@@ -1015,8 +1059,10 @@ def kernel_case(label, B, T, H, D, dtype, causal, window=None, Tk=None,
     delta = (do.float() * o_ref.float()).sum(-1).transpose(1, 2).contiguous()
     args = (q, k, v, do, lse_ref, delta)
     calls = (sentinel_modes if sentinel else modes)(*args, kw)
-    errs, refs = check_modes(label, calls, dtype,
-                             (*args, kw) if dtype == torch.bfloat16 else None)
+    errs, refs = check_modes(
+        label, calls, dtype,
+        (*args, kw) if rounded and dtype != torch.float32 else None,
+        rounded if isinstance(rounded, dict) else ROUNDED_LIMITS)
     if segments:
         empty_rows(q, k, v, kw)
         blind = dict(kw, q_seg=None, k_seg=None)
@@ -1189,18 +1235,20 @@ def forward_tiles(q_ids, k_ids, causal, q_off=0, k_off=0, window=None):
     return computed, one_id, streamed, in_range
 
 
-def id_pattern_cases(dims=(64, 128), sentinel=False):
+def id_pattern_cases(dims=(64, 128), sentinel=False, dtype=None):
     """Every mode with each of ``id_patterns`` against its plain version,
-    bf16 at each head dim of ``dims`` (B=2 unless the pattern says, 4
-    heads), ignoring the ids and dropping the last tile refused; with
-    ``sentinel`` through ``sentinel_modes``."""
+    in ``dtype`` (default bf16) at each head dim of ``dims`` (B=2 unless
+    the pattern says, 4 heads), ignoring the ids and dropping the last
+    tile refused; with ``sentinel`` through ``sentinel_modes``."""
     import torch
 
+    dtype = dtype or torch.bfloat16
+    tag = "" if dtype == torch.bfloat16 else f"-{str(dtype)[6:]}"
     for label, (ids, kw) in id_patterns().items():
         kw = dict(kw)
         T, causal, B = kw.pop("T"), kw.pop("causal"), kw.pop("B", 2)
         for D in dims:
-            kernel_case(f"{label}-d{D}", B, T, 4, D, torch.bfloat16, causal,
+            kernel_case(f"{label}-d{D}{tag}", B, T, 4, D, dtype, causal,
                         ids=ids, faults=True, sentinel=sentinel, **kw)
 
 
@@ -1212,16 +1260,18 @@ def bits(t):
 
 
 def one_document_case(label, B, T, H, D, Tk=None, q_off=0, k_off=0,
-                      fused=False):
+                      fused=False, dtype=None):
     """All-equal ids: every tile takes the id-free path, so every mode
     (the forward's three and the backward's four) with them must give
-    bitwise the outputs of the same launches without ids."""
+    bitwise the outputs of the same launches without ids (``dtype``
+    default bf16)."""
     import torch
 
     from horovod_tpu_torch.ops import flash_attention as fa
 
     Tk = Tk or T
-    q, k, v, do = case_inputs(B, T, Tk, H, D, torch.bfloat16, fused, seed=3)
+    dtype = dtype or torch.bfloat16
+    q, k, v, do = case_inputs(B, T, Tk, H, D, dtype, fused, seed=3)
     kw = dict(causal=True, q_off=q_off, k_off=k_off, window=None)
     o, lse = fa.flash_fwd_plain(q, k, v, with_lse=True, **kw)
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
@@ -1240,7 +1290,7 @@ def one_document_case(label, B, T, H, D, Tk=None, q_off=0, k_off=0,
             n = int((bits(a) != bits(b)).sum())
             if n:
                 differ.append(f"{name} {out}: {n} elements")
-    log(f"case {label}: B={B} Tq={T} Tk={Tk} H={H} D={D} bf16 causal "
+    log(f"case {label}: B={B} Tq={T} Tk={Tk} H={H} D={D} {dtype} causal "
         f"q_off={q_off} k_off={k_off}, one document: every mode with "
         f"all-equal ids {'bitwise' if not differ else 'NOT bitwise'} the "
         f"launches without ids {differ or ''}")
@@ -2057,10 +2107,19 @@ def expected_launches(layers, steps, remat=False, microbatches=1):
 # takes them, depth cut from 32 and 16 layers to WIDTH_LAYERS.
 WIDTHS = {"pythia-2.8b": (2560, 32), "pythia-1b": (2048, 8)}
 WIDTH_LAYERS, WIDTH_STEPS = 2, (1, 3)   # layers; warm-up and timed steps
-WIDTH_FLAGS = ["--n-layers", str(WIDTH_LAYERS), "--seq-len", "2048",
-               "--batch-size", "4", "--rope",
+WIDTH_SEQ, WIDTH_BATCH = 2048, 4
+WIDTH_FLAGS = ["--n-layers", str(WIDTH_LAYERS), "--seq-len", str(WIDTH_SEQ),
+               "--batch-size", str(WIDTH_BATCH), "--rope",
                "--num-warmup", str(WIDTH_STEPS[0]),
                "--num-iters", str(WIDTH_STEPS[1])]
+# (c)'s runs at configurations transformer_bench has no flag for, built
+# through the library's entry points: the decoder in fp16 at Pythia-2.8B's
+# width (its released checkpoints are fp16), and in bf16 at 4 heads of 512
+# (no model of the repo's set has heads past 256; the JAX TransformerConfig
+# takes them, and they run every kernel in chunks). Each: (the
+# TransformerConfig fields it sets, its kernel-table rows' suffix).
+FP16_RUN = (dict(d_model=2560, n_heads=32, dtype="float16"), "_f16_d128")
+WIDE_RUN = (dict(d_model=2048, n_heads=4, dtype="bfloat16"), "_d512")
 
 
 def width_runs(gpu):
@@ -2114,6 +2173,100 @@ def width_runs(gpu):
             raise AssertionError(f"{name}: bad no-grad logits")
         counts.update({f"{m}_d{tile}": launches[m] for m in OUTPUTS})
         del run, logits
+        torch.cuda.empty_cache()
+    return counts
+
+
+def user_runs(gpu):
+    """(c)'s FP16_RUN and WIDE_RUN, each built as a user builds a trainer:
+    ``hvd.init``, ``models.transformer.Transformer(TransformerConfig(...))``,
+    ``hvd.DistributedOptimizer`` over AdamW and
+    ``training.make_train_step`` (WIDTH_LAYERS layers, RoPE, T WIDTH_SEQ,
+    batch WIDTH_BATCH, WIDTH_STEPS steps), then one no-grad forward. Every
+    loss finite (and in bf16 the last below the first: pure fp16 AdamW
+    with no loss scaling need not fall every step, and fell 11.33 to 9.94
+    on an H100 with a rise at the last step), the kernels launched as
+    ``expected_launches`` says (the no-grad forward's plain mode once a
+    layer), no layout copy; step ms, tokens/s and peak memory. Returns
+    {"<mode><suffix>": launches} for the kernel line."""
+    import numpy as np
+    import torch
+
+    import horovod_tpu_torch as hvd
+    from horovod_tpu_torch.models.transformer import (Transformer,
+                                                      TransformerConfig)
+    from horovod_tpu_torch.ops import flash_attention as fa
+    from horovod_tpu_torch.training import make_train_step
+
+    hvd.init()
+    dev = hvd.device()
+    counts = {}
+    for kw, suffix in (FP16_RUN, WIDE_RUN):
+        kw = dict(kw)
+        dtype = getattr(torch, kw.pop("dtype"))
+        d_model, heads = kw["d_model"], kw["n_heads"]
+        D = d_model // heads
+        cfg = TransformerConfig(vocab=50304, d_head=D, d_ff=4 * d_model,
+                                n_layers=WIDTH_LAYERS, max_seq=WIDTH_SEQ,
+                                dtype=dtype, rope=True, **kw)
+        torch.cuda.reset_peak_memory_stats(dev)
+        model = Transformer(cfg, device=dev, seed=0)
+        # AdamW's default eps 1e-8 rounds to 0 in fp16 and would divide
+        # the zero moments of an embedding row no token reads by zero.
+        eps = 1e-4 if dtype == torch.float16 else 1e-8
+        opt = hvd.DistributedOptimizer(
+            torch.optim.AdamW(model.parameters(), lr=3e-4, weight_decay=1e-4,
+                              eps=eps),
+            named_parameters=model.named_parameters())
+        step = make_train_step(model, opt)
+        rng = np.random.RandomState(0)
+        tokens = torch.as_tensor(rng.randint(0, cfg.vocab,
+                                             (WIDTH_BATCH, WIDTH_SEQ)),
+                                 device=dev)
+        labels = torch.roll(tokens, -1, dims=1)
+        fa.reset_launches()
+        losses = [step(tokens, labels) for _ in range(WIDTH_STEPS[0])]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses += [step(tokens, labels) for _ in range(WIDTH_STEPS[1])]
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        losses = [float(x) for x in losses]
+        train = dict(fa.LAUNCHES)
+        with torch.no_grad():
+            logits = model(tokens)
+        torch.cuda.synchronize()
+        launches, copies = dict(fa.LAUNCHES), dict(fa.LAYOUT_COPIES)
+        step_ms = 1e3 * dt / WIDTH_STEPS[1]
+        log(f"    {dtype} d_model {d_model}, {heads} heads of {D} "
+            f"({fa.chunks(D, dtype)} chunk(s) of tile width "
+            f"{fa.kernel_layout(D, dtype)[0]}), {WIDTH_LAYERS} layers, T "
+            f"{WIDTH_SEQ}, batch {WIDTH_BATCH}, AdamW eps {eps:g}: losses "
+            f"{[round(x, 4) for x in losses]}; step {step_ms:.2f} ms, "
+            f"{WIDTH_BATCH * WIDTH_SEQ / (dt / WIDTH_STEPS[1]):.1f} tokens/s, "
+            f"peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} "
+            f"GiB on {gpu}; launches {launches}; layout copies {copies}")
+        want = expected_launches(WIDTH_LAYERS, sum(WIDTH_STEPS))
+        got = {k: train[k] for k in want}
+        if got != want:
+            raise AssertionError(f"{dtype} D {D}: launches {got}, expected "
+                                 f"{want}")
+        if launches["flash_fwd"] != WIDTH_LAYERS:
+            raise AssertionError(f"{dtype} D {D}: the no-grad forward "
+                                 f"launched {launches['flash_fwd']} plain "
+                                 f"forwards")
+        if any(copies.values()):
+            raise AssertionError(f"{dtype} D {D}: layout copies {copies}, "
+                                 f"expected none")
+        falling = losses[-1] < losses[0] or dtype == torch.float16
+        if not all(math.isfinite(x) for x in losses) or not falling:
+            raise AssertionError(f"{dtype} D {D}: losses {losses} not finite "
+                                 f"(and, in bf16, falling)")
+        if logits.shape != (WIDTH_BATCH, WIDTH_SEQ, cfg.vocab) or \
+                not torch.isfinite(logits).all():
+            raise AssertionError(f"{dtype} D {D}: bad no-grad logits")
+        counts.update({f"{m}{suffix}": launches[m] for m in OUTPUTS})
+        del model, opt, step, logits
         torch.cuda.empty_cache()
     return counts
 
@@ -6338,8 +6491,10 @@ def copy_path_case():
     columns (``LAYOUT_COPIES``, one per operand and launch), launches the
     same kernels and slices the outputs. Every mode against its plain
     version, then ``flash_attention``'s output and gradients through
-    autograd against the plain version's. Head dim 320 and fp16 inputs
-    raise, naming ROADMAP §A."""
+    autograd against the plain version's. Then fp16 at D 64 and bf16 at D
+    320 run through ``flash_attention`` (forward and backward, finite and
+    within the limit of the plain version), and float64 inputs, for which
+    there is no kernel, raise."""
     import torch
 
     from horovod_tpu_torch.ops import flash_attention as fa
@@ -6373,17 +6528,30 @@ def copy_path_case():
     if bad:
         raise AssertionError(f"d20: flash_attention through autograd "
                              f"disagrees with the plain version: {bad}")
-    for shape, dt in (((1, 64, 2, 320), bf16), ((1, 64, 2, 64),
-                                                torch.float16)):
-        x = torch.zeros(shape, dtype=dt, device="cuda")
-        try:
-            fa.flash_attention(x, x, x)
-        except ValueError as e:
-            if "ROADMAP §A" not in str(e):
-                raise
-            log(f"  {dt} D={shape[-1]} raises: {e}")
-        else:
-            raise AssertionError(f"{dt} D={shape[-1]} did not raise")
+    for D, dt in ((320, bf16), (64, torch.float16)):
+        q, k, v, do = case_inputs(1, 256, 256, 2, D, dt, False, seed=4)
+        got, want = [], []
+        for fn, out in ((fa.flash_attention, got),
+                        (lambda *a, **kw: fa.flash_fwd_plain(*a, **kw)[0],
+                         want)):
+            leaves = [x.detach().requires_grad_() for x in (q, k, v)]
+            o = fn(*leaves, causal=True)
+            o.backward(do)
+            out += [o.detach(), *(x.grad for x in leaves)]
+        for name, g, w in zip(("O", "dQ", "dK", "dV"), got, want):
+            if g.dtype != dt or not bool(torch.isfinite(g).all()):
+                bad.append(f"{dt} D={D} {name} {g.dtype}")
+            compare(f"{dt} D={D} flash_attention {name}", g, w,
+                    TOLERANCE[str(dt)], bad)
+    if bad:
+        raise AssertionError(f"flash_attention at fp16 and D 320: {bad}")
+    x = torch.zeros((1, 64, 2, 64), dtype=torch.float64, device="cuda")
+    try:
+        fa.flash_attention(x, x, x)
+    except ValueError as e:
+        log(f"  torch.float64 raises: {e}")
+    else:
+        raise AssertionError("float64 inputs did not raise")
 
 
 def head_dim_cases():
@@ -6392,9 +6560,11 @@ def head_dim_cases():
     offsets and the planted last-tile faults, and with a window; fp32
     ragged with offsets at 80 and 256; ``id_patterns`` at 80 and 256;
     all through ``sentinel_modes``. Then D 20 through the copy path
-    (``copy_path_case``), and every mode timed at the width runs' shapes
-    in (c) (B 4, T 2048, causal, q/k/v views of one qkv tensor: 32 heads
-    of 80, 8 of 256), their rows named ``<mode>_d<tile width>``."""
+    (``copy_path_case``), fp16 (``fp16_cases``) and the head dims past 256
+    (``wide_cases``), and every mode timed at the width runs' shapes in (c)
+    (B 4, T 2048, causal, q/k/v views of one qkv tensor: 32 heads of 80,
+    8 of 256), their rows named ``<mode>_d<tile width>``, with (c)'s fp16
+    and 512-wide runs' rows from ``fp16_cases`` and ``wide_cases``."""
     import torch
 
     from horovod_tpu_torch.ops import flash_attention as fa
@@ -6414,11 +6584,218 @@ def head_dim_cases():
     for name, (d_model, heads) in WIDTHS.items():
         D = d_model // heads
         tile = fa.kernel_layout(D, bf16)[0]
-        timed = kernel_case(f"{name}-heads", 4, 2048, heads, D, bf16, True,
-                            fused=True, timing=True)
-        rows.update({f"{m}_d{tile}": dict(row, name=f"{m}_d{tile}")
-                     for m, row in timed.items()})
+        rows.update(renamed(kernel_case(f"{name}-heads", 4, 2048, heads, D,
+                                        bf16, True, fused=True, timing=True),
+                            f"_d{tile}"))
+    rows.update(fp16_cases())
+    rows.update(wide_cases())
     return rows
+
+
+def renamed(rows, suffix):
+    """Kernel-table rows of ``kernel_case`` named ``<mode><suffix>``."""
+    return {f"{m}{suffix}": dict(row, name=f"{m}{suffix}")
+            for m, row in rows.items()}
+
+
+def fp16_cases():
+    """fp16 in every mode of the three 16-bit kernels against the plain
+    versions (limit ``TOLERANCE["torch.float16"]``, and the fp32 outputs
+    against ``rounded_plain`` rounding P and dS to fp16): at the slice's
+    shape (timed: rows ``<mode>_f16``, no main path; with the planted
+    last-tile faults), ragged with offsets and faults at D 64, 80 and 256
+    and windowed at 80, all through ``sentinel_modes``; with segment ids
+    (4 random segments at D 128 with offsets, ``id_patterns`` at D 80 with
+    the faults, and one document bitwise the launches without ids); then
+    timed at the fp16 run's shape
+    in (c) (Pythia-2.8B's heads: B 4, T 2048, 32 heads of 80), rows
+    ``<mode>_f16_d128``."""
+    import torch
+
+    f16 = torch.float16
+    rows = renamed(kernel_case("slice-f16", 8, 1024, 12, 64, f16, True,
+                               fused=True, timing=True, faults=True), "_f16")
+    for D in (64, 80, 256):
+        kernel_case(f"f16-d{D}-ragged-offsets", 2, 1000, 4, D, f16, True,
+                    Tk=700, q_off=300, faults=True, sentinel=True)
+    kernel_case("f16-d80-window", 2, 1024, 4, 80, f16, True, window=256,
+                sentinel=True)
+    kernel_case("f16-d128-offsets-segments", 2, 1000, 4, 128, f16, True,
+                Tk=700, q_off=300, segments=4)
+    id_pattern_cases(dims=(80,), sentinel=True, dtype=f16)
+    one_document_case("one-document-f16", 4, 1024, 8, 64, fused=True,
+                      dtype=f16)
+    d_model, heads = FP16_RUN[0]["d_model"], FP16_RUN[0]["n_heads"]
+    rows.update(renamed(kernel_case(
+        "pythia-2.8b-heads-f16", 4, 2048, heads, d_model // heads, f16, True,
+        fused=True, timing=True), "_f16_d128"))
+    return rows
+
+
+def rounding_probe():
+    """``python3 chip_smoke.py --rounding-probe``: the readings behind
+    ROUNDED_LIMITS_D1024. For bf16 and fp16, at wide_cases' D 512 shape
+    and at its D 1024 shape, each F32_OUTPUTS output of the kernels
+    against ``rounded_plain`` with S and dP summed three ways: in fp32 (the
+    plain versions' sums), in fp64 rounded to fp32, and by the tensor
+    cores (cuBLAS bmm of the 16-bit inputs, fp32 out); beside the fault,
+    the fp32-summed reference rounded through the dtype. Checks nothing."""
+    import torch
+
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    if not torch.cuda.is_available():
+        log("chip_smoke: no CUDA device")
+        return 2
+    log(card())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    einsum, low = torch.einsum, [None]
+    spec = "bthd,bshd->bhts"     # fa._scores' S and fa's dP
+
+    def fp64(s, *ops):
+        if s != spec:
+            return einsum(s, *ops)
+        return einsum(s, *[o.double() for o in ops]).float()
+
+    def tensor_cores(s, *ops):
+        if s != spec:
+            return einsum(s, *ops)
+        a, b = (o.to(low[0]) for o in ops)
+        B, T, H, D = a.shape
+        x = a.permute(0, 2, 1, 3).reshape(B * H, T, D)
+        y = b.permute(0, 2, 3, 1).reshape(B * H, D, b.shape[1])
+        return torch.bmm(x, y, out_dtype=torch.float32).reshape(
+            B, H, T, b.shape[1])
+
+    def reference(sums, *args):
+        torch.einsum = sums
+        try:
+            return rounded_plain(*args)
+        finally:
+            torch.einsum = einsum
+
+    for dtype in (torch.bfloat16, torch.float16):
+        low[0] = dtype
+        for B, T, Tk, H, D, q_off in ((2, 1000, 700, 4, 512, 300),
+                                      (1, 512, 512, 2, 1024, 0)):
+            q, k, v, do = case_inputs(B, T, Tk, H, D, dtype, False)
+            kw = dict(causal=True, q_off=q_off, k_off=0, window=None)
+            o, lse = fa.flash_fwd_plain(q, k, v, with_lse=True, **kw)
+            delta = (do.float() * o.float()).sum(-1).transpose(
+                1, 2).contiguous()
+            tile = fa.FWD_KEY_TILE[(dtype, fa.kernel_layout(D, dtype)[0])]
+            for mode, (kern, _) in modes(q, k, v, do, lse, delta, kw,
+                                         list(F32_OUTPUTS)).items():
+                args = (mode, q, k, v, do, lse, delta, kw, tile)
+                refs = [reference(sums, *args)
+                        for sums in (einsum, fp64, tensor_cores)]
+                outs = kern()
+                for i, out in enumerate(F32_OUTPUTS[mode]):
+                    got, f32, f64, tc = outs[i], *(r[i] for r in refs)
+                    log(f"  {str(dtype)[6:]} B={B} Tq={T} Tk={Tk} H={H} "
+                        f"D={D} {mode} {out}: kernel vs fp32 sums "
+                        f"{rel_err(got, f32):.3e}, vs fp64 "
+                        f"{rel_err(got, f64):.3e}, vs tensor cores "
+                        f"{rel_err(got, tc):.3e}; fp32 vs fp64 "
+                        f"{rel_err(f32, f64):.3e}, fp32 vs tensor cores "
+                        f"{rel_err(f32, tc):.3e}; fault "
+                        f"{rel_err(f32.to(dtype).float(), f32):.3e}")
+    return 0
+
+
+# The library variant whose last chunk of output columns writes the row
+# statistics (chunk 0 does in the library the port loads).
+STATS_VARIANT = ("HVD_STATS_LAST_CHUNK",)
+
+
+@contextlib.contextmanager
+def attention_library(lib):
+    """Launch the attention kernels from ``lib`` (a variant of the library)
+    while the block runs."""
+    from horovod_tpu_torch.ops import _build
+
+    saved = _build.load("flash_attention")
+    _build._loaded["flash_attention"] = lib
+    try:
+        yield
+    finally:
+        _build._loaded["flash_attention"] = saved
+
+
+def chunk_stats_cases(variant):
+    """Past 256 every chunk of output columns computes the row statistics
+    and chunk 0 writes them. ``variant`` (the library built with
+    STATS_VARIANT, where the last chunk writes them) must give bitwise the
+    lse (train mode) and m and l (state mode) the port's library gives,
+    in bf16, fp16 and fp32 at D 512 (2 chunks) and 1024 (4 chunks)."""
+    import torch
+
+    from horovod_tpu_torch.ops import _build
+    from horovod_tpu_torch.ops import flash_attention as fa
+
+    variant = _build.bind("flash_attention", variant)
+    f32 = torch.float32
+    for dtype in (torch.bfloat16, torch.float16, f32):
+        for D in (512, 1024):
+            B, T, H = 2, 700, 4
+            q, k, v, _ = case_inputs(B, T, T, H, D, dtype, False, seed=6)
+            kw = dict(causal=True, q_off=0, k_off=0, window=None,
+                      q_seg=None, k_seg=None, id_tables=None,
+                      scale=D ** -0.5)
+
+            def stats():
+                o = torch.empty_like(q)
+                lse = torch.empty((B, H, T), dtype=f32, device="cuda")
+                fa._launch_fwd(q, k, v, o, lse, None, None, **kw)
+                acc = torch.empty(q.shape, dtype=f32, device="cuda")
+                m, l = torch.empty((2, B, H, T), dtype=f32,
+                                   device="cuda").unbind(0)
+                fa._launch_fwd(q, k, v, acc, None, m, l, **kw)
+                return lse, m, l
+
+            first = stats()
+            with attention_library(variant):
+                last = stats()
+            n = fa.chunks(D, dtype)
+            differ = [name for name, a, b in zip(("lse", "m", "l"), last,
+                                                 first)
+                      if not torch.equal(bits(a), bits(b))]
+            log(f"case chunk-stats-d{D}-{str(dtype)[6:]}: the row "
+                f"statistics chunk {n - 1} of {n} writes "
+                f"{'bitwise' if not differ else 'NOT bitwise'} chunk 0's "
+                f"{differ or ''}")
+            if n < 2 or differ:
+                raise AssertionError(f"chunk statistics at D {D} {dtype}: "
+                                     f"{n} chunks, differ {differ}")
+
+
+def wide_cases():
+    """Head dims past 256, in chunks of 256 output columns: every mode in
+    bf16, fp16 and fp32 at D 264, 320 and 512, ragged with offsets and the
+    planted faults, through ``sentinel_modes`` (NaN past column D of every
+    operand and output); windowed and with 4 random segments at D 320 in
+    bf16 and fp16; every mode at D 1024 in each dtype (4 chunks); then
+    timed at (c)'s 512-wide run's shape (B 4, T 2048, 4 heads of 512,
+    bf16), rows ``<mode>_d512``."""
+    import torch
+
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    for dt in (bf16, f16, f32):
+        tag = str(dt)[6:]
+        for D in (264, 320, 512):
+            kernel_case(f"wide-{tag}-d{D}-ragged-offsets", 2, 1000, 4, D, dt,
+                        True, Tk=700, q_off=300, faults=True, sentinel=True)
+        kernel_case(f"wide-{tag}-d1024", 1, 512, 2, 1024, dt, True,
+                    sentinel=True, rounded=ROUNDED_LIMITS_D1024)
+    for dt in (bf16, f16):
+        tag = str(dt)[6:]
+        kernel_case(f"wide-{tag}-d320-window", 2, 1024, 4, 320, dt, True,
+                    window=256, sentinel=True)
+        kernel_case(f"wide-{tag}-d320-segments", 2, 1000, 4, 320, dt, True,
+                    Tk=700, q_off=300, segments=4, sentinel=True)
+    d_model, heads = WIDE_RUN[0]["d_model"], WIDE_RUN[0]["n_heads"]
+    return renamed(kernel_case("heads-512", 4, 2048, heads, d_model // heads,
+                               bf16, True, fused=True, timing=True), "_d512")
 
 
 def device_and_kernels(started):
@@ -6450,16 +6827,25 @@ def device_and_kernels(started):
         core = pool.submit(native.build)
         libs = _build.build_all(verbose=True)
         core = core.result()
+    # The row statistics' variant builds while (b) runs, for
+    # chunk_stats_cases at its end.
+    pool = ThreadPoolExecutor(max_workers=1)
+    variant = pool.submit(_build.build, "flash_attention",
+                          defines=STATS_VARIANT)
+    pool.shutdown(wait=False)
     log(f"    built {', '.join(str(p.relative_to(REPO)) for p in libs.values())}"
         f" and {core.relative_to(REPO)} in {time.perf_counter() - t0:.1f} s")
     for name, path in libs.items():
         kernel_report(name, path)
     lib = _build.load("flash_attention")
+    # Each tile width's key tile, and past 256 (the chunked kernels) the
+    # 256 width's.
     for (dt, d), tile in fa.FWD_KEY_TILE.items():
-        got = lib.hvd_flash_fwd_key_tile(fa._DTYPE_CODE[dt], d)
-        if got != tile:
-            raise AssertionError(f"the forward's key tile at {dt}, D={d} is "
-                                 f"{got}; FWD_KEY_TILE says {tile}")
+        for D in (d, 512) if d == fa.D_TILES[-1] else (d,):
+            got = lib.hvd_flash_fwd_key_tile(fa._DTYPE_CODE[dt], D)
+            if got != tile:
+                raise AssertionError(f"the forward's key tile at {dt}, D={D} "
+                                     f"is {got}; FWD_KEY_TILE says {tile}")
 
     # (b) kernels against their plain versions
     log(f"(b) kernels {since()}")
@@ -6524,6 +6910,7 @@ def device_and_kernels(started):
     # Head dims other than 64 and 128, and the rows of every mode at the
     # 128 and 256 tile widths (the shapes of (c)'s width runs).
     table.update(head_dim_cases())
+    chunk_stats_cases(variant.result())
 
     return gpu, table, seg_table
 
@@ -6633,6 +7020,12 @@ def main():
     # The decoder at head dims 80 and 256 (the 128 and 256 tile widths).
     log(f"    width runs {since()}")
     launches.update(width_runs(gpu))
+    # The decoder in fp16 at Pythia-2.8B's width and at 4 heads of 512,
+    # built through the library's entry points.
+    log(f"    fp16 and 512-wide heads {since()}")
+    launches.update(user_runs(gpu))
+    # No main path runs fp16 at D 64 ((b)'s rows "<mode>_f16").
+    launches.update({f"{m}_f16": 0 for m in OUTPUTS})
     hvd.shutdown()
 
     # (e) sp on the card
@@ -6755,6 +7148,9 @@ if __name__ == "__main__":
         sys.exit(lc_reference_worker(sys.argv[2]))
     if sys.argv[1:2] == ["--time-tree"]:
         sys.exit(time_tree(*sys.argv[2:]))
+    if sys.argv[1:2] == ["--rounding-probe"]:
+        sys.path.insert(0, str(REPO))
+        sys.exit(rounding_probe())
     if sys.argv[1:2] == ["--sbn-race"]:
         rest = sys.argv[3:]
         out = {}

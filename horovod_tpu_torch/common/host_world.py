@@ -247,6 +247,12 @@ def _exchange_endpoint(addr: str, port: int, hostname: str, slot: int,
             if base is None:
                 base = _round_ports[rendezvous_round] = \
                     _config.free_port_pair()
+            # Held from now on: the publish and the peers' polls open
+            # connections, which could take the pair's ports until
+            # ``_open_store`` binds them.
+            from .state import _hold_ports
+
+            _hold_ports((base, base + _config.NATIVE_PORT_OFFSET))
             publish_controller_endpoint(addr, port, hostname, base,
                                         rendezvous_round)
             return hostname, base

@@ -629,6 +629,12 @@ def init(device=None, sp: int = 1, tp: int = 1, pp: int = 1, comm=None):
                         f"{_config.controller_addr()}:"
                         f"{_config.controller_base_port()}: {e}") from e
                 owns = True
+            elif dist.get_rank() == 0 and dist.get_world_size() > 1:
+                # The caller's store holds the base port. The native
+                # controller's is free from its bootstrap to the next
+                # init, where a ``connect()`` could take it: hold it as
+                # ``_open_store`` does.
+                _hold_ports((_config.native_controller_port(),))
             _state.config = _config.RuntimeConfig.from_env()
             _state.device = dev
             _state.owns_group = owns

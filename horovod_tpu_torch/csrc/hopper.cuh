@@ -3,7 +3,7 @@
 // warpgroup matrix multiply (wgmma) with fp32 register accumulators.
 //
 // Shared-memory tiles are written by TMA with the 128-byte swizzle: a tile
-// of R rows by 64 bf16 columns is R rows of 128 bytes, each 8-row group a
+// of R rows by 64 16-bit (bf16 or fp16) columns is R rows of 128 bytes, each 8-row group a
 // 1024-byte swizzle atom. A 128-column tile is two such 64-column tiles one
 // after the other (the swizzle's box is at most 128 bytes wide).
 //
@@ -11,13 +11,16 @@
 // (warp w = t / 32, lane l) holds accumulator element d[4 j + e] at row
 // 16 w + l / 4 + 8 (e / 2) and column 8 j + 2 (l % 4) + (e % 2). A register
 // A operand of one k16 step takes the same rows and the columns of two
-// consecutive 8-column chunks, as four bf16 pairs.
+// consecutive 8-column chunks, as four bf16 or fp16 pairs.
 
 #pragma once
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace hopper {
 
@@ -132,11 +135,23 @@ __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
-// Two floats as one bf16 pair (lo in the low half), as a register A
-// operand takes them.
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// Whether a 16-bit element type is fp16 (else bf16): the wgmma input type
+// and the pair packing follow it; the operand and fragment layouts are
+// the same for both.
+template <class E>
+inline constexpr bool kF16 = std::is_same<E, __half>::value;
+
+// Two floats as one pair of E (lo in the low half), rounded to nearest, as
+// a register A operand takes them.
+template <class E>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (kF16<E>) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
 }
 
 // Keep the accumulator's registers from being touched across an
@@ -147,142 +162,147 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// D[64 x N] (+)= A[64 x 16] . B[16 x N], A and B from shared memory, both
-// K-major (wgmma_ss, N = 32, 64 or 128) or A from registers and B MN-major
-// (wgmma_rs, N = 64 or 128). scale_d = 0 overwrites D.
-template <int N>
+// The wgmma instructions, one per shape, with the input type TY ("bf16"
+// or "f16") spliced into the opcode.
+#define HOPPER_SS32(TY)                                               \
+  asm volatile(                                                       \
+      "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"                  \
+      " wgmma.mma_async.sync.aligned.m64n32k16.f32." TY "." TY " {"   \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                              \
+      "%8, %9, %10, %11, %12, %13, %14, %15"                          \
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"                              \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),               \
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                 \
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),               \
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])              \
+      : "l"(da), "l"(db), "r"(scale_d))
+
+#define HOPPER_SS64(TY)                                               \
+  asm volatile(                                                       \
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"                  \
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"   \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                              \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                        \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                      \
+      "%24, %25, %26, %27, %28, %29, %30, %31"                        \
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"                              \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),               \
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                 \
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),               \
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),             \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),             \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),             \
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),             \
+      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])              \
+      : "l"(da), "l"(db), "r"(scale_d))
+
+#define HOPPER_RS64(TY)                                                 \
+  asm volatile(                                                         \
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"                    \
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {"     \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                          \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                        \
+      "%24, %25, %26, %27, %28, %29, %30, %31"                          \
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                  \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),                 \
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                   \
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),                 \
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),               \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),               \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),               \
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),               \
+      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])                \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+
+#define HOPPER_SS128(TY)                                               \
+  asm volatile(                                                        \
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"                   \
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"   \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                               \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                         \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                       \
+      "%24, %25, %26, %27, %28, %29, %30, %31, "                       \
+      "%32, %33, %34, %35, %36, %37, %38, %39, "                       \
+      "%40, %41, %42, %43, %44, %45, %46, %47, "                       \
+      "%48, %49, %50, %51, %52, %53, %54, %55, "                       \
+      "%56, %57, %58, %59, %60, %61, %62, %63"                         \
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"                               \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),                \
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                  \
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),                \
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),              \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),              \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),              \
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),              \
+      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),              \
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),              \
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),              \
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),              \
+      "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),              \
+      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),              \
+      "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),              \
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),              \
+      "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])               \
+      : "l"(da), "l"(db), "r"(scale_d))
+
+#define HOPPER_RS128(TY)                                                \
+  asm volatile(                                                         \
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"                    \
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {"    \
+      "%0, %1, %2, %3, %4, %5, %6, %7, "                                \
+      "%8, %9, %10, %11, %12, %13, %14, %15, "                          \
+      "%16, %17, %18, %19, %20, %21, %22, %23, "                        \
+      "%24, %25, %26, %27, %28, %29, %30, %31, "                        \
+      "%32, %33, %34, %35, %36, %37, %38, %39, "                        \
+      "%40, %41, %42, %43, %44, %45, %46, %47, "                        \
+      "%48, %49, %50, %51, %52, %53, %54, %55, "                        \
+      "%56, %57, %58, %59, %60, %61, %62, %63"                          \
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"                  \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),                 \
+      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                   \
+      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),                 \
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),               \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),               \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),               \
+      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),               \
+      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),               \
+      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),               \
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),               \
+      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),               \
+      "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),               \
+      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),               \
+      "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),               \
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),               \
+      "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+
+// D[64 x N] (+)= A[64 x 16] . B[16 x N] in fp32, inputs of type E (bf16 or
+// fp16), A and B from shared memory, both K-major (wgmma_ss, N = 32, 64 or
+// 128) or A from registers and B MN-major (wgmma_rs, N = 64 or 128).
+// scale_d = 0 overwrites D.
+template <int N, class E>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da, uint64_t db,
-                                         int scale_d);
-template <int N>
+                                         int scale_d) {
+  static_assert(N == 32 || N == 64 || N == 128, "wgmma_ss: N = 32, 64 or 128");
+  if constexpr (N == 32) {
+    if constexpr (kF16<E>) HOPPER_SS32("f16"); else HOPPER_SS32("bf16");
+  } else if constexpr (N == 64) {
+    if constexpr (kF16<E>) HOPPER_SS64("f16"); else HOPPER_SS64("bf16");
+  } else {
+    if constexpr (kF16<E>) HOPPER_SS128("f16"); else HOPPER_SS128("bf16");
+  }
+}
+
+template <int N, class E>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
-                                         uint64_t db);
-
-template <>
-__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t da, uint64_t db,
-                                            int scale_d) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t da, uint64_t db,
-                                            int scale_d) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4],
-                                            uint64_t db) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t da, uint64_t db,
-                                            int scale_d) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-      "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-      "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-      "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a)[4],
-                                            uint64_t db) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-      "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-      "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-      "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-      "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-      "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-      "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-      "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-      "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-      "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-      "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+                                         uint64_t db) {
+  static_assert(N == 64 || N == 128, "wgmma_rs: N = 64 or 128");
+  if constexpr (N == 64) {
+    if constexpr (kF16<E>) HOPPER_RS64("f16"); else HOPPER_RS64("bf16");
+  } else {
+    if constexpr (kF16<E>) HOPPER_RS128("f16"); else HOPPER_RS128("bf16");
+  }
 }
 
 }  // namespace hopper

@@ -229,8 +229,10 @@ def run(args) -> BenchRun:
         "unit": "images/sec/chip",
         # The reference publishes one per-device throughput (ResNet-101);
         # a ratio against it means something for the resnets only.
-        "vs_baseline": (round(per_chip / BASELINE_IMG_PER_SEC_PER_DEVICE, 3)
-                        if args.model.startswith("resnet") else None),
+        # Four significant digits: a slow host's ratio stays above 0.
+        "vs_baseline": (
+            float(f"{per_chip / BASELINE_IMG_PER_SEC_PER_DEVICE:.4g}")
+            if args.model.startswith("resnet") else None),
         "fusion": fusion,
         "compression": compression,
         "platform": "gpu" if device.type == "cuda" else device.type,

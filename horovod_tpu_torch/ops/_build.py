@@ -8,7 +8,10 @@ first kernel launch builds, and later launches reuse the loaded library.
 Libraries land in ``build/horovod_tpu_torch/`` beside the package (the
 repository's ``build/`` directory), named by a hash of the source, the
 headers beside it (``csrc/*.cuh``) and the flags, so an edit of either
-rebuilds and an unchanged source is built once.
+rebuilds and an unchanged source is built once. A source compiles as
+``PARTS`` translation units at once (``-DHVD_PART=i``, one ``nvcc -c``
+each, started together), linked into one library: its kernels of each
+element type build in parallel.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Sequence
 
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -29,6 +32,10 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "horovod_tpu_torch"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
+# Translation units of each source (``HVD_PART`` 0 .. PARTS-1):
+# flash_attention's fp32 kernels with the C interface, its bf16 kernels and
+# its fp16 kernels.
+PARTS = 3
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -74,44 +81,75 @@ def find_nvcc() -> str:
                        "the port's CUDA kernels are built from source")
 
 
-def library_path(name: str) -> Path:
+def library_path(name: str, defines: Sequence[str] = ()) -> Path:
     """Where the library built from ``csrc/<name>.cu`` lives: keyed by a
-    hash of the source, every ``csrc/*.cuh`` header and the flags."""
+    hash of the source, every ``csrc/*.cuh`` header, the flags and the
+    ``defines``."""
     digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
     for header in sorted(CSRC_DIR.glob("*.cuh")):
         digest.update(header.name.encode())
         digest.update(header.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join([*NVCC_FLAGS, *_macros(defines)]).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build(name: str, verbose: bool = False) -> Path:
+def _macros(defines: Sequence[str]) -> List[str]:
+    return [f"-D{d}" for d in defines]
+
+
+def build_commands(name: str, out: str, verbose: bool = False,
+                   defines: Sequence[str] = ()) -> List[List[str]]:
+    """The ``nvcc`` commands that build ``csrc/<name>.cu`` into ``out``:
+    one ``-c`` per part into ``<out>.<i>.o`` (run together), then the link
+    of those objects as the last command. ``defines``: macros every part
+    compiles with (a check's variant of the library)."""
+    nvcc, src = find_nvcc(), str(CSRC_DIR / f"{name}.cu")
+    ptxas = ["-Xptxas", "-v"] if verbose else []
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    objs = [f"{out}.{i}.o" for i in range(PARTS)]
+    cmds = [[nvcc, *compile_flags, *ptxas, *_macros(defines),
+             f"-DHVD_PART={i}", "-c", "-o", o, src]
+            for i, o in enumerate(objs)]
+    return cmds + [[nvcc, *NVCC_FLAGS, "-o", out, *objs]]
+
+
+def _run(cmd: List[str], name: str) -> str:
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
+    return proc.stderr
+
+
+def build(name: str, verbose: bool = False, defines: Sequence[str] = ()
+          ) -> Path:
     """Compile ``csrc/<name>.cu`` unless its library already exists.
 
     The compiler writes to a temporary file that is renamed into place,
     so processes that build at once never load a half-written library.
     ``verbose`` adds ``-Xptxas -v`` and keeps its report in BUILD_LOG.
+    ``defines`` builds a variant of the library (``build_commands``),
+    which ``load`` never returns.
     """
-    out = library_path(name)
+    from concurrent.futures import ThreadPoolExecutor
+
+    out = library_path(name, defines)
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", tmp, str(CSRC_DIR / f"{name}.cu")]
+    *parts, link = build_commands(name, tmp, verbose, defines)
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
-        if verbose:
-            BUILD_LOG[name] = proc.stderr
+        with ThreadPoolExecutor(max_workers=max(1, len(parts))) as pool:
+            logs = list(pool.map(lambda c: _run(c, name), parts))
+        logs.append(_run(link, name))
+        if verbose and not defines:
+            BUILD_LOG[name] = "".join(logs)
         os.replace(tmp, out)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        for path in [tmp] + [f"{tmp}.{i}.o" for i in range(len(parts))]:
+            if os.path.exists(path):
+                os.unlink(path)
     return out
 
 
@@ -133,14 +171,20 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(build(name)))
-            for fn, argtypes in SIGNATURES[name].items():
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
-            lib.hvd_error_string.argtypes = [ctypes.c_int]
-            lib.hvd_error_string.restype = ctypes.c_char_p
-            _loaded[name] = lib
+            lib = _loaded[name] = bind(name, build(name))
         return lib
+
+
+def bind(name: str, path: Path) -> ctypes.CDLL:
+    """The library at ``path`` (built from ``csrc/<name>.cu``) with its C
+    signatures set."""
+    lib = ctypes.CDLL(str(path))
+    for fn, argtypes in SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    lib.hvd_error_string.argtypes = [ctypes.c_int]
+    lib.hvd_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def check(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -16,9 +16,9 @@ wrapper              replaces (Pallas kernel)        plain version
 ``flash_fwd`` and ``flash_fwd_state`` are the three output modes of one
 kernel. Every wrapper takes packed-sequence segment ids, and the backward
 wrappers write fp32 outputs on request (``out_dtype``), as ring attention's
-backward needs (``flash_attention_block_grads``). With bf16 inputs the
-kernels read the ids through id tables (``IdTables``) that the first
-launch of a call builds and its later launches share.
+backward needs (``flash_attention_block_grads``). With bf16 and fp16
+inputs the kernels read the ids through id tables (``IdTables``) that the
+first launch of a call builds and its later launches share.
 
 Dispatch: a wrapper given CPU tensors computes its plain version; given
 CUDA tensors it launches its kernel or raises. There is no other path —
@@ -29,14 +29,17 @@ Layouts: q/k/v/dO are ``[B, T, H, D]``; ``lse``, ``delta``, ``m`` and
 ``l`` are fp32 ``[B, H, Tq]``; segment ids are integer ``[B, T]``. The
 kernels read q/k/v/dO by strides.
 
-Head dims: the kernels take fp32 and bf16 at any D from 1 to 256, each
-run at the smallest tile width of ``D_TILES`` that holds D
+Dtypes and head dims: the kernels take fp32, bf16 and fp16 inputs
+(``DTYPES``; the JAX attention's float dtypes) at any head dim D >= 1. D
+up to 256 runs at the smallest tile width of ``D_TILES`` that holds it;
+past 256 the kernels run the 256 width in chunks of 256 output columns
+on the grid, each reducing S (and dP) over the whole head dim
 (``kernel_layout``). An operand whose rows the kernels cannot read in
 place (D not a whole number of 16-byte words, or a pointer or stride off
 16 bytes) is copied into a contiguous buffer with D padded with zeros to a
 multiple of 8 (``needs_copy``; counted in ``LAYOUT_COPIES``), the same
-kernel runs on it, and the outputs are sliced back to D. fp16 inputs and
-D > 256 raise: they are the next slice's (ROADMAP §A).
+kernel runs on it, and the outputs are sliced back to D. Other dtypes and
+D < 1 raise.
 """
 
 from __future__ import annotations
@@ -50,20 +53,23 @@ from . import _build
 
 NEG_INF = -1e30
 # The head-dim tile widths the kernels are built at: a head dim D runs at
-# the smallest that holds it, with D itself passed at run time.
+# the smallest that holds it, with D itself passed at run time; past the
+# last, in chunks of that width.
 D_TILES = (64, 128, 256)
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# Where the head dims and dtypes the kernels do not take yet are queued.
-_NEXT_SLICE = "queued in ROADMAP §A (the next slice)"
+# The input dtypes the kernels take, by their code in the C interface.
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+DTYPES = tuple(_DTYPE_CODE)
 
 # Keys per tile of the forward kernel, by (dtype, tile width): the state
-# mode's P is rounded to bf16 against the running max of each such tile,
-# so a reference that rounds as the kernel does walks the keys in these
-# tiles. The library reports the tile its launcher uses
+# mode's P is rounded to the inputs' dtype against the running max of each
+# such tile, so a reference that rounds as the kernel does walks the keys
+# in these tiles. The library reports the tile its launcher uses
 # (``hvd_flash_fwd_key_tile``); ``chip_smoke.py`` holds the two equal.
 FWD_KEY_TILE = {(torch.bfloat16, 64): 128, (torch.bfloat16, 128): 128,
-                (torch.bfloat16, 256): 64, (torch.float32, 64): 64,
-                (torch.float32, 128): 32, (torch.float32, 256): 32}
+                (torch.bfloat16, 256): 64, (torch.float16, 64): 128,
+                (torch.float16, 128): 128, (torch.float16, 256): 64,
+                (torch.float32, 64): 64, (torch.float32, 128): 32,
+                (torch.float32, 256): 32}
 
 # Launches of each kernel. flash_fwd counts its three output modes apart,
 # and the backward kernels their fp32-output mode; a launch with segment
@@ -160,8 +166,9 @@ def flash_fwd_state_plain(q, k, v, causal=True, q_off=0, k_off=0,
                           window=None, q_seg=None, k_seg=None):
     """Plain version of ``flash_fwd_state`` (the JAX package's
     ``_xla_block_state``): (acc fp32 [B,Tq,H,D] = unnormalized P.V, m and
-    l fp32 [B,H,Tq]). P is rounded to V's dtype before P.V, as the Pallas
-    kernel does; the product accumulates in fp32."""
+    l fp32 [B,H,Tq]). P is rounded to V's dtype (bf16 or fp16; P <= 1, so
+    fp16 cannot overflow) before P.V, as the Pallas kernel does; the
+    product accumulates in fp32."""
     p, m, l = _masked_probs(q, k, causal, q_off, k_off, window, q_seg, k_seg)
     acc = torch.einsum("bhts,bshd->bthd", p.to(v.dtype).float(), v.float())
     return acc, m[..., 0], l[..., 0]
@@ -208,25 +215,33 @@ def flash_bwd_dkv_plain(q, k, v, do, lse, delta, causal=True, q_off=0,
 
 def kernel_layout(D: int, dtype: torch.dtype) -> Tuple[int, int]:
     """(D_T, D_k) of head dim D: the tile width the kernels run it at (the
-    smallest of ``D_TILES`` that holds it) and the head dim they read, D
-    itself when a row of D values is a whole number of 16-byte words, else
-    D padded to the next multiple of 8 (bf16 D % 8, fp32 D % 4: TMA and
-    the 16-byte loads read whole words). Raises for a dtype without
-    kernels and for D outside 1..256."""
+    smallest of ``D_TILES`` that holds it; past the last, that width in
+    chunks of D_T output columns, ``chunks``) and the head dim they read,
+    D itself when a row of D values is a whole number of 16-byte words,
+    else D padded to the next multiple of 8 (16-bit D % 8, fp32 D % 4: TMA
+    and the 16-byte loads read whole words). Raises for a dtype without
+    kernels and for D < 1."""
     if dtype not in _DTYPE_CODE:
-        raise ValueError(f"dtype {dtype} not supported (float32, bfloat16; "
-                         f"float16 is {_NEXT_SLICE})")
-    if not 1 <= D <= D_TILES[-1]:
-        raise ValueError(f"head dim {D} not supported (1 to {D_TILES[-1]}; "
-                         f"wider heads are {_NEXT_SLICE})")
+        names = ", ".join(str(d).replace("torch.", "") for d in DTYPES)
+        raise ValueError(f"dtype {dtype} not supported ({names})")
+    if D < 1:
+        raise ValueError(f"head dim {D} not supported (at least 1)")
     es = torch.finfo(dtype).bits // 8
     Dk = D if D * es % 16 == 0 else -(-D // 8) * 8
-    return next(t for t in D_TILES if D <= t), Dk
+    return next((t for t in D_TILES if D <= t), D_TILES[-1]), Dk
+
+
+def chunks(D: int, dtype: torch.dtype) -> int:
+    """The kernels' chunks of output columns at head dim D: 1 up to the
+    widest tile, then one CTA per D_T columns of the read head dim, each
+    computing S (and dP) over all of it."""
+    tile, Dk = kernel_layout(D, dtype)
+    return -(-Dk // tile)
 
 
 def _kernel_strides_ok(t: torch.Tensor) -> bool:
     """The kernels read 16 bytes at a time along a contiguous head dim;
-    the bf16 kernels' TMA tensor maps also need a 16-byte-aligned base and
+    the 16-bit kernels' TMA tensor maps also need a 16-byte-aligned base and
     b/t/h strides that are multiples of 16 bytes."""
     es = t.element_size()
     return (t.stride(3) == 1 and t.data_ptr() % 16 == 0
@@ -328,11 +343,11 @@ def _id_table_ints(B, T):
 
 
 def _id_scratch(q, k, q_seg):
-    """Scratch for the id tables that the bf16 kernels build from
+    """Scratch for the id tables that the 16-bit kernels build from
     segment ids before they run: the q side's table, then the k side's
     (None without ids, and for fp32 inputs, whose kernels read the ids as
     given)."""
-    if q_seg is None or q.dtype != torch.bfloat16:
+    if q_seg is None or q.dtype == torch.float32:
         return None
     B = q.shape[0]
     n = _id_table_ints(B, q.shape[1]) + _id_table_ints(B, k.shape[1])
@@ -340,7 +355,7 @@ def _id_scratch(q, k, q_seg):
 
 
 class IdTables:
-    """The id tables of one call's segment ids, for the bf16 kernels on
+    """The id tables of one call's segment ids, for the 16-bit kernels on
     the card: the first launch handed them builds them into ``scratch``
     (``flash_id_table``, ahead of its kernel), and every later launch on
     the same ids reads them as built. ``flash_attention``'s forward builds
@@ -358,8 +373,8 @@ class IdTables:
 def _seg_args(name, q, k, q_seg, k_seg, tables):
     """(q_ids, k_ids, id_scratch, tables) of one launch, as the C
     interface takes them: the ids (int32) while the tables are not built,
-    with the scratch to build them in (bf16); the scratch alone once they
-    are. ``tables`` None: this launch's own."""
+    with the scratch to build them in (16-bit inputs); the scratch alone
+    once they are. ``tables`` None: this launch's own."""
     if tables is None:
         tables = IdTables(q, k, q_seg)
     elif q_seg is None or tables.shape != (q.shape[0], q.shape[1],

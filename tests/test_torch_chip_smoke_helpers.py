@@ -151,8 +151,10 @@ def test_rounded_plain_tile_comes_from_the_wrapper():
     from horovod_tpu_torch.ops import flash_attention as fa
 
     assert set(fa.FWD_KEY_TILE) == {(dt, d) for dt in (torch.bfloat16,
+                                                       torch.float16,
                                                        torch.float32)
                                     for d in fa.D_TILES}
+    assert set(fa.DTYPES) == {torch.bfloat16, torch.float16, torch.float32}
     src = open(os.path.join(REPO, "chip_smoke.py")).read()
     assert "fa.FWD_KEY_TILE[" in src
 

@@ -1,24 +1,28 @@
-"""The port's attention at head dims other than 64 and 128, against the JAX
-package's.
+"""The port's attention at head dims other than 64 and 128 and in fp16,
+against the JAX package's.
 
-The JAX attention takes any head dim (its tiling constraint is on T
-only); the port's kernels run every D from 1 to 256 at three tile widths
-(``ops/flash_attention.kernel_layout``). On the CPU the wrappers compute
-their plain versions, which take any D: each is held here against the
-Pallas kernel it replaces, in interpret mode, on the same numpy inputs,
-at D 16, 20, 80, 96 and 256 in fp32 and bf16, in every mode (the
-forward's plain, train and state outputs; dQ and dK/dV with fp32
-outputs), causal with a window and offsets, and causal with segment ids.
-Then the decoder at D 80 and 256 (``d_model`` 160 over 2 heads, 256 over
-1) against the JAX model, and the wrapper's layout rule as a function.
+The JAX attention takes any float dtype and any head dim (its tiling
+constraint is on T only); the port's kernels run fp32, bf16 and fp16 at
+every D >= 1, up to 256 at three tile widths and past it in chunks of 256
+output columns (``ops/flash_attention.kernel_layout``). On the CPU the
+wrappers compute their plain versions, which take any D: each is held
+here against the Pallas kernel it replaces, in interpret mode, on the
+same numpy inputs, at D 16, 20, 80, 96, 256, 320 and 512 in fp32, bf16
+and fp16, in every mode (the forward's plain, train and state outputs; dQ
+and dK/dV with fp32 outputs), causal with a window and offsets, and
+causal with segment ids. Then the decoder at D 80 and 256 (``d_model``
+160 over 2 heads, 256 over 1) against the JAX model, and the wrapper's
+layout rule as a function.
 
 Tolerances are ``tests/test_torch_flash_attention.py``'s (the reference's
 own): 2e-5 in fp32 and 2e-2 in bf16, the latter for bf16 rounding at
 other places in the two computations (the Pallas kernels round P and dS
 to the inputs' dtype before their products; the plain versions do not).
-The decoder's are ``tests/test_torch_transformer.py``'s: loss rel 1e-5,
-gradients rtol 1e-4 with atol 1e-6 of the largest entry, fp32 on both
-sides.
+fp16 keeps 3 more bits than bf16, so the same rounding moves the outputs
+~8 times less: 5e-3 (at D 512 the two sides differ by at most 2e-3 on
+outputs of magnitude 1 to 5). The decoder's are
+``tests/test_torch_transformer.py``'s: loss rel 1e-5, gradients rtol 1e-4
+with atol 1e-6 of the largest entry, fp32 on both sides.
 """
 
 import numpy as np
@@ -35,9 +39,11 @@ from horovod_tpu_torch.models import transformer as tt
 from horovod_tpu_torch.ops import flash_attention as fa
 from horovod_tpu_torch.training import cross_entropy_loss
 
-TOL = {"float32": 2e-5, "bfloat16": 2e-2}
-_JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
-_TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+TOL = {"float32": 2e-5, "bfloat16": 2e-2, "float16": 5e-3}
+_JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16,
+        "float16": jnp.float16}
+_TDT = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+        "float16": torch.float16}
 B, H, T = 2, 2, 64
 # Masks: queries at global positions 32..95 against keys 0..63 under a
 # causal window of 24 (rows 32..55 see a partial window, the rest none
@@ -76,8 +82,8 @@ def _close(got, want, tol, what):
 
 
 @pytest.mark.parametrize("mask", sorted(MASKS))
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("D", [16, 20, 80, 96, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("D", [16, 20, 80, 96, 256, 320, 512])
 def test_every_mode_matches_the_pallas_kernels(D, dtype, mask):
     kw = MASKS[mask]
     q, k, v, do = _inputs(D, seed=D)
@@ -176,25 +182,32 @@ def test_decoder_matches_jax_at_wide_heads(width, monkeypatch):
     (65, torch.float32, (128, 72)), (80, torch.bfloat16, (128, 80)),
     (96, torch.float32, (128, 96)), (128, torch.bfloat16, (128, 128)),
     (129, torch.bfloat16, (256, 136)), (160, torch.bfloat16, (256, 160)),
-    (256, torch.float32, (256, 256)),
+    (256, torch.float32, (256, 256)), (257, torch.bfloat16, (256, 264)),
+    (320, torch.float32, (256, 320)), (64, torch.float16, (64, 64)),
+    (20, torch.float16, (64, 24)), (1024, torch.float16, (256, 1024)),
 ])
 def test_kernel_layout_picks_the_tile_and_the_padded_dim(D, dtype, layout):
-    """D runs at the smallest tile width of 64, 128 and 256 that holds it;
-    the kernels read D itself when its row is whole 16-byte words, else D
-    padded to a multiple of 8."""
+    """D runs at the smallest tile width of 64, 128 and 256 that holds it,
+    and past 256 at 256 in chunks of 256 output columns; the kernels read D
+    itself when its row is whole 16-byte words, else D padded to a multiple
+    of 8."""
     assert fa.kernel_layout(D, dtype) == layout
     assert layout[0] in fa.D_TILES
+    assert fa.chunks(D, dtype) == -(-layout[1] // layout[0])
+    assert (fa.chunks(D, dtype) > 1) == (D > fa.D_TILES[-1])
 
 
 @pytest.mark.parametrize("D, dtype, match", [
-    (257, torch.bfloat16, "head dim 257"), (320, torch.float32, "head dim"),
-    (0, torch.bfloat16, "head dim 0"), (64, torch.float16, "float16"),
+    (0, torch.bfloat16, "head dim 0"), (-1, torch.float16, "head dim -1"),
+    (64, torch.float64, "float64"), (64, torch.int32, "int32"),
 ])
 def test_kernel_layout_refuses_what_is_queued(D, dtype, match):
-    """D above 256 and fp16 inputs raise, naming the queue they wait in."""
+    """What has no kernel raises: D below 1, and dtypes other than fp32,
+    bf16 and fp16 (the message names the three)."""
     with pytest.raises(ValueError, match=match) as e:
         fa.kernel_layout(D, dtype)
-    assert "ROADMAP §A" in str(e.value)
+    if "dtype" in str(e.value):
+        assert "float32, bfloat16, float16" in str(e.value)
 
 
 def _view(shape, spare, dtype, offset=0):

@@ -365,3 +365,17 @@ def test_image_bench_prints_bench_keys_on_the_cpu(capsys):
     assert line["compression"]["mode"] == "none"
     assert line["fusion"]["num_buckets"] == 1
     assert np.isfinite(line["loss"]) and line["vs_baseline"] > 0
+
+
+def test_image_bench_ratio_stays_positive_on_a_slow_host(capsys, monkeypatch):
+    """A throughput far below the reference's (a loaded CPU) still gives a
+    positive ``vs_baseline``: four significant digits, not three
+    decimals."""
+    from horovod_tpu_torch import image_bench
+
+    monkeypatch.setattr(image_bench, "BASELINE_IMG_PER_SEC_PER_DEVICE", 1e9)
+    image_bench.main(["--device", "cpu", "--model", "resnet50",
+                      "--image-size", "32", "--batch-size", "2",
+                      "--num-warmup", "1", "--num-iters", "1"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["value"] > 0 and 0 < line["vs_baseline"] < 1e-3

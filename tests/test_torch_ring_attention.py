@@ -50,7 +50,7 @@ from horovod_tpu_torch.ops import flash_attention as fa
 from horovod_tpu_torch.parallel import mesh as tmesh
 from horovod_tpu_torch.parallel import ulysses as tul
 
-from torch_worlds import free_port_pair
+from torch_worlds import held_port_pair
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -296,7 +296,7 @@ def _launch(size, tmp):
     np.savez(tmp / "inputs.npz", **inputs)
     (tmp / "spec.json").write_text(json.dumps(_spec(size)))
     outs = [tmp / f"rank{r}.npz" for r in range(size)]
-    port = free_port_pair()
+    port, holders = held_port_pair()
     procs = []
     for r in range(size):
         env = dict(os.environ, HOROVOD_RANK=str(r), HOROVOD_SIZE=str(size),
@@ -307,30 +307,33 @@ def _launch(size, tmp):
             [sys.executable, "-c", WORKER, str(tmp / "spec.json"),
              str(tmp / "inputs.npz"), *map(str, outs)], cwd=REPO, env=env,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    return procs, outs
+    return procs, outs, holders
 
 
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory):
-    """The 2- and 4-rank gloo worlds, run side by side once; returns
+    """The 2- and 4-rank gloo worlds, run side by side once, each on a
+    pair of ports this process holds until both end; returns
     {size: [each rank's results]}."""
     launched = {size: _launch(size, tmp_path_factory.mktemp(f"sp{size}"))
                 for size in (2, 4)}
     logs = {}
     try:
-        for size, (procs, _) in launched.items():
+        for size, (procs, _, _) in launched.items():
             logs[size] = [p.communicate(timeout=300)[0] for p in procs]
     finally:
-        for procs, _ in launched.values():
+        for procs, _, holders in launched.values():
             for p in procs:
                 if p.poll() is None:
                     p.kill()
                     p.wait()
-    for size, (procs, outs) in launched.items():
+            for sock in holders:
+                sock.close()
+    for size, (procs, outs, _) in launched.items():
         for p, log in zip(procs, logs[size]):
             assert p.returncode == 0, log
     return {size: [dict(np.load(o)) for o in outs]
-            for size, (_, outs) in launched.items()}
+            for size, (_, outs, _) in launched.items()}
 
 
 def _gather_t(ranks, key):

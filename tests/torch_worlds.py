@@ -18,6 +18,7 @@ worker on the port's binding.
 import json
 import os
 import signal
+import socket
 import subprocess
 import sys
 import textwrap
@@ -25,7 +26,7 @@ import time
 
 import numpy as np
 
-from horovod_tpu_torch.common.config import free_port_pair
+from horovod_tpu_torch.common.config import NATIVE_PORT_OFFSET, free_port_pair
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -72,11 +73,35 @@ dist.destroy_process_group()
 """
 
 
+def held_port_pair():
+    """(base port, holders): a pair from ``free_port_pair``, each port held
+    at once by a socket of this process bound with ``SO_REUSEADDR`` that
+    never listens. The world's rank 0 binds its store and native
+    controller beside them (both set ``SO_REUSEADDR``), but no
+    ``connect()`` on the host takes either as its ephemeral port while the
+    world starts, before rank 0 holds them itself. Close the holders when
+    the world has ended."""
+    for _ in range(64):
+        port, holders = free_port_pair(), []
+        try:
+            for p in (port, port + NATIVE_PORT_OFFSET):
+                holders.append(socket.socket())
+                holders[-1].setsockopt(socket.SOL_SOCKET,
+                                       socket.SO_REUSEADDR, 1)
+                holders[-1].bind(("", p))
+            return port, holders
+        except OSError:
+            for sock in holders:
+                sock.close()
+    raise RuntimeError("no pair of free ports for a world")
+
+
 class World:
     """A launched world; ``results()`` waits for it."""
 
-    def __init__(self, procs, outs):
+    def __init__(self, procs, outs, holders=()):
         self.procs, self.outs = procs, outs
+        self._holders = list(holders)
         self._results = None
 
     def results(self, timeout=180):
@@ -90,6 +115,8 @@ class World:
                     if p.poll() is None:
                         p.kill()
                         p.wait()
+                for sock in self._holders:
+                    sock.close()
             for r, (p, log) in enumerate(zip(self.procs, logs)):
                 assert p.returncode == 0, f"rank {r}:\n{log}"
             self._results = [dict(np.load(o)) for o in self.outs]
@@ -104,7 +131,7 @@ def launch(worker: str, size: int, tmp, spec: dict, inputs: dict,
     np.savez(tmp / "inputs.npz", **inputs)
     (tmp / "spec.json").write_text(json.dumps(spec))
     outs = [tmp / f"rank{r}.npz" for r in range(size)]
-    port = free_port_pair()
+    port, holders = held_port_pair()
     procs = []
     for r in range(size):
         renv = dict(os.environ, HOROVOD_RANK=str(r), HOROVOD_SIZE=str(size),
@@ -116,7 +143,7 @@ def launch(worker: str, size: int, tmp, spec: dict, inputs: dict,
             [sys.executable, "-c", worker, str(tmp / "spec.json"),
              str(tmp / "inputs.npz"), *map(str, outs)], cwd=REPO, env=renv,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    return World(procs, outs)
+    return World(procs, outs, holders)
 
 
 # An elastic worker on the port's binding: ``CHURN_TARGET`` committed
